@@ -1,0 +1,197 @@
+"""Command line of the port: the reference's `run` experiment on one GPU.
+
+  python -m dst_libp2p_test_node_tpu_torch run <runs> <nodes> <message_size> \\
+      <num_fragment> <num_publishers> <min_bandwidth> <max_bandwidth> \\
+      <min_latency> <max_latency> <anchor_stages> <packet_loss> \\
+      <publisher_id> <publisher_rotation> <inter_message_delay> \\
+      --delivery-mode bounded [--device cpu] [flags]
+
+The 14 positionals and the flags are the reference's (shadow/run.sh:23-38
+order, dst_libp2p_test_node_tpu/cli.py cmd_run), plus `--device`. It writes
+latencies<i> and shadowlog<i> and prints the per-run summaries. Flags whose
+paths are not ported yet (exact delivery mode, mix routing, checkpoints, a
+lossy topology) exit with an error naming what is missing. The topology
+artifacts (network_topology.gml, shadow.yaml) are not written: that is the
+`topogen` subcommand's job, not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+import numpy as np
+
+from .config.env import gossipsub_params_from_env
+from .config.topology import Topology, TopoParams
+
+# run.sh positional order (run.sh:23-38)
+RUN_SH_PARAMS = [
+    "runs", "nodes", "msg_size", "num_frag", "num_publishers",
+    "min_bandwidth", "max_bandwidth", "min_latency", "max_latency",
+    "anchor_stages", "packet_loss", "publisher_id", "publisher_rotation",
+    "inter_message_delay_ms",
+]
+
+
+def _topo_from_fields(m: dict, muxer: str = "yamux") -> TopoParams:
+    return TopoParams(
+        network_size=int(m["nodes"]),
+        min_bandwidth=int(m["min_bandwidth"]),
+        max_bandwidth=int(m["max_bandwidth"]),
+        min_latency=int(m["min_latency"]),
+        max_latency=int(m["max_latency"]),
+        anchor_stages=int(m["anchor_stages"]),
+        packet_loss=float(m["packet_loss"]),
+        msg_size_bytes=int(m["msg_size"]),
+        num_frags=int(m["num_frag"]),
+        messages=int(m["num_publishers"]),
+        delay_seconds=float(m["inter_message_delay_ms"]) / 1000.0,
+        muxer=muxer,
+    )
+
+
+def _run_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="run",
+        usage="run <runs> <nodes> <message_size> <num_fragment> "
+        "<num_publishers> <min_bandwidth> <max_bandwidth> <min_latency> "
+        "<max_latency> <anchor_stages> <packet_loss> <publisher_id> "
+        "<publisher_rotation> <inter_message_delay> --delivery-mode bounded "
+        "[--device cpu] [--seed N] [--warmup-s S] ...",
+    )
+    for name in RUN_SH_PARAMS:
+        p.add_argument(name)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--warmup-s", type=float, default=500.0)
+    p.add_argument("--connect-to", type=int, default=10)
+    p.add_argument("--muxer", choices=["mplex", "yamux", "quic"],
+                   default="yamux")
+    p.add_argument("--no-gossip", action="store_true")
+    p.add_argument("--churn", type=float, default=0.0,
+                   help="per-heartbeat down-probability (failure injection)")
+    p.add_argument("--use-mix", action="store_true",
+                   help="route publishes through the mix network (not "
+                   "ported yet)")
+    p.add_argument("--num-mix", type=int, default=0, help="NUMMIX")
+    p.add_argument("--mix-d", type=int, default=4, help="MIXD")
+    p.add_argument("--out-prefix", default="")
+    p.add_argument("--stats-json", action="store_true",
+                   help="also write stats<i>.json next to latencies<i>")
+    p.add_argument("--checkpoint", default=None, help="(not ported yet)")
+    p.add_argument("--checkpoint-every", type=int, default=1)
+    p.add_argument("--resume", default=None, help="(not ported yet)")
+    p.add_argument("--gml", default=None,
+                   help="ingest an existing network_topology.gml (needs "
+                   "networkx)")
+    p.add_argument("--msgid-mode", choices=["nim", "go"], default="nim")
+    p.add_argument("--loss-mode", choices=["tcp", "message"], default="tcp")
+    p.add_argument("--delivery-mode", choices=["exact", "bounded"],
+                   default="exact",
+                   help="answered-IWANT serialization fidelity; only "
+                   "bounded is ported so far")
+    p.add_argument("--device", default=None,
+                   help="torch device (default cuda; cpu runs the plain "
+                   "versions of the kernels)")
+    return p
+
+
+def cmd_run(argv: list[str]) -> int:
+    p = _run_parser()
+    a = p.parse_args(argv)
+    if a.delivery_mode == "exact" and not a.no_gossip:
+        p.error("exact delivery mode is not ported yet (the exact-mode "
+                "slice); pass --delivery-mode bounded")
+    if a.use_mix:
+        p.error("--use-mix is not ported yet (the mix-relay slice)")
+    if a.checkpoint or a.resume:
+        p.error("--checkpoint/--resume are not ported yet (the service "
+                "slice)")
+    if float(a.packet_loss) > 0.0:
+        p.error("a lossy topology (packet_loss > 0) is not ported yet (the "
+                "loss-models slice)")
+
+    from .device import resolve_device
+    from .runtime.simulator import ExperimentConfig, Simulator
+    from .runtime.summarize import report, sanitize_nonfinite
+
+    try:
+        device = resolve_device(a.device)
+    except RuntimeError as exc:
+        p.error(str(exc))
+    topo = _topo_from_fields(vars(a), muxer=a.muxer)
+    if a.gml:
+        t = Topology.from_gml(a.gml, network_size=topo.network_size,
+                              params=topo)
+        topo = t.params
+    else:
+        t = Topology.build(topo)
+
+    large = topo.msg_size_bytes >= 1000
+    for i in range(1, int(a.runs) + 1):
+        print(f"Running for turn {i}")
+        cfg = ExperimentConfig(
+            topo=topo,
+            connect_to=a.connect_to,
+            gossipsub=gossipsub_params_from_env(),
+            publisher_id=int(a.publisher_id),
+            publisher_rotation=bool(int(a.publisher_rotation)),
+            warmup_s=a.warmup_s,
+            seed=a.seed + i - 1,
+            with_gossip=not a.no_gossip,
+            churn_down_per_hb=a.churn,
+            churn_up_per_hb=a.churn / 2 if a.churn else 0.0,
+            msgid_mode=a.msgid_mode,
+            loss_mode=a.loss_mode,
+            serialize_answers=(a.delivery_mode == "exact"),
+        )
+        t0 = time.time()
+        sim = Simulator(cfg, topology=t, device=device)
+        sim.run()
+        if device.type == "cuda":
+            import torch
+
+            torch.cuda.synchronize(device)
+        wall = time.time() - t0
+        n_lines = sim.write_latencies(f"{a.out_prefix}latencies{i}")
+        sim.write_shadowlog(f"{a.out_prefix}shadowlog{i}")
+        s = sim.summary(large)
+        print(f"Summary for turn {i}")
+        print(report(s, large=large), end="")
+        print(sim.bandwidth_report(), end="")
+        print(f"[torch backend device={device}] wall={wall:.2f}s "
+              f"peers*rounds/s={sim.peer_rounds_per_sec(wall):.0f} "
+              f"lines={n_lines}")
+        if a.stats_json:
+            delays = np.concatenate(
+                [r.delays_ms[r.received] for r in sim.records])
+            with open(f"{a.out_prefix}stats{i}.json", "w") as f:
+                json.dump(sanitize_nonfinite({
+                    "network_size": s.network_size,
+                    "coverage": s.coverage(),
+                    "max_latency_ms": s.max_latency_ms,
+                    "avg_latency_ms": s.avg_latency_ms,
+                    "avg_max_latency_ms": s.avg_max_latency_ms,
+                    "p50_ms": float(np.percentile(delays, 50)),
+                    "p99_ms": float(np.percentile(delays, 99)),
+                    "converged": all(r.converged for r in sim.records),
+                    "answer_wait_max_ms": max(
+                        r.answer_wait_max_ms for r in sim.records),
+                    "delivery_mode": a.delivery_mode,
+                    "device": str(device),
+                    "wall_s": wall,
+                    "peer_rounds_per_sec": sim.peer_rounds_per_sec(wall),
+                }), f, indent=2, allow_nan=False)
+    return 0
+
+
+def main(argv: list[str] | None = None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if not argv or argv[0] != "run":
+        print("usage: python -m dst_libp2p_test_node_tpu_torch run <14 "
+              "positionals> --delivery-mode bounded [--device cpu] ...\n"
+              "only `run` is ported so far", file=sys.stderr)
+        return 2
+    return cmd_run(argv[1:])

@@ -1,0 +1,78 @@
+"""The reciprocal-permutation pull: out[q, j] = vals[conns[q,j], rev[q,j]].
+
+Every exchange across the static directed-edge involution (p, i) <->
+(q = conns[p,i], j = rev[p,i]) is this gather: GRAFT/PRUNE reciprocity in
+the heartbeat, the offer pull of the sender-side fixpoint and the
+accounting pulls of disseminate.
+
+Two formulations, chosen by `exceeds_budget` exactly as the reference
+chooses them, so the port takes the same path for the same shapes:
+  - the row gather `vals[conns]` (an (N, C, C) intermediate) plus a one-hot
+    slot select, below the budget;
+  - the direct two-index gather `vals[conns, rev]`, above it.
+Both give the same values. The budget constant is the reference's, a rule
+written for the TPU (128-lane padding of the last axis); re-deriving it for
+the H100 is later work, and changing it would move the sender-side /
+receiver-side fixpoint switch in ops/disseminate.py with it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+INF = 3.4e38
+
+# Peak-memory budget of the padded (N, C, C) row-gather intermediate,
+# verbatim from the reference (N*C*max(128, C)*itemsize bytes).
+_MAX_INTERMEDIATE_BYTES = 6 * 1024**3
+_LANE = 128
+
+
+def exceeds_budget(dtype, conns_shape, batch_factor: int = 1) -> bool:
+    """Would the padded row-gather intermediate for this pull exceed the
+    budget? `batch_factor`: the fragment multiplicity the reference's vmap
+    allocates at once, kept so the dispatch matches it."""
+    n, c = conns_shape[-2], conns_shape[-1]
+    itemsize = 1 if dtype == torch.bool else dtype.itemsize
+    padded = n * c * max(_LANE, c) * itemsize * max(batch_factor, 1)
+    return padded > _MAX_INTERMEDIATE_BYTES
+
+
+def _row_pull(vals, conns, rev, select, batch_factor):
+    q, r = conns.clamp_min(0), rev.clamp_min(0)
+    if exceeds_budget(vals.dtype, conns.shape, batch_factor):
+        return vals[q, r]
+    rows = vals[q]                                   # (N, C, C)
+    sel = torch.arange(conns.shape[-1], device=conns.device) == r[..., None]
+    return select(rows, sel)
+
+
+def reciprocal_pull_bool(edge_mask, conns, rev, batch_factor: int = 1):
+    """out[q, j] = edge_mask[conns[q,j], rev[q,j]]; False on invalid slots."""
+    out = _row_pull(edge_mask, conns, rev,
+                    lambda rows, sel: (rows & sel).any(dim=-1), batch_factor)
+    return out & (conns >= 0) & (rev >= 0)
+
+
+def neighbor_pull_bool(per_peer, conns, rev, batch_factor: int = 1):
+    """out[q, j] = per_peer[conns[q,j]] (False on invalid slots), pulled as
+    the reciprocal pull of the slot-constant (N, C) table."""
+    table = per_peer[:, None].expand(conns.shape)
+    return reciprocal_pull_bool(table, conns, rev, batch_factor)
+
+
+def neighbor_pull_min(per_peer, conns, rev, batch_factor: int = 1):
+    """out[q, j] = per_peer[conns[q,j]] for floats; INF on invalid slots."""
+    table = per_peer[:, None].expand(conns.shape)
+    return reciprocal_pull_min(table, conns, rev, batch_factor)
+
+
+def reciprocal_pull_min(vals, conns, rev, batch_factor: int = 1):
+    """out[q, j] = vals[conns[q,j], rev[q,j]] for float vals; INF on invalid
+    slots. The row form selects the one slot with a masked min (INF is
+    both the identity of min and the 'absent' sentinel)."""
+    out = _row_pull(
+        vals, conns, rev,
+        lambda rows, sel: torch.where(sel, rows, INF).amin(dim=-1),
+        batch_factor)
+    return torch.where((conns >= 0) & (rev >= 0), out, INF)

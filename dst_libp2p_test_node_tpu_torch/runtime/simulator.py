@@ -1,0 +1,304 @@
+"""Experiment runtime: what `shadow shadow.yaml` does for the reference.
+
+The port of the reference Simulator's main path:
+
+  boot     -> connection graph build (ops/graph.py, host numpy)
+  warm-up  -> `warmup_s` heartbeats of mesh maintenance (ops/heartbeat.py)
+  inject   -> one disseminate() per message, heartbeats advancing between
+              messages at the configured spacing
+  output   -> awk-compatible latencies lines (runtime/logemit.py), the
+              shadowlog and summaries (runtime/summarize.py, bandwidth.py)
+
+All state lives on one device: CUDA unless the caller passes device="cpu".
+Mix routing, telemetry, checkpoints, batched publish and meshes are later
+slices (ROADMAP A) and raise.
+"""
+
+from __future__ import annotations
+
+import io
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..config.env import GossipSubParams
+from ..config.topology import Topology, TopoParams
+from ..device import resolve_device
+from ..ops.disseminate import answer_tables, disseminate, edge_tables
+from ..ops.graph import build_connection_graph
+from ..ops.heartbeat import run_heartbeats
+from ..ops.pull import neighbor_pull_bool
+from ..ops.state import SimParams, graph_arrays, init_state
+from .logemit import LatenciesWriter
+from .summarize import LatencySummary, report, summarize
+
+# per-hop processing cost by muxer: event-loop crossings x 0.2 ms each (the
+# reference derives both numbers, runtime/simulator.py:37-67)
+EVENT_LOOP_MS = 0.2
+_MUXER_CROSSINGS = {"yamux": 4.0, "mplex": 4.4, "quic": 3.0}
+MUXER_PROC_MS = {m: EVENT_LOOP_MS * x for m, x in _MUXER_CROSSINGS.items()}
+
+
+@dataclass
+class ExperimentConfig:
+    """The reference's ExperimentConfig fields; those outside this slice
+    must keep their defaults (the Simulator raises otherwise)."""
+
+    topo: TopoParams = field(default_factory=TopoParams)
+    connect_to: int = 10
+    gossipsub: GossipSubParams = field(default_factory=GossipSubParams)
+    publisher_id: int = 4
+    publisher_rotation: bool = False
+    warmup_s: float = 500.0
+    self_trigger: bool = True
+    max_connections: int = 250
+    seed: int = 0
+    with_gossip: bool = True
+    churn_down_per_hb: float = 0.0
+    churn_up_per_hb: float = 0.0
+    uses_mix: bool = False
+    num_mix: int = 0
+    mix_d: int = 4
+    loss_mode: str = "tcp"
+    serialize_answers: bool = True
+    answer_queue_mode: str = "parallel_prefix"
+    packed_state: bool = False
+    warm_start: bool = False
+    msgid_mode: str = "nim"
+
+
+def drain_heartbeat_carry(carry_ms: float, ms: float, hb_ms: float):
+    """Advance a fractional-heartbeat accumulator: (whole steps due, carry)."""
+    carry = carry_ms + ms
+    steps = int(carry // hb_ms)
+    return steps, carry - steps * hb_ms
+
+
+def _host(x: torch.Tensor) -> np.ndarray:
+    return x.detach().cpu().numpy()
+
+
+@dataclass
+class MessageRecord:
+    msg_id: int
+    publisher: int
+    t0_ms: float
+    delays_ms: np.ndarray         # (N,) float, inf = never received
+    received: np.ndarray          # (N,) bool
+    sends: np.ndarray
+    copies_rx: np.ndarray
+    ihave: int
+    iwant: int
+    answer_wait_max_ms: float = 0.0
+    # every fixpoint of this message met its no-change certificate
+    converged: bool = True
+
+    @property
+    def receivers(self) -> np.ndarray:
+        return np.nonzero(self.received)[0]
+
+    @property
+    def delays_ms_int(self) -> np.ndarray:
+        """Integer milliseconds as the reference logs them (truncated)."""
+        return self.delays_ms[self.received].astype(np.int64)
+
+
+def record_from_result(res, *, msg_id, publisher, t0_ms, drop_self=None):
+    delays = _host(res.delay_ms).astype(np.float64)
+    received = _host(res.received).copy()
+    if drop_self is not None:
+        received[np.asarray(drop_self)] = False
+    delays = np.where(received, delays, np.inf)
+    return MessageRecord(
+        msg_id=msg_id,
+        publisher=publisher,
+        t0_ms=t0_ms,
+        delays_ms=delays,
+        received=received,
+        sends=_host(res.sends),
+        copies_rx=_host(res.copies_rx),
+        ihave=int(_host(res.ihave_sent).sum()),
+        iwant=int(_host(res.iwant_sent).sum()),
+        answer_wait_max_ms=float(res.answer_wait_max_ms),
+        converged=bool(res.converged),
+    )
+
+
+class Simulator:
+    def __init__(self, cfg: ExperimentConfig,
+                 topology: Topology | None = None, device=None):
+        cfg.topo.validate()
+        cfg.gossipsub.validate()
+        if cfg.msgid_mode not in ("nim", "go"):
+            raise ValueError(f"unknown msgid_mode {cfg.msgid_mode!r}")
+        if cfg.loss_mode not in ("message", "tcp"):
+            raise ValueError(f"unknown loss_mode {cfg.loss_mode!r}")
+        if cfg.uses_mix:
+            raise NotImplementedError(
+                "mix routing is not ported yet: it comes with the mix-relay "
+                "slice (ROADMAP A)")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.topology = topology or Topology.build(cfg.topo)
+        if float(np.max(self.topology.packet_loss)) > 0.0:
+            raise NotImplementedError(
+                "a lossy topology is not ported yet: it comes with the "
+                "loss-models slice (ROADMAP A)")
+        n = cfg.topo.network_size
+        self.graph = build_connection_graph(
+            n, cfg.connect_to, seed=cfg.seed,
+            max_degree=min(cfg.max_connections, max(4 * cfg.connect_to, 16)),
+        )
+        proc_ms = MUXER_PROC_MS.get(cfg.topo.muxer.lower(), 2.0)
+        self.params = SimParams.from_gossipsub(
+            n, self.graph.capacity, cfg.gossipsub,
+            proc_delay_ms=proc_ms,
+            churn_down_per_hb=cfg.churn_down_per_hb,
+            churn_up_per_hb=cfg.churn_up_per_hb,
+            serialize_answers=cfg.serialize_answers,
+            answer_queue_mode=cfg.answer_queue_mode,
+            packed_state=cfg.packed_state,
+            warm_start=cfg.warm_start,
+        )
+        dev = self.device
+        self.state = init_state(self.params, seed=cfg.seed, device=dev)
+        self.arrays = graph_arrays(self.graph, device=dev)
+        self._stage = torch.as_tensor(self.topology.stage_of_peer, device=dev)
+        self._lat = torch.as_tensor(self.topology.latency_ms, device=dev)
+        self._bw = torch.as_tensor(self.topology.bw_up_mbit, device=dev)
+        # experiment constants, built once
+        self._lat_edge, _ = edge_tables(
+            self._stage, self._lat, self.arrays["conns"], self.arrays["rev"])
+        self._ans_tables = (answer_tables(self._lat_edge, self.arrays["conns"])
+                            if cfg.with_gossip else None)
+        self._churny = (cfg.churn_down_per_hb > 0.0
+                        or cfg.churn_up_per_hb > 0.0)
+        self._valid_edge = None if self._churny else self._compute_valid_edge()
+        self._msg_rng = np.random.default_rng(cfg.seed ^ 0x6D736749)
+        self._last_msg_id = -1
+        self._hb_carry_ms = 0.0
+        self.records: list[MessageRecord] = []
+
+    def _compute_valid_edge(self):
+        conns = self.arrays["conns"]
+        return (conns >= 0) & neighbor_pull_bool(
+            self.state.alive & self.state.subscribed, conns,
+            self.arrays["rev"])
+
+    # ---------------------------------------------------------------- phases
+
+    def reset(self) -> None:
+        """Rewind to the pre-warm-up state, keeping graph and topology."""
+        self.state = init_state(self.params, seed=self.cfg.seed,
+                                device=self.device)
+        self._msg_rng = np.random.default_rng(self.cfg.seed ^ 0x6D736749)
+        self._last_msg_id = -1
+        self._hb_carry_ms = 0.0
+        self.records = []
+        if not self._churny:
+            self._valid_edge = self._compute_valid_edge()
+
+    def advance(self, ms: float) -> None:
+        """Advance simulated time by `ms`, running the heartbeats due."""
+        steps, self._hb_carry_ms = drain_heartbeat_carry(
+            self._hb_carry_ms, ms, self.params.heartbeat_ms)
+        if steps > 0:
+            a = self.arrays
+            self.state = run_heartbeats(self.state, a["conns"], a["rev"],
+                                        a["out_mask"], self.params, steps)
+
+    def warmup(self) -> None:
+        self.advance(self.cfg.warmup_s * 1000.0)
+
+    def publish(self, publisher: int,
+                msg_size: int | None = None) -> MessageRecord:
+        """Inject one message at the current sim time."""
+        cfg = self.cfg
+        size = msg_size if msg_size is not None else cfg.topo.msg_size_bytes
+        a = self.arrays
+        t0_ms = float(self.state.t_ms) + self._hb_carry_ms
+        res, self.state = disseminate(
+            self.state, a["conns"], a["rev"], self._stage, self._lat,
+            self._bw, publisher=publisher, t0_ms=t0_ms, params=self.params,
+            payload_bytes=size, fragments=cfg.topo.num_frags,
+            with_gossip=cfg.with_gossip, loss_mode=cfg.loss_mode,
+            lat_edge=self._lat_edge, ans_tables=self._ans_tables,
+            valid_edge=self._valid_edge,
+        )
+        if cfg.msgid_mode == "go":
+            msg_id = max(int(t0_ms * 1e6), self._last_msg_id + 1)
+            self._last_msg_id = msg_id
+        else:
+            msg_id = int(self._msg_rng.integers(0, 2**63, dtype=np.int64))
+        rec = record_from_result(
+            res, msg_id=msg_id, publisher=publisher, t0_ms=t0_ms,
+            drop_self=None if cfg.self_trigger else [publisher])
+        self.records.append(rec)
+        return rec
+
+    def run(self) -> list[MessageRecord]:
+        """Full experiment: warm-up, then the injection schedule."""
+        cfg = self.cfg
+        n = cfg.topo.network_size
+        self.warmup()
+        delay_ms = cfg.topo.delay_seconds * 1000.0
+        pub = cfg.publisher_id % n
+        for i in range(cfg.topo.messages):
+            if i > 0:
+                self.advance(delay_ms)
+            self.publish(pub)
+            if cfg.publisher_rotation:
+                pub = (pub + 1) % n
+        return self.records
+
+    # --------------------------------------------------------------- outputs
+
+    def latencies_writer(self) -> LatenciesWriter:
+        w = LatenciesWriter()
+        for rec in self.records:
+            w.add_message(rec.msg_id, rec.receivers, rec.delays_ms_int)
+        return w
+
+    def write_latencies(self, path: str) -> int:
+        return self.latencies_writer().write(path)
+
+    def summary(self, large: bool | None = None) -> LatencySummary:
+        if large is None:
+            large = self.cfg.topo.msg_size_bytes >= 1000
+        buf = io.StringIO()
+        self.latencies_writer().write_to(buf)
+        return summarize(buf.getvalue().splitlines(), large=large)
+
+    def summary_report(self) -> str:
+        large = self.cfg.topo.msg_size_bytes >= 1000
+        return report(self.summary(large), large=large)
+
+    def traffic(self):
+        from .bandwidth import PeerTraffic
+
+        return PeerTraffic.from_state(self.state)
+
+    def write_shadowlog(self, path: str) -> int:
+        """Shadow-heartbeat-shaped '[node]' lines (summary_shadowlog.awk)."""
+        from .bandwidth import shadowlog_lines
+
+        lines = shadowlog_lines(self.traffic())
+        with open(path, "w") as f:
+            for ln in lines:
+                f.write(ln + "\n")
+        return len(lines)
+
+    def bandwidth_report(self) -> str:
+        from .bandwidth import report as bw_report
+        from .bandwidth import summarize_bandwidth
+
+        return bw_report(summarize_bandwidth(self.traffic()))
+
+    # ------------------------------------------------------------ statistics
+
+    def peer_rounds_per_sec(self, wall_seconds: float) -> float:
+        """Simulated peers x heartbeat rounds per wall second."""
+        sim_rounds = float(self.state.t_ms) / self.params.heartbeat_ms
+        return self.cfg.topo.network_size * sim_rounds / max(wall_seconds,
+                                                             1e-9)

@@ -1,0 +1,55 @@
+"""The port imports torch and never jax, and nothing of the JAX package:
+every module of dst_libp2p_test_node_tpu_torch, and chip_smoke.py, import in
+a fresh interpreter where `import jax` fails."""
+
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+import dst_libp2p_test_node_tpu_torch as port
+names = [port.__name__] + [m.name for m in pkgutil.walk_packages(
+    port.__path__, port.__name__ + ".") if not m.name.endswith("__main__")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == "dst_libp2p_test_node_tpu"
+             or m.startswith("dst_libp2p_test_node_tpu.")
+             or m == "jax" and sys.modules[m] is not None
+             or m.startswith(("jax.", "jaxlib.", "flax")))
+print(len(names), "modules;", "leaked:", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_port_imports_without_jax():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "leaked: []" in proc.stdout
+
+
+def test_port_sources_name_no_jax_import():
+    pkg = os.path.join(ROOT, "dst_libp2p_test_node_tpu_torch")
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(pkg):
+        files += [os.path.join(dirpath, n) for n in names
+                  if n.endswith(".py")]
+    for path in files:
+        with open(path) as f:
+            for line in f:
+                s = line.strip()
+                assert not s.startswith(("import jax", "from jax")), path
+                assert not s.startswith(
+                    ("import dst_libp2p_test_node_tpu ",
+                     "from dst_libp2p_test_node_tpu ",
+                     "from dst_libp2p_test_node_tpu.")), path
