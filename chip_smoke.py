@@ -10,11 +10,18 @@ not printed):
                process per source, all at once); prints the card's name
                and power limit as nvidia-smi reports them.
   2. kernels - each kernel against its plain-torch version on the card, at
-               the main path's shape (1M peers x 40 slots) and at a ragged
-               small shape with -1 pads: vmem_gather bitwise (also
-               batched), score_update's decayed counters bitwise and its
-               score within rtol 1e-5 / atol 1e-6. Times each (CUDA events)
-               beside its plain version, a library yardstick and its bound.
+               the main path's shape (1M peers x 40 slots) and at ragged
+               shapes with -1 pads: vmem_gather bitwise at 999x37 (a
+               stream not a multiple of 4), 3x999x37 and 3x31x7 with a
+               per-row and a shared t (batch rows that start mid-vector,
+               straddle tiles, or are shorter than one), 1x1, 0 rows and
+               1M x 40 plain, batched and shared-t; score_update's decayed
+               counters bitwise and its score within rtol 1e-5 / atol
+               1e-6. Times each (CUDA events) beside its plain version, a
+               library yardstick and its bound; for vmem_gather also the
+               same call on src sorted ascending (sequential reads of t)
+               and one whole relaxation sweep (exchange._inc_from plus the
+               row min) on synthetic RecvConstants.
   3. parity  - the Simulator at 2048 peers on CUDA and on the CPU, with the
                pull budget lowered so the receiver-side path (and so the
                gather kernel) runs: latencies, shadowlog and summaries must
@@ -48,6 +55,9 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SCRATCH = os.path.join(ROOT, ".smoke_tmp")     # big outputs, removed at end
+
+# vmem_gather's time at 1M x 40 before its Hopper redesign (PERF.md)
+GATHER_BEFORE_MS = 0.2996
 
 # H100 SXM: 3.35 TB/s HBM, 67 TFLOP/s float32 outside the tensor cores
 # (NVIDIA's H100 data sheet)
@@ -136,19 +146,43 @@ def _gather_inputs(n, c, gen, dev, batch=None):
     return t, src
 
 
+def _recv_constants(src, gen, dev):
+    """Synthetic per-slot constants of one fixpoint around `src` (mesh and
+    gossip edges mixed, millisecond-scale offsets)."""
+    from dst_libp2p_test_node_tpu_torch.parallel.exchange import (
+        RecvConstants)
+
+    def ms(lo, hi, shape=src.shape):
+        return torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
+
+    return RecvConstants(
+        src=src, a_ms=ms(40.0, 400.0), g_ms=ms(120.0, 800.0),
+        g_off=ms(0.0, 1000.0), phase=ms(0.0, 1000.0), u_ms=ms(0.0, 3000.0),
+        flags=torch.randint(0, 4, src.shape, generator=gen, device=dev,
+                            dtype=torch.int8),
+        rx_c=ms(0.0, 100.0, src.shape[:1]),
+        proc_ms=torch.tensor(1.0, device=dev),
+        hb_ms=torch.tensor(1000.0, device=dev))
+
+
 def phase_kernels(dev):
     from dst_libp2p_test_node_tpu_torch.native import score_update as su
     from dst_libp2p_test_node_tpu_torch.native import vmem_gather as vg
     from dst_libp2p_test_node_tpu_torch.ops.state import SimParams
+    from dst_libp2p_test_node_tpu_torch.parallel import exchange
 
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {}
 
     # -- vmem_gather: bitwise, plain / batched / shared-t batched -------------
-    for n, c in ((1000, 37), (FULL_N, 40)):
-        t, src = _gather_inputs(n, c, gen, dev)
+    shapes = ((999, 37), (31, 7), (1, 1), (0, 40), (FULL_N, 40))
+    for n, c in shapes:
+        t, src = _gather_inputs(max(n, 1), c, gen, dev)
+        src = src[:n]
         check(torch.equal(vg.vmem_gather(t, src), vg.vmem_gather_ref(t, src)),
               f"vmem_gather != plain at {n}x{c}")
+        if n < 2:
+            continue
         tb, srcb = _gather_inputs(n, c, gen, dev, batch=3)
         check(torch.equal(vg.vmem_gather(tb, srcb),
                           vg.vmem_gather_ref(tb, srcb)),
@@ -161,15 +195,26 @@ def phase_kernels(dev):
                           lambda: vg.vmem_gather(t, src))
     lib = cuda_ms(lambda: t[src.clamp_min(0)])
     b, by = bound_ms(src.numel() * 4 + t.numel() * 4 + src.numel() * 4)
+    src_sorted = src.flatten().sort().values.view_as(src).contiguous()
+    sorted_ms = cuda_ms(lambda: vg.vmem_gather(t, src_sorted))
+    consts = _recv_constants(src, gen, dev)
+    sweep_ms = cuda_ms(lambda: exchange._inc_from(t, consts).amin(dim=-1))
     out["vmem_gather"] = dict(
         name="vmem_gather", route="cuda",
         source="dst_libp2p_test_node_tpu_torch/native/csrc/vmem_gather.cu",
         replaces="dst_libp2p_test_node_tpu/native/vmem_gather.py:87",
         max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-        library_ms=lib, shape=[FULL_N, 40])
-    print(f"[kernels] vmem_gather bitwise at 1000x37 and {FULL_N}x40 "
-          f"(plain, batched, shared t); {ms:.4f} ms vs plain {plain:.4f} ms, "
-          f"t[src.clamp_min(0)] {lib:.4f} ms, bound {b:.4f} ms ({by})")
+        library_ms=lib, shape=[FULL_N, 40], sorted_src_ms=sorted_ms,
+        sweep_ms=sweep_ms)
+    print(f"[kernels] vmem_gather bitwise at "
+          + ", ".join(f"{n}x{c}" for n, c in shapes)
+          + f" (plain; batched and shared t where n > 1); {ms:.4f} ms vs "
+          f"plain {plain:.4f} ms, t[src.clamp_min(0)] {lib:.4f} ms")
+    print(f"[kernels] vmem_gather at {FULL_N}x40: random src {ms:.4f} ms, "
+          f"sorted src {sorted_ms:.4f} ms (same bytes, sequential t reads), "
+          f"bound {b:.4f} ms ({by}), before the redesign {GATHER_BEFORE_MS} "
+          f"ms; one whole sweep (_inc_from + row min) {sweep_ms:.4f} ms, the "
+          f"gather {ms / sweep_ms:.1%} of it")
 
     # -- score_update: counters bitwise, score rtol 1e-5 / atol 1e-6 --------
     err = 0.0

@@ -6,7 +6,9 @@ ctypes and called with `data_ptr()`s and the current stream's handle. No
 PyTorch headers are involved, so a build takes seconds, and no `ninja` is
 needed. Libraries land in native/_build/ (listed in .gitignore), named by a
 hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is reused. `build()` starts one nvcc per missing library, all
+unchanged one is reused. Each kernel is one self-contained .cu that
+includes no header of its own, so that hash covers everything it is built
+from. `build()` starts one nvcc per missing library, all
 at once, and waits for all of them. A failed build raises with nvcc's
 output; nothing falls back.
 

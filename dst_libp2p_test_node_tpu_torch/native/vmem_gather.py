@@ -11,7 +11,8 @@ that cannot build or launch the kernel raises.
 Shapes: t (Nt,) or (B, Nt) float32; src (N, C) or (B, N, C) int32 with -1
 pads. A (Nt,) t is shared across a batched src. Indices are clamped to
 [0, Nt - 1] in both versions (pads read row 0, which the caller's validity
-flags mask).
+flags mask). The kernel streams src in with bulk copies, so on the card src
+must start on a 16-byte boundary, as every fresh allocation does.
 """
 
 from __future__ import annotations
@@ -61,6 +62,8 @@ def _check(t_all: torch.Tensor, src: torch.Tensor) -> None:
         raise ValueError("a batched t needs a src with the same batch")
     if not (t_all.is_contiguous() and src.is_contiguous()):
         raise ValueError("vmem_gather takes contiguous tensors")
+    if t_all.shape[-1] == 0 and src.numel() > 0:
+        raise ValueError("vmem_gather needs a non-empty t")
 
 
 def vmem_gather(t_all: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
@@ -70,6 +73,9 @@ def vmem_gather(t_all: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
         return vmem_gather_ref(t_all, src)
     if src.device.type != "cuda":
         raise ValueError(f"vmem_gather has no kernel for {src.device}")
+    if src.data_ptr() % 16 != 0:
+        raise ValueError("vmem_gather's kernel needs a 16-byte-aligned src "
+                         "(a view at an offset: pass a copy)")
     global launches
     batch = src.shape[0] if src.dim() == 3 else 1
     n_src = t_all.shape[-1]
