@@ -10,39 +10,64 @@ not printed):
                process per source, all at once); prints the card's name
                and power limit as nvidia-smi reports them.
   2. kernels - each kernel against its plain-torch version on the card, at
-               the main path's shape (1M peers x 40 slots) and at ragged
-               shapes with -1 pads: vmem_gather bitwise at 999x37 (a
-               stream not a multiple of 4), 3x999x37 and 3x31x7 with a
-               per-row and a shared t (batch rows that start mid-vector,
-               straddle tiles, or are shorter than one), 1x1, 0 rows and
-               1M x 40 plain, batched and shared-t; score_update's decayed
-               counters bitwise and its score within rtol 1e-5 / atol
-               1e-6. Times each (CUDA events) beside its plain version, a
-               library yardstick and its bound; for vmem_gather also the
-               same call on src sorted ascending (sequential reads of t)
-               and one whole relaxation sweep (exchange._inc_from plus the
-               row min) on synthetic RecvConstants.
+               the shapes of both main paths (config 4's 100k x 40 and the
+               1M x 40 run) and at ragged shapes with -1 pads: vmem_gather
+               bitwise at 999x37 (a stream not a multiple of 4), 3x999x37
+               and 3x31x7 with a per-row and a shared t (batch rows that
+               start mid-vector, straddle tiles, or are shorter than one),
+               1x1, 0 rows, 100k x 40 and 1M x 40 plain, batched and
+               shared-t; score_update's decayed counters bitwise and its
+               score within rtol 1e-5 / atol 1e-6 at 1000x37, 100k x 40
+               and 1M x 40. Times each (CUDA events) at both main-path
+               shapes beside its plain version, a library yardstick and
+               its bound; for vmem_gather at 1M x 40 also the same call on
+               src sorted ascending (sequential reads of t) and one whole
+               relaxation sweep (exchange._inc_from plus the row min) on
+               synthetic RecvConstants.
   3. parity  - the Simulator at 2048 peers on CUDA and on the CPU, with the
                pull budget lowered so the receiver-side path (and so the
                gather kernel) runs: latencies, shadowlog and summaries must
                be byte-identical.
+  3b. exact  - exact delivery mode (the model of record):
+               (a) CUDA vs CPU at 2048 peers, 3 messages, in a gossip-heavy
+               setting that triggers the refinement (no flood publish,
+               D_lazy 12), through three routes: the prefix engine (default
+               budget), the serial engine (answer_queue_mode "serial") and
+               the serial engine receiver-side (budget lowered: the gather
+               kernel). Outputs byte-identical, the route's engine counter
+               > 0 and equal on both devices, the gather launched on the
+               lowered route.
+               (b) BASELINE config 4 at full width through the `run` entry
+               with the default (exact) delivery mode: 100,000 peers, 4
+               fragments of 15 KB, churn 0.001, a 60 s warm-up, 3 messages
+               2 s apart. Counts zeroed just before and read just after;
+               fails on an unconverged fixpoint or a kernel of the path
+               that never launched.
+               (c) one config-4 exact publish run three times from one
+               state (warm, timed, under torch.profiler; same delays):
+               fast-pipeline and refinement time (the disseminate spans),
+               host syncs, device busy time over the unprofiled and over
+               the profiled wall.
   4. main    - the port's `run` entry at full width: 1,000,000 peers,
                CONNECTTO=10, 15 KB, 1 fragment, 3 messages, bounded
                delivery mode, a 30 s warm-up. Kernel launch counts are
                zeroed just before and read just after; fails on coverage
                < 1, an unconverged fixpoint or a kernel of the path that
                never launched.
-  5. idle    - a second 1M-peer Simulator: set-up, warm-up and one publish
-               timed apart, then one more publish under torch.profiler:
-               device busy time over wall time.
+  5. idle    - a second 1M-peer Simulator: set-up and warm-up timed apart,
+               then one publish three times from one state as in 3b(c):
+               device busy time over the unprofiled and the profiled wall.
 
-Then one JSON line with every kernel's numbers, and last the line
+Then one JSON line with every kernel's numbers: at 1M x 40 with
+`launches` from phase 4's 1M bounded run, and under `exact` at 100k x 40
+with `launches` from phase 3b's config-4 run. Last the line
 {"ok": true, "device": {...}}. Without CUDA it exits 1 and prints no
 result; run alone, without the package beside it, it exits 2.
 """
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import os
@@ -51,6 +76,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -71,6 +97,13 @@ PARITY_N = 2048
 # (anchor_stages 5, 50-150 Mbit, 40-130 ms, 15 KB, 2 s spacing)
 FULL_ARGS = ["1", str(FULL_N), "15000", "1", "3", "50", "150", "40", "130",
              "5", "0.0", "4", "0", "2000"]
+# BASELINE config 4 (bench_configs.py:211-225), the exact rung: 100k peers,
+# 4 fragments of a 15 KB message, churn 0.001 per heartbeat, 60 s warm-up
+EXACT_N = 100_000
+EXACT_ARGS = ["1", str(EXACT_N), "15000", "4", "3", "50", "150", "40", "130",
+              "5", "0.0", "4", "0", "2000"]
+EXACT_CHURN = 0.001
+EXACT_WARMUP_S = 60.0
 
 
 class SmokeFailure(RuntimeError):
@@ -101,6 +134,64 @@ def paired_ms(plain, kernel):
     p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), \
         cuda_ms(plain)
     return min(k1, k2), min(p1, p2)
+
+
+def device_time(prof, spans=("disseminate.fast_pipeline",
+                             "disseminate.refinement")):
+    """Kernel time of a torch.profiler run and its split by the port's
+    record_function spans. The spans also appear as device rows (their
+    extent on the GPU timeline); they are not kernels, so they are left
+    out of the busy time. Returns (busy_us, top kernel rows, {span: (host
+    wall us, GPU extent us, kernel us inside)})."""
+    from torch.autograd import DeviceType
+
+    evs = prof.events()
+    dev = [e for e in evs if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in dev if e.name not in spans]
+    busy = sum(e.time_range.elapsed_us() for e in kernels)
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.key not in spans),
+                  key=lambda e: -e.self_device_time_total)
+    split = {}
+    for name in spans:
+        host = sum(e.time_range.elapsed_us() for e in evs
+                   if e.name == name and e.device_type == DeviceType.CPU)
+        ranges = [e.time_range for e in dev if e.name == name]
+        inside = sum(k.time_range.elapsed_us() for k in kernels
+                     if any(r.start <= k.time_range.start < r.end
+                            for r in ranges))
+        split[name] = (host, sum(r.elapsed_us() for r in ranges), inside)
+    return busy, rows, split
+
+
+def profile_publish(sim, publisher):
+    """The same publish three times from one state: to warm up, timed,
+    then under torch.profiler. disseminate returns a new state and leaves
+    its input alone, so putting the state back repeats the same work; the
+    delays must agree. Returns (walls in s, profiler, last record, engine
+    counts of the last publish)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dst_libp2p_test_node_tpu_torch.ops import disseminate as dis
+
+    s0 = sim.state
+    walls, recs, prof = [], [], None
+    for profiled in (False, False, True):
+        sim.state = s0
+        dis.reset_engine_counts()
+        torch.cuda.synchronize()
+        ctx = (profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+               if profiled else contextlib.nullcontext())
+        with ctx as prof:
+            t0 = time.time()
+            recs.append(sim.publish(publisher))
+            torch.cuda.synchronize()
+            walls.append(time.time() - t0)
+    for rec in recs[1:]:
+        check(np.array_equal(rec.delays_ms, recs[0].delays_ms),
+              "a publish repeated from the same state gave other delays")
+    return walls, prof, recs[-1], dict(dis.engine_counts)
 
 
 def bound_ms(nbytes, flops=0.0):
@@ -175,10 +266,13 @@ def phase_kernels(dev):
     out = {}
 
     # -- vmem_gather: bitwise, plain / batched / shared-t batched -------------
-    shapes = ((999, 37), (31, 7), (1, 1), (0, 40), (FULL_N, 40))
+    shapes = ((999, 37), (31, 7), (1, 1), (0, 40), (EXACT_N, 40),
+              (FULL_N, 40))
+    held = {}
     for n, c in shapes:
         t, src = _gather_inputs(max(n, 1), c, gen, dev)
         src = src[:n]
+        held[n] = t, src
         check(torch.equal(vg.vmem_gather(t, src), vg.vmem_gather_ref(t, src)),
               f"vmem_gather != plain at {n}x{c}")
         if n < 2:
@@ -191,10 +285,18 @@ def phase_kernels(dev):
                           vg.vmem_gather_ref(t, srcb)),
               f"shared-t vmem_gather != plain at 3x{n}x{c}")
     torch.cuda.synchronize()
-    ms, plain = paired_ms(lambda: vg.vmem_gather_ref(t, src),
-                          lambda: vg.vmem_gather(t, src))
-    lib = cuda_ms(lambda: t[src.clamp_min(0)])
-    b, by = bound_ms(src.numel() * 4 + t.numel() * 4 + src.numel() * 4)
+
+    def time_gather(t, src):
+        ms, plain = paired_ms(lambda: vg.vmem_gather_ref(t, src),
+                              lambda: vg.vmem_gather(t, src))
+        lib = cuda_ms(lambda: t[src.clamp_min(0)])
+        b, by = bound_ms(src.numel() * 4 + t.numel() * 4 + src.numel() * 4)
+        return dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                    library_ms=lib)
+
+    at_exact = time_gather(*held[EXACT_N])
+    t, src = held[FULL_N]
+    at_full = time_gather(t, src)
     src_sorted = src.flatten().sort().values.view_as(src).contiguous()
     sorted_ms = cuda_ms(lambda: vg.vmem_gather(t, src_sorted))
     consts = _recv_constants(src, gen, dev)
@@ -203,22 +305,28 @@ def phase_kernels(dev):
         name="vmem_gather", route="cuda",
         source="dst_libp2p_test_node_tpu_torch/native/csrc/vmem_gather.cu",
         replaces="dst_libp2p_test_node_tpu/native/vmem_gather.py:87",
-        max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-        library_ms=lib, shape=[FULL_N, 40], sorted_src_ms=sorted_ms,
-        sweep_ms=sweep_ms)
+        max_abs_err=0.0, **at_full, shape=[FULL_N, 40],
+        exact=dict(at_exact, shape=[EXACT_N, 40]),
+        sorted_src_ms=sorted_ms, sweep_ms=sweep_ms)
     print(f"[kernels] vmem_gather bitwise at "
           + ", ".join(f"{n}x{c}" for n, c in shapes)
-          + f" (plain; batched and shared t where n > 1); {ms:.4f} ms vs "
-          f"plain {plain:.4f} ms, t[src.clamp_min(0)] {lib:.4f} ms")
-    print(f"[kernels] vmem_gather at {FULL_N}x40: random src {ms:.4f} ms, "
-          f"sorted src {sorted_ms:.4f} ms (same bytes, sequential t reads), "
-          f"bound {b:.4f} ms ({by}), before the redesign {GATHER_BEFORE_MS} "
-          f"ms; one whole sweep (_inc_from + row min) {sweep_ms:.4f} ms, the "
-          f"gather {ms / sweep_ms:.1%} of it")
+          + " (plain; batched and shared t where n > 1)")
+    for (n, c), at in (((EXACT_N, 40), at_exact), ((FULL_N, 40), at_full)):
+        print(f"[kernels] vmem_gather at {n}x{c}: {at['ms']:.4f} ms vs plain "
+              f"{at['plain_ms']:.4f} ms, t[src.clamp_min(0)] "
+              f"{at['library_ms']:.4f} ms, bound {at['bound_ms']:.4f} ms "
+              f"({at['bound_by']})")
+    print(f"[kernels] vmem_gather at {FULL_N}x40: sorted src {sorted_ms:.4f} "
+          f"ms (same bytes, sequential t reads), before the redesign "
+          f"{GATHER_BEFORE_MS} ms; one whole sweep (_inc_from + row min) "
+          f"{sweep_ms:.4f} ms, the gather {at_full['ms'] / sweep_ms:.1%} of "
+          f"it")
 
     # -- score_update: counters bitwise, score rtol 1e-5 / atol 1e-6 --------
     err = 0.0
-    for n, c in ((1000, 37), (FULL_N, 40)):
+    shapes = ((1000, 37), (EXACT_N, 40), (FULL_N, 40))
+    timed = {}
+    for n, c in shapes:
         params = SimParams(n=n, capacity=c, slow_weight=-10.0)
         fmd = torch.rand((n, c), generator=gen, device=dev) * 3.0
         slow = torch.rand((n, c), generator=gen, device=dev) * 0.5
@@ -231,20 +339,27 @@ def phase_kernels(dev):
         check(torch.allclose(got[2], want[2], rtol=1e-5, atol=1e-6),
               f"score_update score at {n}x{c}")
         err = max(err, float((got[2] - want[2]).abs().max()))
-    torch.cuda.synchronize()
-    ms, plain = paired_ms(lambda: su.score_update_ref(fmd, slow, scales,
-                                                      params),
-                          lambda: su.score_update(fmd, slow, scales, params))
-    b, by = bound_ms(fmd.numel() * 4 * 5 + 8, flops=fmd.numel() * 7.0)
+        if n < EXACT_N:
+            continue
+        torch.cuda.synchronize()
+        ms, plain = paired_ms(
+            lambda: su.score_update_ref(fmd, slow, scales, params),
+            lambda: su.score_update(fmd, slow, scales, params))
+        b, by = bound_ms(fmd.numel() * 4 * 5 + 8, flops=fmd.numel() * 7.0)
+        timed[n] = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                        library_ms=None)
     out["score_update"] = dict(
         name="score_update", route="cuda",
         source="dst_libp2p_test_node_tpu_torch/native/csrc/score_update.cu",
         replaces="dst_libp2p_test_node_tpu/native/score_update.py:90",
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-        library_ms=None, shape=[FULL_N, 40])
+        max_abs_err=err, **timed[FULL_N], shape=[FULL_N, 40],
+        exact=dict(timed[EXACT_N], shape=[EXACT_N, 40]))
     print(f"[kernels] score_update counters bitwise, score max |err| {err:g} "
-          f"at 1000x37 and {FULL_N}x40; {ms:.4f} ms vs plain {plain:.4f} ms, "
-          f"bound {b:.4f} ms ({by})")
+          f"at " + ", ".join(f"{n}x{c}" for n, c in shapes))
+    for n, at in timed.items():
+        print(f"[kernels] score_update at {n}x40: {at['ms']:.4f} ms vs plain "
+              f"{at['plain_ms']:.4f} ms, bound {at['bound_ms']:.4f} ms "
+              f"({at['bound_by']})")
     return out
 
 
@@ -299,6 +414,164 @@ def phase_parity(dev):
           f"({t1 - t0:.1f} s) and CPU ({t2 - t1:.1f} s)")
 
 
+# --------------------------------------------------------------- phase 3b
+
+# (name, answer_queue_mode, budget lowered, engine the route must take)
+EXACT_ROUTES = (("prefix", "parallel_prefix", False, "prefix"),
+                ("serial", "serial", False, "serial"),
+                ("serial, receiver-side", "parallel_prefix", True, "serial"))
+
+
+def _exact_run(cfg, device):
+    from dst_libp2p_test_node_tpu_torch.ops import disseminate as dis
+    from dst_libp2p_test_node_tpu_torch.runtime.simulator import Simulator
+
+    dis.reset_engine_counts()
+    sim = Simulator(cfg, device=device)
+    sim.run()
+    return (_outputs(sim), dict(dis.engine_counts),
+            [r.refine_passes for r in sim.records])
+
+
+def phase_exact_parity(dev):
+    from dst_libp2p_test_node_tpu_torch.config.env import GossipSubParams
+    from dst_libp2p_test_node_tpu_torch.config.topology import TopoParams
+    from dst_libp2p_test_node_tpu_torch.native import vmem_gather as vg
+    from dst_libp2p_test_node_tpu_torch.ops import pull
+    from dst_libp2p_test_node_tpu_torch.runtime.simulator import (
+        ExperimentConfig)
+
+    topo = TopoParams(network_size=PARITY_N, anchor_stages=5,
+                      min_bandwidth=50, max_bandwidth=150, min_latency=40,
+                      max_latency=130, msg_size_bytes=15000, num_frags=1,
+                      messages=3, delay_seconds=2.0)
+    for name, mode, lowered, engine in EXACT_ROUTES:
+        cfg = ExperimentConfig(
+            topo=topo, seed=3, warmup_s=30.0, answer_queue_mode=mode,
+            gossipsub=GossipSubParams(flood_publish=False, d_lazy=12))
+        saved = pull._MAX_INTERMEDIATE_BYTES
+        if lowered:
+            pull._MAX_INTERMEDIATE_BYTES = 1
+        try:
+            before = vg.launches
+            t0 = time.time()
+            gpu_out, gpu_counts, passes = _exact_run(cfg, dev)
+            t1 = time.time()
+            gathers = vg.launches - before
+            cpu_out, cpu_counts, _ = _exact_run(cfg, "cpu")
+            t2 = time.time()
+        finally:
+            pull._MAX_INTERMEDIATE_BYTES = saved
+        for what, a, b in zip(("latencies", "shadowlog", "summaries"),
+                              gpu_out, cpu_out):
+            check(a == b, f"exact mode, {name} route: CUDA and CPU {what} "
+                  f"differ at {PARITY_N} peers")
+        check(gpu_counts == cpu_counts,
+              f"{name} route: engine counts {gpu_counts} on CUDA, "
+              f"{cpu_counts} on the CPU")
+        check(gpu_counts[engine] > 0,
+              f"{name} route never ran the {engine} engine: {gpu_counts}")
+        check(not lowered or gathers > 0,
+              f"{name} route never launched vmem_gather")
+        print(f"[exact] {PARITY_N} peers, {name} route: latencies, shadowlog "
+              f"and summaries byte-identical on CUDA ({t1 - t0:.1f} s) and "
+              f"CPU ({t2 - t1:.1f} s); engines {gpu_counts}, refine passes "
+              f"{passes}, vmem_gather launches {gathers}")
+
+
+def phase_exact_main(dev):
+    from dst_libp2p_test_node_tpu_torch import cli
+    from dst_libp2p_test_node_tpu_torch.native import score_update as su
+    from dst_libp2p_test_node_tpu_torch.native import vmem_gather as vg
+    from dst_libp2p_test_node_tpu_torch.ops import disseminate as dis
+
+    os.makedirs(SCRATCH, exist_ok=True)
+    prefix = os.path.join(SCRATCH, "exact_")
+    argv = ["run", *EXACT_ARGS, "--churn", str(EXACT_CHURN),
+            "--warmup-s", str(EXACT_WARMUP_S), "--out-prefix", prefix,
+            "--stats-json"]
+    print(f"[exact] python -m dst_libp2p_test_node_tpu_torch {' '.join(argv)}"
+          "  (BASELINE config 4, default delivery mode)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    vg.launches = 0
+    su.launches = 0
+    dis.reset_engine_counts()
+    t0 = time.time()
+    rc = cli.main(argv)
+    wall_total = time.time() - t0
+    launches = {"vmem_gather": vg.launches, "score_update": su.launches}
+    engines = dict(dis.engine_counts)
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(rc == 0, f"run exited {rc}")
+    with open(prefix + "stats1.json") as f:
+        stats = json.load(f)
+    check(stats["delivery_mode"] == "exact",
+          f"run took {stats['delivery_mode']} delivery mode")
+    print(f"[exact] config 4: wall {stats['wall_s']:.3f} s (simulation), "
+          f"{wall_total:.3f} s with outputs; peer-rounds/s "
+          f"{stats['peer_rounds_per_sec']:.1f}; coverage "
+          f"{stats['coverage'] / EXACT_N} (churn: need not be 1); p50 "
+          f"{stats['p50_ms']:.3f} ms, p99 {stats['p99_ms']:.3f} ms; "
+          f"converged {stats['converged']}; engines {engines}; refine "
+          f"passes {stats['refine_passes']}; launches {launches}; peak "
+          f"memory {peak / 2**30:.2f} GiB")
+    check(stats["converged"], "a config-4 fixpoint hit its iteration cap")
+    check(sum(engines.values()) - engines["prefix_fallback"] == 3,
+          f"engine counts {engines} do not add up to 3 messages")
+    for name, count in launches.items():
+        check(count > 0, f"the exact path never launched {name}")
+    return launches
+
+
+def phase_exact_idle(dev):
+    """One config-4 exact publish: warm, timed apart, then the same
+    publish under the profiler: the disseminate spans, host syncs, device
+    idle share against the unprofiled and the profiled wall."""
+    from dst_libp2p_test_node_tpu_torch.cli import (RUN_SH_PARAMS,
+                                                    _topo_from_fields)
+    from dst_libp2p_test_node_tpu_torch.runtime.simulator import (
+        ExperimentConfig, Simulator)
+
+    topo = _topo_from_fields(dict(zip(RUN_SH_PARAMS, EXACT_ARGS)))
+    cfg = ExperimentConfig(topo=topo, warmup_s=EXACT_WARMUP_S,
+                           churn_down_per_hb=EXACT_CHURN,
+                           churn_up_per_hb=EXACT_CHURN / 2)
+    t0 = time.time()
+    sim = Simulator(cfg, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    sim.warmup()
+    torch.cuda.synchronize()
+    t2 = time.time()
+    (first, wall, wall_prof), prof, rec, engines = profile_publish(
+        sim, cfg.publisher_id)
+    syncs = sum(e.count for e in prof.key_averages()
+                if e.key == "aten::_local_scalar_dense")
+    busy_us, top, split = device_time(prof)
+    print(f"[exact] config 4 split: Simulator set-up {t1 - t0:.3f} s; "
+          f"warm-up of {EXACT_WARMUP_S:g} heartbeats {t2 - t1:.3f} s; one "
+          f"publish {first:.3f} s the first time, {wall:.3f} s repeated "
+          f"from the same state, {wall_prof:.3f} s under the profiler "
+          f"(engines {engines}, {rec.refine_passes} refine passes); host "
+          f"syncs (aten::_local_scalar_dense) {syncs}")
+    if busy_us <= 0:
+        print("[exact] profiler recorded no device time: idle share not "
+              "measured")
+        return
+    for name, (host, extent, inside) in split.items():
+        print(f"[exact] {name} (profiled): host wall {host / 1e3:.1f} ms, "
+              f"GPU extent {extent / 1e3:.1f} ms, kernels inside "
+              f"{inside / 1e3:.1f} ms, idle share of the extent "
+              f"{1.0 - inside / max(extent, 1e-9):.4f}")
+    print(f"[exact] device busy {busy_us / 1e6:.3f} s; idle share "
+          f"{1.0 - busy_us / 1e6 / wall:.4f} of the unprofiled wall, "
+          f"{1.0 - busy_us / 1e6 / wall_prof:.4f} of the profiled one (the "
+          f"profiler's own host cost is the difference); top device time: "
+          + "; ".join(f"{e.key} {e.self_device_time_total / 1e3:.1f} ms"
+                      for e in top[:6]))
+
+
 # ---------------------------------------------------------------- phase 4
 
 def phase_main(dev):
@@ -349,7 +622,6 @@ def phase_main(dev):
 def phase_idle(dev):
     """Device busy share of one 1M-peer publish (torch.profiler)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from dst_libp2p_test_node_tpu_torch.cli import (RUN_SH_PARAMS,
                                                     _topo_from_fields)
@@ -365,40 +637,32 @@ def phase_idle(dev):
     sim.warmup()
     torch.cuda.synchronize()
     t2 = time.time()
-    sim.publish(cfg.publisher_id)
-    torch.cuda.synchronize()
-    t3 = time.time()
+    (first, wall, wall_prof), prof, _, _ = profile_publish(
+        sim, cfg.publisher_id)
     print(f"[idle] at {FULL_N} peers: Simulator set-up (graph build, state, "
           f"edge tables) {t1 - t0:.3f} s; warm-up of 5 heartbeats "
-          f"{t2 - t1:.3f} s; one publish {t3 - t2:.3f} s (unprofiled)")
-    sim.advance(2000.0)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        sim.publish(cfg.publisher_id)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
+          f"{t2 - t1:.3f} s; one publish {first:.3f} s the first time, "
+          f"{wall:.3f} s repeated from the same state, {wall_prof:.3f} s "
+          f"under the profiler")
     rows = prof.key_averages()
     # kernel rows only: CPU-op rows repeat the time of the kernels they
     # launched
-    events = [e for e in rows if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in events)
+    busy_us, top, _ = device_time(prof)
     if busy_us <= 0:
         print("[idle] profiler recorded no device time: idle share not "
               "measured")
         return None
     idle = 1.0 - busy_us / 1e6 / wall
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
     ops = sorted((e for e in rows if e.device_type != DeviceType.CUDA
                   and e.key.startswith("aten::")),
                  key=lambda e: -e.self_device_time_total)[:12]
     print("[idle] device time by aten op: " + "; ".join(
         f"{e.key} {e.self_device_time_total / 1e3:.1f} ms x{e.count}"
         for e in ops))
-    print(f"[idle] one publish at {FULL_N} peers under the profiler: wall "
-          f"{wall:.3f} s, device busy {busy_us / 1e6:.3f} s, idle share "
-          f"{idle:.4f}; top device time: "
+    print(f"[idle] one publish at {FULL_N} peers: device busy "
+          f"{busy_us / 1e6:.3f} s, idle share {idle:.4f} of the unprofiled "
+          f"wall, {1.0 - busy_us / 1e6 / wall_prof:.4f} of the profiled one;"
+          f" top device time: "
           + "; ".join(f"{e.key} {e.self_device_time_total / 1e3:.1f} ms"
                       for e in top[:6]))
     return idle
@@ -415,6 +679,9 @@ def main() -> int:
         phase_build()
         kernels = phase_kernels(dev)
         phase_parity(dev)
+        phase_exact_parity(dev)
+        launches_exact = phase_exact_main(dev)
+        phase_exact_idle(dev)
         launches, _, _ = phase_main(dev)
         phase_idle(dev)
     except SmokeFailure as e:
@@ -422,7 +689,9 @@ def main() -> int:
         return 1
     finally:
         shutil.rmtree(SCRATCH, ignore_errors=True)
-    line = [dict(v, launches=launches[k]) for k, v in kernels.items()]
+    line = [dict(v, launches=launches[k],
+                 exact=dict(v["exact"], launches=launches_exact[k]))
+            for k, v in kernels.items()]
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,15 +4,16 @@
       <num_fragment> <num_publishers> <min_bandwidth> <max_bandwidth> \\
       <min_latency> <max_latency> <anchor_stages> <packet_loss> \\
       <publisher_id> <publisher_rotation> <inter_message_delay> \\
-      --delivery-mode bounded [--device cpu] [flags]
+      [--delivery-mode exact|bounded] [--device cpu] [flags]
 
 The 14 positionals and the flags are the reference's (shadow/run.sh:23-38
 order, dst_libp2p_test_node_tpu/cli.py cmd_run), plus `--device`. It writes
-latencies<i> and shadowlog<i> and prints the per-run summaries. Flags whose
-paths are not ported yet (exact delivery mode, mix routing, checkpoints, a
-lossy topology) exit with an error naming what is missing. The topology
-artifacts (network_topology.gml, shadow.yaml) are not written: that is the
-`topogen` subcommand's job, not ported yet.
+latencies<i> and shadowlog<i> and prints the per-run summaries. The
+delivery mode defaults to exact (serialized gossip answers, the model of
+record), as in the reference. Flags whose paths are not ported yet (mix
+routing, checkpoints, a lossy topology) exit with an error naming what is
+missing. The topology artifacts (network_topology.gml, shadow.yaml) are
+not written: that is the `topogen` subcommand's job, not ported yet.
 """
 
 from __future__ import annotations
@@ -59,8 +60,8 @@ def _run_parser() -> argparse.ArgumentParser:
         usage="run <runs> <nodes> <message_size> <num_fragment> "
         "<num_publishers> <min_bandwidth> <max_bandwidth> <min_latency> "
         "<max_latency> <anchor_stages> <packet_loss> <publisher_id> "
-        "<publisher_rotation> <inter_message_delay> --delivery-mode bounded "
-        "[--device cpu] [--seed N] [--warmup-s S] ...",
+        "<publisher_rotation> <inter_message_delay> [--delivery-mode "
+        "exact|bounded] [--device cpu] [--seed N] [--warmup-s S] ...",
     )
     for name in RUN_SH_PARAMS:
         p.add_argument(name)
@@ -90,8 +91,9 @@ def _run_parser() -> argparse.ArgumentParser:
     p.add_argument("--loss-mode", choices=["tcp", "message"], default="tcp")
     p.add_argument("--delivery-mode", choices=["exact", "bounded"],
                    default="exact",
-                   help="answered-IWANT serialization fidelity; only "
-                   "bounded is ported so far")
+                   help="answered-IWANT serialization fidelity: exact "
+                   "(the model of record) or bounded (unserialized arrival "
+                   "times with an error bar)")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; cpu runs the plain "
                    "versions of the kernels)")
@@ -101,9 +103,6 @@ def _run_parser() -> argparse.ArgumentParser:
 def cmd_run(argv: list[str]) -> int:
     p = _run_parser()
     a = p.parse_args(argv)
-    if a.delivery_mode == "exact" and not a.no_gossip:
-        p.error("exact delivery mode is not ported yet (the exact-mode "
-                "slice); pass --delivery-mode bounded")
     if a.use_mix:
         p.error("--use-mix is not ported yet (the mix-relay slice)")
     if a.checkpoint or a.resume:
@@ -180,6 +179,7 @@ def cmd_run(argv: list[str]) -> int:
                     "answer_wait_max_ms": max(
                         r.answer_wait_max_ms for r in sim.records),
                     "delivery_mode": a.delivery_mode,
+                    "refine_passes": [r.refine_passes for r in sim.records],
                     "device": str(device),
                     "wall_s": wall,
                     "peer_rounds_per_sec": sim.peer_rounds_per_sec(wall),
@@ -191,7 +191,8 @@ def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not argv or argv[0] != "run":
         print("usage: python -m dst_libp2p_test_node_tpu_torch run <14 "
-              "positionals> --delivery-mode bounded [--device cpu] ...\n"
+              "positionals> [--delivery-mode exact|bounded] [--device cpu] "
+              "...\n"
               "only `run` is ported so far", file=sys.stderr)
         return 2
     return cmd_run(argv[1:])

@@ -1,8 +1,8 @@
 """Message dissemination as an earliest-arrival-time fixpoint (the hot path).
 
-The port of the reference's ops/disseminate.py, bounded delivery mode. One
-call propagates one message (all fragments) and returns per-peer arrival
-times plus the accounting the reference derives from them:
+The port of the reference's ops/disseminate.py, exact and bounded delivery
+modes. One call propagates one message (all fragments) and returns per-peer
+arrival times plus the accounting the reference derives from them:
 
     t_rx[q] = max( min over senders p of
                      max(t_rx[p] + proc, uplink_free[p])
@@ -25,7 +25,23 @@ reference vmaps them).
 Bounded mode (serialize_answers=False): arrival times keep the
 unserialized gossip-answer offers; one answer-queue fold at the final
 times supplies the accounting triple and the `answer_wait_max_ms` error
-bar. Everything outside this slice raises NotImplementedError naming the
+bar.
+
+Exact mode (serialize_answers=True, the model of record): an answered
+IWANT queues on the answering peer's uplink, and the arrival times must
+include that wait. The fast pipeline still runs the unserialized fixpoint,
+folds the answer queues at both phase results and checks whether a queued
+answer could have been somebody's first delivery (`_diverged`). If any
+fragment says so, the whole message is refined, once per message (one host
+sync): by Jacobi iteration on the lat-sorted fold (`_converge_prefix`,
+below the pull budget under answer_queue_mode "parallel_prefix"), falling
+back to the global-sort engine when the prefix certificate fails; else by
+the global-sort engine directly (`_converge_serialized`: per outer pass a
+stable argsort of every peer's answer jobs and a from-INF mesh fixpoint
+against the frozen answer floor, receiver-side above the budget).
+`engine_counts` counts the routes taken.
+
+Everything outside these modes raises NotImplementedError naming the
 slice that brings it (ROADMAP A).
 
 Float arithmetic follows the reference's association order term by term,
@@ -40,6 +56,7 @@ import math
 from dataclasses import dataclass
 
 import torch
+from torch.profiler import record_function
 
 from .. import prng
 from ..parallel.exchange import build_recv_constants, converge_recv
@@ -53,6 +70,17 @@ from .pull import (
 from .state import SimParams, SimState
 
 INF = 3.4e38
+
+# exact-mode messages by route since the last reset: kept on the fast
+# pipeline, refined by the prefix engine, refined by the serial engine
+# directly, and prefix refinements that fell back to the serial engine
+# (chip_smoke.py zeroes and reads them; they change no result)
+engine_counts = {"fast": 0, "prefix": 0, "serial": 0, "prefix_fallback": 0}
+
+
+def reset_engine_counts() -> None:
+    for k in engine_counts:
+        engine_counts[k] = 0
 
 
 def _later(what: str, slice_name: str) -> NotImplementedError:
@@ -166,9 +194,6 @@ def _check_slice(params, *, with_gossip, mesh, loss_stage, with_fanout,
                  return_plan, censor_edge, loss_mode):
     if loss_mode not in ("message", "tcp"):
         raise ValueError(f"unknown loss_mode {loss_mode!r}")
-    if with_gossip and params.serialize_answers:
-        raise _later("exact delivery mode (serialize_answers=True)",
-                     "exact-mode")
     if mesh is not None:
         raise _later("a peer-sharded mesh", "multi-GPU")
     if loss_stage is not None:
@@ -301,6 +326,19 @@ def disseminate(
         gw_sorted = [torch.gather(g_tgt_w[h], 1, perm_lat)
                      for h in range(n_rounds)]
 
+    neg_col = torch.full((n, 1), -INF, device=dev)
+    zero_col = torch.zeros((n, 1), dtype=f32, device=dev)
+
+    def _round_req(h, tick, live, q_t, lat, gw_h):
+        """The request semantics shared by the lat-sorted fold and the
+        global-sort engine: round h's IHAVE leaves at a_h = max(tick +
+        h*hb, uplink); a sampled live edge is requested iff the receiver
+        still lacks the message when the IHAVE lands (q_t > a_h + lat).
+        Returns (a_h (N, 1), sampled, requested)."""
+        a_h = torch.maximum(tick + h * params.heartbeat_ms, uplink)[:, None]
+        samp = gw_h & live[:, None]
+        return a_h, samp, samp & (q_t > a_h + lat)
+
     def gossip_fold(t_rx):
         """Serialized gossip-answer offers via the per-round fold in the
         static lat order: (g_abs, req_any, drain, mixed, wait_max)."""
@@ -317,13 +355,9 @@ def disseminate(
         mixed = torch.zeros((), dtype=torch.bool, device=dev)
         wait_max = torch.zeros((), dtype=f32, device=dev)
         prev_max_w = torch.full((n,), -INF, device=dev)
-        neg_col = torch.full((n, 1), -INF, device=dev)
-        zero_col = torch.zeros((n, 1), dtype=f32, device=dev)
         for h in range(n_rounds):
-            a_h = torch.maximum(tick + h * params.heartbeat_ms,
-                                uplink)[:, None]
-            samp = gw_sorted[h] & live[:, None]
-            req = samp & (q_t_s > a_h + lat_sorted)
+            a_h, samp, req = _round_req(h, tick, live, q_t_s, lat_sorted,
+                                        gw_sorted[h])
             w = a_h + 2.0 * lat_sorted
             min_w = torch.where(req, w, INF).amin(dim=-1)
             mixed = mixed | (min_w < prev_max_w - 1e-4).any()
@@ -353,6 +387,52 @@ def disseminate(
         drain = torch.where(had_req, busy, 0.0)
         return g_abs, req_any, drain, mixed, wait_max
 
+    def _gossip_jobs(t_rx):
+        """Every sampled (round h, slot i) answer job: its IWANT arrival
+        W = announce departure + 2 link traversals (INF if not sampled) and
+        whether it is requested; (N, H*C), column h*C + i."""
+        base = t_rx + params.proc_delay_ms
+        tick = _next_heartbeat(base, hb_phase, params.heartbeat_ms)
+        live = can_send & (t_rx < INF)
+        q_t = t_rx[conns.clamp_min(0).long()]
+        ws, reqs = [], []
+        for h in range(n_rounds):
+            a_h, samp, req = _round_req(h, tick, live, q_t, lat_edge,
+                                        g_tgt_w[h])
+            ws.append(torch.where(samp, a_h + 2.0 * lat_edge, INF))
+            reqs.append(req)
+        return torch.cat(ws, dim=-1), torch.cat(reqs, dim=-1)
+
+    def _offers_from_serve(serve_u):
+        """Per-edge answer offer from per-job serve starts: + one tx + the
+        answer's cold-flight latency, min over the edge's sampled rounds;
+        overflowed sums map back to the INF sentinel."""
+        g_abs = (serve_u.reshape(n, n_rounds, c) + tx_ms[:, None, None]
+                 + _ld_ans()[:, None, :]).amin(dim=1)
+        return torch.where(g_abs < INF, g_abs, INF)
+
+    def gossip_serial_exact(t_rx):
+        """Exact serialized answer offers at the estimate t_rx: each peer's
+        answer jobs form one single-server queue in IWANT-arrival order
+        (stable: ties by (round, slot)), rounds chaining through the busy
+        time. Returns (g_abs, req_any, drain)."""
+        wf, req_b = _gossip_jobs(t_rx)
+        req_any = req_b.reshape(n, n_rounds, c).any(dim=1)
+        txp = tx_ms[:, None]
+        perm = torch.argsort(wf, dim=-1, stable=True)
+        ws = torch.gather(wf, 1, perm)
+        rs = torch.gather(req_b.to(f32), 1, perm)
+        R = torch.cumsum(rs, dim=-1)
+        m_term = torch.where(rs > 0.0, ws - (R - 1.0) * txp, -INF)
+        M = torch.cummax(m_term, dim=-1).values
+        M_prev = torch.cat([neg_col, M[:, :-1]], dim=-1)
+        R_prev = torch.cat([zero_col, R[:, :-1]], dim=-1)
+        serve = torch.maximum(ws, M_prev + R_prev * txp)
+        inv = torch.argsort(perm, dim=-1, stable=True)
+        serve_u = torch.gather(serve, 1, inv)
+        drain = torch.where(R[:, -1] > 0.0, M[:, -1] + R[:, -1] * tx_ms, 0.0)
+        return _offers_from_serve(serve_u), req_any, drain
+
     def _queue(rank, k_p, frag_idx):
         return (rank + 1.0 + frag_idx * k_p[:, None]) * tx_ms[:, None]
 
@@ -370,27 +450,48 @@ def disseminate(
     def pull(cand):
         return reciprocal_pull_min(cand, conns, rev, batch_factor=fragments)
 
+    # above the pull budget the fixpoints run receiver-side (the 1M-peer
+    # class and, with 4 fragments, 100k peers)
+    recv_side = exceeds_budget(f32, conns.shape, fragments)
+    exact = with_gossip and params.serialize_answers
+
+    def _recv_cst(rank, k_p, f, frag_idx, send_mask, gossip):
+        """Receiver-side constants of one fixpoint (large N): gathered
+        once, then each sweep is elementwise plus the vmem_gather of the
+        (N,) times."""
+        return build_recv_constants(
+            conns, rev, lat_edge, tx_ms, rank, k_p, frag_idx, send_mask,
+            can_send, g_tgt, g_off, hb_phase, uplink, rx_const,
+            params.proc_delay_ms, params.heartbeat_ms, gossip,
+            lat_deliver=_ld_mesh(f), ld_gossip=_ld_ans(),
+            packed=params.packed_state,
+        )
+
+    def _mesh_base(rank, k_p, f, frag_idx, send_mask):
+        """Sender-side mesh offset of each slot (queue position + deliver
+        latency), INF where the slot does not send."""
+        return torch.where(send_mask & can_send[:, None],
+                           _queue(rank, k_p, frag_idx) + _ld_mesh(f), INF)
+
+    def _mesh_cand(t, a_base):
+        """Mesh offers of one sender-side sweep at the estimate t: (live,
+        cand) with live the reached senders as an (N, 1) column."""
+        live = (t < INF)[:, None]
+        start = torch.maximum(t + params.proc_delay_ms, uplink)
+        return live, torch.where(live, start[:, None] + a_base, INF)
+
     def _converge_dyn(rank, k_p, f, frag_idx, t_pub, send_mask, t_init=None):
         """Unserialized fixpoint; returns (t, inc, converged) with `inc` the
         deliver-only offer matrix of the last (no-change) sweep."""
         t0 = (torch.full((n,), INF, device=dev) if t_init is None
               else t_init.clone())
         t0[publisher] = t_pub
-        ld = _ld_mesh(f)
-        if exceeds_budget(f32, conns.shape, fragments):
-            # large N: receiver-side constants gathered once, then each
-            # sweep is elementwise plus the vmem_gather of the (N,) times
-            cst = build_recv_constants(
-                conns, rev, lat_edge, tx_ms, rank, k_p, frag_idx, send_mask,
-                can_send, g_tgt, g_off, hb_phase, uplink, rx_const,
-                params.proc_delay_ms, params.heartbeat_ms, with_gossip,
-                lat_deliver=ld, ld_gossip=_ld_ans(),
-                packed=params.packed_state,
-            )
-            return converge_recv(t0, cst, params.max_relax_iters)
+        if recv_side:
+            return converge_recv(
+                t0, _recv_cst(rank, k_p, f, frag_idx, send_mask, with_gossip),
+                params.max_relax_iters)
         # below the budget: sender-major offers, row-gather pull per sweep
-        a_base = torch.where(send_mask & can_send[:, None],
-                             _queue(rank, k_p, frag_idx) + ld, INF)
+        a_base = _mesh_base(rank, k_p, f, frag_idx, send_mask)
         g_base = torch.where(
             g_tgt & can_send[:, None],
             2.0 * lat_edge + _ld_ans() + tx_ms[:, None], INF)
@@ -398,12 +499,10 @@ def disseminate(
         inc = torch.full(conns.shape, INF, device=dev)
         changed, it = True, 0
         while changed and it < params.max_relax_iters:
-            live = (t_rx < INF)[:, None]
-            base = t_rx + params.proc_delay_ms
-            start = torch.maximum(base, uplink)
-            cand = torch.where(live, start[:, None] + a_base, INF)
+            live, cand = _mesh_cand(t_rx, a_base)
             if with_gossip:
-                hb = _next_heartbeat(base, hb_phase, params.heartbeat_ms)
+                hb = _next_heartbeat(t_rx + params.proc_delay_ms, hb_phase,
+                                     params.heartbeat_ms)
                 cand = torch.minimum(
                     cand,
                     torch.where(live,
@@ -416,6 +515,83 @@ def disseminate(
             changed = bool((t_new < t_rx).any())
             t_rx, it = t_new, it + 1
         return t_rx, inc, not changed
+
+    def _floor_solver(rank, k_p, f, frag_idx, t_pub, send_mask):
+        """The mesh-only fixpoint from INF against a frozen per-receiver
+        gossip floor (the serialized answer offers of one outer pass,
+        pulled and row-minimized): returns g_floor -> t. Its constants
+        are built once per solver; each call restarts from INF."""
+        t0 = torch.full((n,), INF, device=dev)
+        t0[publisher] = t_pub
+        if recv_side:
+            cst = _recv_cst(rank, k_p, f, frag_idx, send_mask, False)
+            return lambda g_floor: converge_recv(
+                t0, cst, params.max_relax_iters, g_floor=g_floor)[0]
+        a_base = _mesh_base(rank, k_p, f, frag_idx, send_mask)
+
+        def solve(g_floor):
+            t_rx, changed, it = t0, True, 0
+            while changed and it < params.max_relax_iters:
+                _, cand = _mesh_cand(t_rx, a_base)
+                t_new = torch.minimum(
+                    t_rx,
+                    torch.maximum(
+                        torch.minimum(pull(cand).amin(dim=-1), g_floor),
+                        rx_const))
+                changed = bool((t_new < t_rx).any())
+                t_rx, it = t_new, it + 1
+            return t_rx
+
+        return solve
+
+    def _converge_serialized(rank, k_p, f, frag_idx, t_pub, send_mask,
+                             t_seed):
+        """Exact fixpoint of the serialized answer model as an outer
+        iteration on the gossip estimate: each pass freezes the serialized
+        offers at the estimate and re-relaxes the network from INF against
+        them. The from-INF restart is required: the serialized system is
+        not monotone in t (a later IHAVE can remove a requested job and
+        make other answers earlier), so a warm-started min-only relaxation
+        could undershoot and stick. A pass that reproduces its estimate
+        bitwise is self-consistent, hence the exact fixpoint.
+        Returns (t, converged, passes)."""
+        solve = _floor_solver(rank, k_p, f, frag_idx, t_pub, send_mask)
+        t_g = t_seed.clone()
+        t_g[publisher] = t_pub
+        changed, it = True, 0
+        while changed and it < params.max_relax_iters:
+            g_abs, _, _ = gossip_serial_exact(t_g)
+            t_new = solve(pull(g_abs).amin(dim=-1))
+            changed = bool((t_new != t_g).any())
+            t_g, it = t_new, it + 1
+        return t_g, not changed, it
+
+    def _converge_prefix(rank, k_p, f, frag_idx, t_pub, send_mask, t_seed):
+        """Exact fixpoint of the serialized answer model by Jacobi
+        iteration: each pass evaluates the whole candidate map at the
+        estimate (lat-sorted answer fold + mesh offers, one pull) and takes
+        the result as it stands, with no min against the previous estimate
+        (the map is not monotone; see _converge_serialized). Exits on a
+        bitwise no-change pass. Returns (t, g_abs, req, drain, mixed,
+        converged, passes) with the fold outputs of the last pass."""
+        a_base = _mesh_base(rank, k_p, f, frag_idx, send_mask)
+        t_g = t_seed.clone()
+        t_g[publisher] = t_pub
+        g_abs = torch.full((n, c), INF, device=dev)
+        req = torch.zeros((n, c), dtype=torch.bool, device=dev)
+        drain = torch.zeros((n,), dtype=f32, device=dev)
+        mixed = torch.zeros((), dtype=torch.bool, device=dev)
+        changed, it = True, 0
+        while changed and it < params.max_relax_iters:
+            g_abs, req, drain, mixed, _ = gossip_fold(t_g)
+            live, cand = _mesh_cand(t_g, a_base)
+            cand = torch.minimum(cand, torch.where(live, g_abs, INF))
+            t_new = torch.where(
+                ~is_pub, torch.maximum(pull(cand).amin(dim=-1), rx_const),
+                t_pub)
+            changed = bool((t_new != t_g).any())
+            t_g, it = t_new, it + 1
+        return t_g, g_abs, req, drain, mixed, not changed, it
 
     def queue_drop(tgt_mask, frag_idx: int):
         """Publisher priority-queue drop (main.nim:264-299): fragments
@@ -442,12 +618,55 @@ def disseminate(
         k2 = k1 - rm.to(f32)
         return rank2, k2, send_mask
 
-    def phases_fast(f: int, frag_idx, t_pub):
-        """The bounded-mode two-phase pipeline of one fragment."""
+    def _diverged(t, inc, mixed):
+        """Trigger of the exact refinement: a reached non-publisher peer
+        strictly below every serialized candidate (beyond float tolerance)
+        relied on a queued answer that really arrives later; interleaved
+        announce rounds (`mixed`) also force it. A 0-dim bool tensor."""
+        tol = 0.05 + 1e-5 * torch.where(t < INF, t, 0.0)
+        bad = (t < inc.amin(dim=-1) - tol) & (t < INF) & ~is_pub
+        return bad.any() | mixed
+
+    def _attribution(t, rank, k_p, f, frag_idx, send_mask, g_abs, req):
+        """Deliver-only offers pulled to the receivers, the gossip offers
+        masked to answered edges (an unanswered edge's offer must not take
+        the first-sender argmin)."""
+        return pull(offers(t, rank, k_p, f, frag_idx, send_mask,
+                           g_abs=torch.where(req, g_abs, INF)))
+
+    def _phase1_order(f: int):
+        """(send set, send ranks, send count) of phase 1 of fragment f."""
         tgt_f = queue_drop(tgt, f)
         rank1 = _ranks_f32(torch.where(tgt_f, rprio, INF))
-        k1 = tgt_f.sum(dim=-1).to(f32)
+        return tgt_f, rank1, tgt_f.sum(dim=-1).to(f32)
+
+    def phases_fast(f: int, frag_idx, t_pub):
+        """The unserialized two-phase pipeline of one fragment. Returns
+        (t, rank, k, send_mask, g_abs, req_any, drain, inc, wait, mixed,
+        ok, hint): `wait` and `mixed` feed bounded mode's error bar,
+        `hint` asks exact mode for the refinement."""
+        tgt_f, rank1, k1 = order[f]
         t1, inc1, ok1 = _converge_dyn(rank1, k1, f, frag_idx, t_pub, tgt_f)
+        if exact:
+            # the answer queues folded at both phase results ride in the
+            # attribution pulls and the accounting; the fixpoint itself
+            # stays unserialized, certified by _diverged
+            g1, req1, drain1, mixed1, _ = gossip_fold(t1)
+            inc1p = _attribution(t1, rank1, k1, f, frag_idx, tgt_f, g1, req1)
+            hint1 = _diverged(t1, inc1p, mixed1)
+            if not params.exclude_first_sender:
+                return (t1, rank1, k1, tgt_f, g1, req1, drain1, inc1p,
+                        None, None, ok1, hint1)
+            rank2, k2, send_mask = _phase2_masks_from_inc(
+                inc1p, t1, rank1, k1, tgt_f)
+            t2, _, ok2 = _converge_dyn(rank2, k2, f, frag_idx, t_pub,
+                                       send_mask, t_init=t1)
+            g2, req2, drain2, mixed2, _ = gossip_fold(t2)
+            inc2 = _attribution(t2, rank2, k2, f, frag_idx, send_mask, g2,
+                                req2)
+            return (t2, rank2, k2, send_mask, g2, req2, drain2, inc2,
+                    None, None, ok1 and ok2,
+                    hint1 | _diverged(t2, inc2, mixed2))
         if not params.exclude_first_sender:
             t_fin, inc_fin, ok = t1, inc1, ok1
             rank_o, k_o, mask_o = rank1, k1, tgt_f
@@ -466,7 +685,76 @@ def disseminate(
             mixed_o = torch.zeros((), dtype=torch.bool, device=dev)
             wait_o = torch.zeros((), dtype=f32, device=dev)
         return (t_fin, rank_o, k_o, mask_o, g_f, req_f, drain_f, inc_fin,
-                wait_o, mixed_o, ok)
+                wait_o, mixed_o, ok, None)
+
+    def phases_serial(f: int, frag_idx, t_pub, t_seed):
+        """The two-phase pipeline with the global-sort engine supplying
+        both fixpoints (exact answer queues in the delivery times and the
+        accounting). `t_seed`: the previous engine's times, a near-correct
+        gossip estimate. Returns the first 8 elements of phases_fast plus
+        (converged, passes)."""
+        tgt_f, rank1, k1 = order[f]
+        t1, conv1, it1 = _converge_serialized(rank1, k1, f, frag_idx, t_pub,
+                                              tgt_f, t_seed)
+        g1, req1, drain1 = gossip_serial_exact(t1)
+        inc1 = _attribution(t1, rank1, k1, f, frag_idx, tgt_f, g1, req1)
+        if not params.exclude_first_sender:
+            return t1, rank1, k1, tgt_f, g1, req1, drain1, inc1, conv1, it1
+        rank2, k2, send_mask = _phase2_masks_from_inc(
+            inc1, t1, rank1, k1, tgt_f)
+        t2, conv2, it2 = _converge_serialized(rank2, k2, f, frag_idx, t_pub,
+                                              send_mask, t1)
+        g2, req2, drain2 = gossip_serial_exact(t2)
+        inc2 = _attribution(t2, rank2, k2, f, frag_idx, send_mask, g2, req2)
+        return (t2, rank2, k2, send_mask, g2, req2, drain2, inc2,
+                conv1 and conv2, it1 + it2)
+
+    def phases_prefix(f: int, frag_idx, t_pub, t_seed):
+        """phases_serial's structure with _converge_prefix supplying both
+        fixpoints. Element 8 is the certificate as a 0-dim bool tensor:
+        both loops ended on a no-change pass and neither final fold saw
+        interleaved announce rounds; a False one sends the message to the
+        serial engine."""
+        tgt_f, rank1, k1 = order[f]
+        t1, g1, req1, drain1, mixed1, conv1, it1 = _converge_prefix(
+            rank1, k1, f, frag_idx, t_pub, tgt_f, t_seed)
+        inc1 = _attribution(t1, rank1, k1, f, frag_idx, tgt_f, g1, req1)
+        if not params.exclude_first_sender:
+            return (t1, rank1, k1, tgt_f, g1, req1, drain1, inc1,
+                    ~mixed1 & conv1, it1)
+        rank2, k2, send_mask = _phase2_masks_from_inc(
+            inc1, t1, rank1, k1, tgt_f)
+        t2, g2, req2, drain2, mixed2, conv2, it2 = _converge_prefix(
+            rank2, k2, f, frag_idx, t_pub, send_mask, t1)
+        inc2 = _attribution(t2, rank2, k2, f, frag_idx, send_mask, g2, req2)
+        return (t2, rank2, k2, send_mask, g2, req2, drain2, inc2,
+                ~mixed1 & ~mixed2 & (conv1 and conv2), it1 + it2)
+
+    def exact_repair(fast):
+        """The once-per-message engine dispatch of exact mode: returns the
+        per-fragment 8-tuples the accounting reads, `converged` and the
+        refinement passes (max over fragments)."""
+        if not bool(torch.stack([x[11] for x in fast]).any()):
+            engine_counts["fast"] += 1
+            return [x[:8] for x in fast], all(x[10] for x in fast), 0
+        seeds, spent = [x[0] for x in fast], [0] * fragments
+        if params.answer_queue_mode == "parallel_prefix" and not recv_side:
+            engine_counts["prefix"] += 1
+            pref = [phases_prefix(f, frag_ids[f], t_pubs[f], seeds[f])
+                    for f in range(fragments)]
+            if bool(torch.stack([p[8] for p in pref]).all()):
+                return ([p[:8] for p in pref], True,
+                        max(p[9] for p in pref))
+            # interleaved rounds or a capped loop: every fragment reruns
+            # through the serial engine, seeded from the prefix times
+            engine_counts["prefix_fallback"] += 1
+            seeds, spent = [p[0] for p in pref], [p[9] for p in pref]
+        else:
+            engine_counts["serial"] += 1
+        ser = [phases_serial(f, frag_ids[f], t_pubs[f], seeds[f])
+               for f in range(fragments)]
+        return ([s[:8] for s in ser], all(s[8] for s in ser),
+                max(s[9] + spent[f] for f, s in enumerate(ser)))
 
     def frag_accounting(f, frag_idx, t_rx_one, rank, k_p, send_mask,
                         g_abs_f, req_any_f, drain_f, inc):
@@ -525,18 +813,30 @@ def disseminate(
     # publisher emits fragments back-to-back (main.nim:177-179)
     frag_ids = torch.arange(fragments, dtype=f32, device=dev)
     t_pubs = t0_ms + frag_ids * tx_ms[publisher]
-    fast = [phases_fast(f, frag_ids[f], t_pubs[f]) for f in range(fragments)]
-    answer_wait = torch.stack([x[8] for x in fast]).amax()
-    answer_interleaved = torch.stack([x[9] for x in fast]).sum(
-        dtype=torch.int32)
-    converged = all(x[10] for x in fast)
+    order = [_phase1_order(f) for f in range(fragments)]
+    # profiler spans (chip_smoke.py reads them; no cost without a profiler)
+    with record_function("disseminate.fast_pipeline"):
+        fast = [phases_fast(f, frag_ids[f], t_pubs[f])
+                for f in range(fragments)]
+    if exact:
+        # the refinement makes the times exact: no error bar to report
+        with record_function("disseminate.refinement"):
+            final, converged, refine_passes = exact_repair(fast)
+        answer_wait = torch.zeros((), dtype=f32, device=dev)
+        answer_interleaved = torch.zeros((), dtype=torch.int32, device=dev)
+    else:
+        final, converged, refine_passes = ([x[:8] for x in fast],
+                                           all(x[10] for x in fast), 0)
+        answer_wait = torch.stack([x[8] for x in fast]).amax()
+        answer_interleaved = torch.stack([x[9] for x in fast]).sum(
+            dtype=torch.int32)
 
-    t_rx_f = torch.stack([x[0] for x in fast])
+    t_rx_f = torch.stack([x[0] for x in final])
     received = (t_rx_f < INF).all(dim=0)
     t_rx = torch.where(received, t_rx_f.amax(dim=0), INF)
     delay = torch.where(received, t_rx - t0_ms, INF)
 
-    acct = [frag_accounting(f, frag_ids[f], *fast[f][:8])
+    acct = [frag_accounting(f, frag_ids[f], *final[f])
             for f in range(fragments)]
 
     def total(i):
@@ -575,7 +875,8 @@ def disseminate(
         answer_wait_max_ms=answer_wait,
         answer_interleaved=answer_interleaved,
         converged=torch.tensor(converged, device=dev),
-        refine_passes=torch.zeros((), dtype=torch.int32, device=dev),
+        refine_passes=torch.tensor(refine_passes, dtype=torch.int32,
+                                   device=dev),
     )
     dup = torch.clamp_min(copies - fragments, 0)
     up_end_f = torch.stack([a[8] for a in acct])

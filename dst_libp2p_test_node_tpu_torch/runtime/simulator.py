@@ -93,6 +93,8 @@ class MessageRecord:
     answer_wait_max_ms: float = 0.0
     # every fixpoint of this message met its no-change certificate
     converged: bool = True
+    # exact mode: refinement passes the message took (0 = fast pipeline)
+    refine_passes: int = 0
 
     @property
     def receivers(self) -> np.ndarray:
@@ -122,6 +124,7 @@ def record_from_result(res, *, msg_id, publisher, t0_ms, drop_self=None):
         iwant=int(_host(res.iwant_sent).sum()),
         answer_wait_max_ms=float(res.answer_wait_max_ms),
         converged=bool(res.converged),
+        refine_passes=int(res.refine_passes),
     )
 
 

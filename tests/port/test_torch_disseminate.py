@@ -110,9 +110,9 @@ def test_outside_the_slice_raises():
     args = (st, at["conns"], at["rev"], torch.from_numpy(topo.stage_of_peer),
             torch.from_numpy(topo.latency_ms),
             torch.from_numpy(topo.bw_up_mbit))
-    exact = dataclasses.replace(pt, serialize_answers=True)
-    with pytest.raises(NotImplementedError, match="exact-mode"):
-        td.disseminate(*args, publisher=1, t0_ms=0.0, params=exact,
+    warm = dataclasses.replace(pt, warm_start=True)
+    with pytest.raises(NotImplementedError, match="fanout/warm-start"):
+        td.disseminate(*args, publisher=1, t0_ms=0.0, params=warm,
                        payload_bytes=15000)
     with pytest.raises(NotImplementedError, match="loss-models"):
         td.disseminate(*args, publisher=1, t0_ms=0.0, params=pt,

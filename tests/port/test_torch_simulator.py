@@ -85,7 +85,8 @@ def test_run_cli_files_byte_identical(tmp_path, monkeypatch):
 def test_cli_refuses_what_is_not_ported(capsys):
     base = ["run", "1", "50", "15000", "1", "1", "50", "150", "40", "130",
             "5", "0.0", "4", "0", "1000", "--device", "cpu"]
-    for extra in ([], ["--delivery-mode", "bounded", "--use-mix"]):
+    for extra in (["--checkpoint", "x"],
+                  ["--delivery-mode", "bounded", "--use-mix"]):
         with pytest.raises(SystemExit) as exc:
             tcli.main(base + extra)
         assert exc.value.code == 2
