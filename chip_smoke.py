@@ -48,6 +48,21 @@ not printed):
                fast-pipeline and refinement time (the disseminate spans),
                host syncs, device busy time over the unprofiled and over
                the profiled wall.
+  3c. lossy parity - lossy topologies (packet_loss 0.05) at 2048 peers,
+               3 messages, CUDA vs CPU, gossip-heavy as in 3b(a): tcp and
+               message loss through the prefix, serial and receiver-side
+               serial routes (six runs). Outputs byte-identical, engine
+               counts equal and the route's engine taken, the gather
+               launched on the lowered routes; two runs arm the slow-peer
+               penalty (weight -1, a 5 ms threshold): its counters must
+               accrue and agree. Then lost_tx from one direct publish on
+               each device (the records do not carry it): message mode at
+               loss 0.05 and tcp at loss 0.5 must lose copies, equally.
+  3d. lossy  - config 4 as in 3b(b) with <packet_loss> 0.01 under the
+               default tcp model and GOSSIPSUB_SLOW_PEER_PENALTY_WEIGHT=-1
+               set for that run only: fails on an unconverged fixpoint or
+               a kernel of the path that never launched; prints p50/p99
+               beside 3b's lossless run.
   4. main    - the port's `run` entry at full width: 1,000,000 peers,
                CONNECTTO=10, 15 KB, 1 fragment, 3 messages, bounded
                delivery mode, a 30 s warm-up. Kernel launch counts are
@@ -59,10 +74,17 @@ not printed):
                device busy time over the unprofiled and the profiled wall.
 
 Then one JSON line with every kernel's numbers: at 1M x 40 with
-`launches` from phase 4's 1M bounded run, and under `exact` at 100k x 40
-with `launches` from phase 3b's config-4 run. Last the line
+`launches` from phase 4's 1M bounded run, under `exact` at 100k x 40
+with `launches` from phase 3b's config-4 run, and under `lossy` the same
+100k x 40 numbers with `launches` from phase 3d. Last the line
 {"ok": true, "device": {...}}. Without CUDA it exits 1 and prints no
 result; run alone, without the package beside it, it exits 2.
+
+Machine time: the whole script took 204 s of command time on one H100
+with phases 3c and 3d (150-225 s before them): 3c adds about 30 s (six
+2048-peer runs on each device, 0.8-0.9 s on the card and 2.4-4.6 s on
+the CPU each, and the two direct publishes) and 3d about 15 s, well
+inside a 20-minute budget.
 """
 
 from __future__ import annotations
@@ -104,6 +126,11 @@ EXACT_ARGS = ["1", str(EXACT_N), "15000", "4", "3", "50", "150", "40", "130",
               "5", "0.0", "4", "0", "2000"]
 EXACT_CHURN = 0.001
 EXACT_WARMUP_S = 60.0
+# the lossy config-4 run: packet_loss 0.01 under the default tcp model,
+# with the slow-peer penalty armed (weight -1) for that run only
+LOSSY_ARGS = list(EXACT_ARGS)
+LOSSY_ARGS[10] = "0.01"
+LOSSY_ENV = {"GOSSIPSUB_SLOW_PEER_PENALTY_WEIGHT": "-1"}
 
 
 class SmokeFailure(RuntimeError):
@@ -430,7 +457,8 @@ def _exact_run(cfg, device):
     sim = Simulator(cfg, device=device)
     sim.run()
     return (_outputs(sim), dict(dis.engine_counts),
-            [r.refine_passes for r in sim.records])
+            [r.refine_passes for r in sim.records],
+            float(sim.state.slow_penalty.sum()))
 
 
 def phase_exact_parity(dev):
@@ -455,10 +483,10 @@ def phase_exact_parity(dev):
         try:
             before = vg.launches
             t0 = time.time()
-            gpu_out, gpu_counts, passes = _exact_run(cfg, dev)
+            gpu_out, gpu_counts, passes, _ = _exact_run(cfg, dev)
             t1 = time.time()
             gathers = vg.launches - before
-            cpu_out, cpu_counts, _ = _exact_run(cfg, "cpu")
+            cpu_out, cpu_counts, _, _ = _exact_run(cfg, "cpu")
             t2 = time.time()
         finally:
             pull._MAX_INTERMEDIATE_BYTES = saved
@@ -479,49 +507,70 @@ def phase_exact_parity(dev):
               f"{passes}, vmem_gather launches {gathers}")
 
 
-def phase_exact_main(dev):
+def phase_config4(dev, tag, args, env=None, lossless=None):
+    """BASELINE config 4 through `run` in the default (exact) delivery
+    mode with the run.sh positionals `args` and the environment `env` set
+    for that run only; counts zeroed just before and read just after.
+    Fails on an unconverged fixpoint or a kernel of the path that never
+    launched. Returns (launches, stats); with `lossless` (phase 3b's
+    stats) it prints p50/p99 beside it."""
     from dst_libp2p_test_node_tpu_torch import cli
     from dst_libp2p_test_node_tpu_torch.native import score_update as su
     from dst_libp2p_test_node_tpu_torch.native import vmem_gather as vg
     from dst_libp2p_test_node_tpu_torch.ops import disseminate as dis
 
+    env = env or {}
     os.makedirs(SCRATCH, exist_ok=True)
-    prefix = os.path.join(SCRATCH, "exact_")
-    argv = ["run", *EXACT_ARGS, "--churn", str(EXACT_CHURN),
+    prefix = os.path.join(SCRATCH, f"{tag}_")
+    argv = ["run", *args, "--churn", str(EXACT_CHURN),
             "--warmup-s", str(EXACT_WARMUP_S), "--out-prefix", prefix,
             "--stats-json"]
-    print(f"[exact] python -m dst_libp2p_test_node_tpu_torch {' '.join(argv)}"
-          "  (BASELINE config 4, default delivery mode)")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    vg.launches = 0
-    su.launches = 0
-    dis.reset_engine_counts()
-    t0 = time.time()
-    rc = cli.main(argv)
-    wall_total = time.time() - t0
-    launches = {"vmem_gather": vg.launches, "score_update": su.launches}
-    engines = dict(dis.engine_counts)
+    print(f"[{tag}] {''.join(f'{k}={v} ' for k, v in env.items())}python "
+          f"-m dst_libp2p_test_node_tpu_torch {' '.join(argv)}  (BASELINE "
+          f"config 4, packet_loss {args[10]}, default delivery mode)")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        vg.launches = 0
+        su.launches = 0
+        dis.reset_engine_counts()
+        t0 = time.time()
+        rc = cli.main(argv)
+        wall_total = time.time() - t0
+        launches = {"vmem_gather": vg.launches, "score_update": su.launches}
+        engines = dict(dis.engine_counts)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
     peak = torch.cuda.max_memory_allocated(dev)
-    check(rc == 0, f"run exited {rc}")
+    check(rc == 0, f"{tag} run exited {rc}")
     with open(prefix + "stats1.json") as f:
         stats = json.load(f)
     check(stats["delivery_mode"] == "exact",
-          f"run took {stats['delivery_mode']} delivery mode")
-    print(f"[exact] config 4: wall {stats['wall_s']:.3f} s (simulation), "
+          f"{tag} run took {stats['delivery_mode']} delivery mode")
+    beside = ("" if lossless is None else
+              f" (lossless phase 3b: p50 {lossless['p50_ms']:.3f} ms, p99 "
+              f"{lossless['p99_ms']:.3f} ms, coverage "
+              f"{lossless['coverage'] / EXACT_N})")
+    print(f"[{tag}] config 4: wall {stats['wall_s']:.3f} s (simulation), "
           f"{wall_total:.3f} s with outputs; peer-rounds/s "
           f"{stats['peer_rounds_per_sec']:.1f}; coverage "
           f"{stats['coverage'] / EXACT_N} (churn: need not be 1); p50 "
-          f"{stats['p50_ms']:.3f} ms, p99 {stats['p99_ms']:.3f} ms; "
+          f"{stats['p50_ms']:.3f} ms, p99 {stats['p99_ms']:.3f} ms{beside}; "
           f"converged {stats['converged']}; engines {engines}; refine "
           f"passes {stats['refine_passes']}; launches {launches}; peak "
           f"memory {peak / 2**30:.2f} GiB")
-    check(stats["converged"], "a config-4 fixpoint hit its iteration cap")
+    check(stats["converged"], f"a {tag} config-4 fixpoint hit its cap")
     check(sum(engines.values()) - engines["prefix_fallback"] == 3,
           f"engine counts {engines} do not add up to 3 messages")
     for name, count in launches.items():
-        check(count > 0, f"the exact path never launched {name}")
-    return launches
+        check(count > 0, f"the {tag} path never launched {name}")
+    return launches, stats
 
 
 def phase_exact_idle(dev):
@@ -570,6 +619,121 @@ def phase_exact_idle(dev):
           f"profiler's own host cost is the difference); top device time: "
           + "; ".join(f"{e.key} {e.self_device_time_total / 1e3:.1f} ms"
                       for e in top[:6]))
+
+
+# --------------------------------------------------------------- phase 3c
+
+# (name, loss_mode, answer_queue_mode, budget lowered, engine, slow gate)
+LOSSY_ROUTES = (
+    ("prefix", "tcp", "parallel_prefix", False, "prefix", True),
+    ("prefix", "message", "parallel_prefix", False, "prefix", False),
+    ("serial", "tcp", "serial", False, "serial", False),
+    ("serial", "message", "serial", False, "serial", True),
+    ("serial, receiver-side", "tcp", "parallel_prefix", True, "serial",
+     False),
+    ("serial, receiver-side", "message", "parallel_prefix", True, "serial",
+     False),
+)
+
+
+def _lost_tx(dev, loss, loss_mode):
+    """lost_tx of one direct lossy publish at PARITY_N peers on `dev` (the
+    run's records do not carry it): (total lost, total sent)."""
+    from dst_libp2p_test_node_tpu_torch.config.topology import (Topology,
+                                                                TopoParams)
+    from dst_libp2p_test_node_tpu_torch.ops import disseminate as dis
+    from dst_libp2p_test_node_tpu_torch.ops.graph import (
+        build_connection_graph)
+    from dst_libp2p_test_node_tpu_torch.ops.heartbeat import run_heartbeats
+    from dst_libp2p_test_node_tpu_torch.ops.state import (SimParams,
+                                                          graph_arrays,
+                                                          init_state)
+
+    topo = Topology.build(TopoParams(network_size=PARITY_N, anchor_stages=5,
+                                     min_bandwidth=50, max_bandwidth=150,
+                                     min_latency=40, max_latency=130,
+                                     packet_loss=loss))
+    g = build_connection_graph(PARITY_N, 10, seed=4, max_degree=40)
+    params = SimParams(n=PARITY_N, capacity=g.capacity)
+    a = graph_arrays(g, dev)
+    state = run_heartbeats(init_state(params, 4, dev), a["conns"], a["rev"],
+                           a["out_mask"], params, 10)
+    consts = [torch.as_tensor(x, device=dev) for x in (
+        topo.stage_of_peer, topo.latency_ms, topo.bw_up_mbit,
+        topo.packet_loss)]
+    res, _ = dis.disseminate(
+        state, a["conns"], a["rev"], *consts[:3], publisher=4,
+        t0_ms=float(state.t_ms) + 250.0, params=params,
+        payload_bytes=15000, loss_stage=consts[3], loss_mode=loss_mode)
+    return int(res.lost_tx.sum()), int(res.sends.sum())
+
+
+def phase_lossy_parity(dev):
+    from dst_libp2p_test_node_tpu_torch.config.env import GossipSubParams
+    from dst_libp2p_test_node_tpu_torch.config.topology import TopoParams
+    from dst_libp2p_test_node_tpu_torch.native import vmem_gather as vg
+    from dst_libp2p_test_node_tpu_torch.ops import pull
+    from dst_libp2p_test_node_tpu_torch.runtime.simulator import (
+        ExperimentConfig)
+
+    topo = TopoParams(network_size=PARITY_N, anchor_stages=5,
+                      min_bandwidth=50, max_bandwidth=150, min_latency=40,
+                      max_latency=130, packet_loss=0.05,
+                      msg_size_bytes=15000, num_frags=1, messages=3,
+                      delay_seconds=2.0)
+    for name, loss_mode, mode, lowered, engine, gate in LOSSY_ROUTES:
+        # the gate-firing routes arm the slow-peer penalty with a 5 ms
+        # threshold, so penalties accrue and the score gates bind
+        gs = dict(flood_publish=False, d_lazy=12)
+        if gate:
+            gs.update(slow_peer_penalty_weight=-1.0,
+                      slow_peer_penalty_threshold=0.005)
+        cfg = ExperimentConfig(
+            topo=topo, seed=3, warmup_s=30.0, answer_queue_mode=mode,
+            loss_mode=loss_mode, gossipsub=GossipSubParams(**gs))
+        saved = pull._MAX_INTERMEDIATE_BYTES
+        if lowered:
+            pull._MAX_INTERMEDIATE_BYTES = 1
+        try:
+            before = vg.launches
+            t0 = time.time()
+            gpu_out, gpu_counts, passes, gpu_slow = _exact_run(cfg, dev)
+            t1 = time.time()
+            gathers = vg.launches - before
+            cpu_out, cpu_counts, _, cpu_slow = _exact_run(cfg, "cpu")
+            t2 = time.time()
+        finally:
+            pull._MAX_INTERMEDIATE_BYTES = saved
+        what = f"lossy ({loss_mode}), {name} route"
+        for part, a, b in zip(("latencies", "shadowlog", "summaries"),
+                              gpu_out, cpu_out):
+            check(a == b, f"{what}: CUDA and CPU {part} differ at "
+                  f"{PARITY_N} peers")
+        check(gpu_counts == cpu_counts,
+              f"{what}: engine counts {gpu_counts} on CUDA, {cpu_counts} "
+              f"on the CPU")
+        check(gpu_counts[engine] > 0,
+              f"{what} never ran the {engine} engine: {gpu_counts}")
+        check(not lowered or gathers > 0, f"{what} never launched "
+              "vmem_gather")
+        check(gpu_slow == cpu_slow, f"{what}: slow-peer counters differ")
+        check(not gate or gpu_slow > 0.0,
+              f"{what}: the armed slow-peer penalty never accrued")
+        print(f"[lossy] {PARITY_N} peers, {what}: latencies, shadowlog and "
+              f"summaries byte-identical on CUDA ({t1 - t0:.1f} s) and CPU "
+              f"({t2 - t1:.1f} s); engines {gpu_counts}, refine passes "
+              f"{passes}, vmem_gather launches {gathers}, slow-peer "
+              f"counter sum {gpu_slow}")
+    # the records carry no lost_tx: read it from direct publishes
+    for loss, loss_mode in ((0.05, "message"), (0.5, "tcp")):
+        gpu, cpu = _lost_tx(dev, loss, loss_mode), _lost_tx("cpu", loss,
+                                                             loss_mode)
+        check(gpu == cpu, f"lost_tx/sends {gpu} on CUDA, {cpu} on the CPU "
+              f"({loss_mode}, loss {loss})")
+        check(gpu[0] > 0, f"no copy lost ({loss_mode}, loss {loss})")
+        print(f"[lossy] one {loss_mode} publish at loss {loss}, {PARITY_N} "
+              f"peers: lost_tx {gpu[0]} of {gpu[1]} copies sent "
+              f"({gpu[0] / gpu[1]:.4f}), equal on CUDA and CPU")
 
 
 # ---------------------------------------------------------------- phase 4
@@ -680,8 +844,11 @@ def main() -> int:
         kernels = phase_kernels(dev)
         phase_parity(dev)
         phase_exact_parity(dev)
-        launches_exact = phase_exact_main(dev)
+        launches_exact, lossless = phase_config4(dev, "exact", EXACT_ARGS)
         phase_exact_idle(dev)
+        phase_lossy_parity(dev)
+        launches_lossy, _ = phase_config4(dev, "lossy", LOSSY_ARGS,
+                                          LOSSY_ENV, lossless)
         launches, _, _ = phase_main(dev)
         phase_idle(dev)
     except SmokeFailure as e:
@@ -690,7 +857,8 @@ def main() -> int:
     finally:
         shutil.rmtree(SCRATCH, ignore_errors=True)
     line = [dict(v, launches=launches[k],
-                 exact=dict(v["exact"], launches=launches_exact[k]))
+                 exact=dict(v["exact"], launches=launches_exact[k]),
+                 lossy=dict(v["exact"], launches=launches_lossy[k]))
             for k, v in kernels.items()]
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -10,10 +10,12 @@ The 14 positionals and the flags are the reference's (shadow/run.sh:23-38
 order, dst_libp2p_test_node_tpu/cli.py cmd_run), plus `--device`. It writes
 latencies<i> and shadowlog<i> and prints the per-run summaries. The
 delivery mode defaults to exact (serialized gossip answers, the model of
-record), as in the reference. Flags whose paths are not ported yet (mix
-routing, checkpoints, a lossy topology) exit with an error naming what is
-missing. The topology artifacts (network_topology.gml, shadow.yaml) are
-not written: that is the `topogen` subcommand's job, not ported yet.
+record), as in the reference. A nonzero <packet_loss> (or a lossy --gml)
+runs the loss model --loss-mode names (tcp, the default, or message).
+Flags whose paths are not ported yet (mix routing, checkpoints) exit with
+an error naming what is missing. The topology artifacts
+(network_topology.gml, shadow.yaml) are not written: that is the
+`topogen` subcommand's job, not ported yet.
 """
 
 from __future__ import annotations
@@ -108,9 +110,6 @@ def cmd_run(argv: list[str]) -> int:
     if a.checkpoint or a.resume:
         p.error("--checkpoint/--resume are not ported yet (the service "
                 "slice)")
-    if float(a.packet_loss) > 0.0:
-        p.error("a lossy topology (packet_loss > 0) is not ported yet (the "
-                "loss-models slice)")
 
     from .device import resolve_device
     from .runtime.simulator import ExperimentConfig, Simulator

@@ -41,6 +41,17 @@ stable argsort of every peer's answer jobs and a from-INF mesh fixpoint
 against the frozen answer floor, receiver-side above the budget).
 `engine_counts` counts the routes taken.
 
+Lossy topologies (`loss_stage`, the topogen `-l` packet loss) draw one
+loss outcome per (fragment, directed edge) from one extra key:
+`loss_mode="tcp"` (the default, Shadow's real TCP stacks: a geometric
+number of RTO-doubling retransmissions becomes added latency, `retx_ms`,
+and a copy is abandoned only after MAX_RETRIES) or `"message"` (the copy
+is lost outright). A negative slow-peer or first-message-deliveries weight
+arms the v1.1 score gates (publish, gossip, graylist) and the slow-peer
+accrual. A lost or graylisted copy keeps its uplink slot and its tx bytes:
+`survive` gates delivery only, and `lost_tx` counts the copies the network
+dropped (the loss-only mask, without the graylist).
+
 Everything outside these modes raises NotImplementedError naming the
 slice that brings it (ROADMAP A).
 
@@ -68,8 +79,14 @@ from .pull import (
     reciprocal_pull_min,
 )
 from .state import SimParams, SimState
+from .xlamath import exp2_int, log_f32
 
 INF = 3.4e38
+
+# tcp loss model (the reference's constants): RTO = max(RTO_MIN_MS,
+# 1.5 * RTT), doubling per failure; a copy is abandoned after MAX_RETRIES
+RTO_MIN_MS = 200.0
+MAX_RETRIES = 6
 
 # exact-mode messages by route since the last reset: kept on the fast
 # pipeline, refined by the prefix engine, refined by the serial engine
@@ -137,13 +154,51 @@ def _stage_select(stage, n_stages, conns, rev):
 
 def edge_tables(stage, lat_ms, conns, rev, loss_stage=None):
     """Per-slot link latency lat_edge[p, i] = lat_ms[stage[p],
-    stage[conns[p, i]]] (0 on pads): an experiment constant."""
-    if loss_stage is not None:
-        raise _later("a lossy topology (packet loss models)", "loss-models")
+    stage[conns[p, i]]] (0 on pads) and, with loss_stage, the same
+    contraction of the loss matrix: experiment constants."""
     sel = _stage_select(stage, lat_ms.shape[0], conns, rev)
     lat_edge = torch.where(sel, lat_ms[stage.long()][:, None, :], 0.0
                            ).sum(dim=-1)
-    return lat_edge, None
+    loss_edge = None
+    if loss_stage is not None:
+        loss_edge = torch.where(sel, loss_stage[stage.long()][:, None, :],
+                                0.0).sum(dim=-1)
+    return lat_edge, loss_edge
+
+
+def tcp_retries(u, loss_edge, lat_edge):
+    """The tcp model at draws u (F, N, C): the retry count j = floor(log
+    u / log p) in XLA's float32 log (ops/xlamath.py), survive iff j <=
+    MAX_RETRIES, and the stall RTO * (2^j - 1). Returns (survive,
+    retx_ms)."""
+    f32 = torch.float32
+    dev = u.device
+    u = torch.maximum(u, torch.tensor(1e-12, dtype=f32, device=dev))
+    # float32 bounds, as jnp.clip has them: 1 - 1e-9 rounds to 1.0, so a
+    # loss of exactly 1.0 gives log p = +0, j = -inf: the copy survives
+    # with no stall (a reference quirk the port keeps)
+    safe_p = torch.clamp(loss_edge,
+                         torch.tensor(1e-9, dtype=f32, device=dev),
+                         torch.tensor(1.0 - 1e-9, dtype=f32, device=dev))
+    j = torch.where(loss_edge > 0.0,
+                    torch.floor(log_f32(u) / log_f32(safe_p)), 0.0)
+    j = torch.clamp_max(j, float(MAX_RETRIES + 1))
+    survive = j <= float(MAX_RETRIES)
+    rto = torch.clamp_min(3.0 * lat_edge, RTO_MIN_MS)
+    retx_ms = torch.where(survive & (j > 0.0), rto * (exp2_int(j) - 1.0),
+                          0.0)
+    return survive, retx_ms
+
+
+def loss_draws(k_loss, loss_edge, lat_edge, fragments: int,
+               loss_mode: str):
+    """One loss outcome per (fragment, directed edge) from k_loss:
+    (survive, retx_ms), each (F, N, C); message mode loses a copy with
+    probability p outright and has no stall (retx_ms None)."""
+    u = prng.uniform(k_loss, (fragments, *loss_edge.shape))
+    if loss_mode == "tcp":
+        return tcp_retries(u, loss_edge, lat_edge)
+    return u >= loss_edge, None
 
 
 @dataclass
@@ -190,14 +245,12 @@ def _next_heartbeat(t, phase, hb_ms: float):
     return (torch.floor(_div(t - phase, hb_ms)) + 1.0) * hb_ms + phase
 
 
-def _check_slice(params, *, with_gossip, mesh, loss_stage, with_fanout,
-                 return_plan, censor_edge, loss_mode):
+def _check_slice(params, *, mesh, with_fanout, return_plan, censor_edge,
+                 loss_mode):
     if loss_mode not in ("message", "tcp"):
         raise ValueError(f"unknown loss_mode {loss_mode!r}")
     if mesh is not None:
         raise _later("a peer-sharded mesh", "multi-GPU")
-    if loss_stage is not None:
-        raise _later("a lossy topology (packet loss models)", "loss-models")
     if with_fanout:
         raise _later("fanout publish (unsubscribed publisher)",
                      "fanout/warm-start")
@@ -207,9 +260,6 @@ def _check_slice(params, *, with_gossip, mesh, loss_stage, with_fanout,
         raise _later("return_plan (the DES cross-check seam)", "tooling")
     if censor_edge is not None:
         raise _later("censor_edge (adversarial drops)", "campaign-stack")
-    if params.slow_weight != 0.0 or params.fmd_weight < 0.0:
-        raise _later("binding score thresholds (nonzero slow-peer weight "
-                     "or negative fmd weight)", "campaign-stack")
 
 
 def disseminate(
@@ -240,8 +290,7 @@ def disseminate(
     """Propagate one message through the mesh; returns (DisseminationResult,
     new_state). The signature is the reference's; the arguments outside
     this slice raise NotImplementedError."""
-    _check_slice(params, with_gossip=with_gossip, mesh=mesh,
-                 loss_stage=loss_stage, with_fanout=with_fanout,
+    _check_slice(params, mesh=mesh, with_fanout=with_fanout,
                  return_plan=return_plan, censor_edge=censor_edge,
                  loss_mode=loss_mode)
     n, c = conns.shape
@@ -249,7 +298,8 @@ def disseminate(
     f32 = torch.float32
     publisher = int(publisher)
     t0_ms = torch.as_tensor(t0_ms, dtype=f32).to(dev)
-    keys = prng.split(state.key, 3)
+    # one extra key when loss is on: it moves k_rank and k_gossip too
+    keys = prng.split(state.key, 3 + (loss_stage is not None))
     key, k_rank, k_gossip = keys[0], keys[1], keys[2]
 
     frag_bytes = max(payload_bytes // fragments, 16)
@@ -265,19 +315,42 @@ def disseminate(
     rx_ms = _per_stage_ms(bw_down)                                 # (N,)
     rx_const = state.rx_free_ms + rx_ms
 
-    if lat_edge is None:
-        lat_edge, _ = edge_tables(stage, lat_ms, conns, rev)
+    if lat_edge is None or (loss_stage is not None and loss_edge is None):
+        lat_c, loss_c = edge_tables(stage, lat_ms, conns, rev, loss_stage)
+        lat_edge = lat_c if lat_edge is None else lat_edge
+        loss_edge = loss_c if loss_edge is None else loss_edge
 
     if valid_edge is not None:
         valid = valid_edge
     else:
         valid = (conns >= 0) & neighbor_pull_bool(
             state.alive & state.subscribed, conns, rev)
+
+    # v1.1 score thresholds: with non-negative weights no score can fall
+    # below them, and the gates are left out
+    thresholds_can_bind = params.slow_weight < 0.0 or params.fmd_weight < 0.0
+    if thresholds_can_bind:
+        sc = state.score(params)                       # my score of each nbr
+        pub_ok = sc >= params.publish_threshold
+        # graylist: the receiver ignores senders it scores below the
+        # threshold; pulled to the sender side it gates delivery only
+        gray_ok = reciprocal_pull_bool(sc >= params.graylist_threshold,
+                                       conns, rev)
+    survive = retx_ms = None
+    if loss_stage is not None:
+        survive, retx_ms = loss_draws(keys[3], loss_edge, lat_edge,
+                                      fragments, loss_mode)
+    # lost_tx counts the copies the network dropped: the loss-only mask,
+    # before the graylist joins it
+    survive_loss = survive
+    if thresholds_can_bind:
+        survive = gray_ok if survive is None else survive & gray_ok
     is_pub = torch.arange(n, device=dev) == publisher
 
     tgt = state.mesh_mask & valid
     if params.flood_publish:
-        tgt = torch.where(is_pub[:, None], valid, tgt)
+        flood_set = valid & pub_ok if thresholds_can_bind else valid
+        tgt = torch.where(is_pub[:, None], flood_set, tgt)
 
     # randomized send order per peer (one draw per message)
     rprio = torch.where(tgt, prng.uniform(k_rank, (n, c)), INF)
@@ -285,6 +358,9 @@ def disseminate(
     # gossip targets: a fresh sample per mcache round of
     # max(D_lazy, gossip_factor * |candidates|) non-mesh topic peers
     g_cand = valid & ~tgt
+    if thresholds_can_bind:
+        # no IHAVE to peers scored below gossipThreshold
+        g_cand = g_cand & (sc >= params.gossip_threshold)
     n_gc = g_cand.sum(dim=-1).to(f32)
     g_count = torch.clamp_min(params.gossip_factor * n_gc,
                               float(params.d_lazy))
@@ -310,11 +386,33 @@ def disseminate(
          for f in range(fragments)], dtype=f32, device=dev)
     ans_scale = 1.0 + 2.0 * float(tcp_flights(frag_bytes, params) - 1)
 
-    def _ld_mesh(f: int):
-        return lat_edge * ss_scale[f]
+    def _frag_slice(x, f: int):
+        """Fragment f's view of a per-fragment (F, N, C) draw; a
+        graylist-only survive mask is (N, C), shared by the fragments."""
+        if x is None or x.dim() == 2:
+            return x
+        return x[f]
 
-    def _ld_ans():
-        return lat_edge * ans_scale
+    def _deliver(mask, f: int):
+        """The edges of `mask` whose copy of fragment f arrives: lost (or
+        graylisted) copies never relax an edge, though their queue slots
+        still count."""
+        sv = _frag_slice(survive, f)
+        return mask if sv is None else mask & sv
+
+    def _deliver_g(g_abs, f: int):
+        """Answer offers on the edges whose copy of fragment f arrives."""
+        sv = _frag_slice(survive, f)
+        return g_abs if sv is None else torch.where(sv, g_abs, INF)
+
+    # delivery latency of a mesh copy (slow-start flights x wire latency)
+    # and of a gossip answer (cold flights), each plus the tcp stall of
+    # the fragment's draw (one draw per fragment-edge serves both)
+    ld_mesh = [lat_edge * ss_scale[f] for f in range(fragments)]
+    ld_ans = [lat_edge * ans_scale] * fragments
+    if retx_ms is not None:
+        ld_mesh = [ld + retx_ms[f] for f, ld in enumerate(ld_mesh)]
+        ld_ans = [ld + retx_ms[f] for f, ld in enumerate(ld_ans)]
 
     if with_gossip:
         if ans_tables is None:
@@ -326,26 +424,38 @@ def disseminate(
         gw_sorted = [torch.gather(g_tgt_w[h], 1, perm_lat)
                      for h in range(n_rounds)]
 
+        def _sorted(x):
+            """Per-fragment (N, C) slices of a draw, in lat order."""
+            return [None if _frag_slice(x, f) is None
+                    else torch.gather(_frag_slice(x, f), 1, perm_lat)
+                    for f in range(fragments)]
+
+        sv_sorted, retx_sorted = _sorted(survive), _sorted(retx_ms)
+
     neg_col = torch.full((n, 1), -INF, device=dev)
     zero_col = torch.zeros((n, 1), dtype=f32, device=dev)
 
-    def _round_req(h, tick, live, q_t, lat, gw_h):
+    def _round_req(h, tick, live, q_t, lat, gw_h, sv):
         """The request semantics shared by the lat-sorted fold and the
         global-sort engine: round h's IHAVE leaves at a_h = max(tick +
         h*hb, uplink); a sampled live edge is requested iff the receiver
-        still lacks the message when the IHAVE lands (q_t > a_h + lat).
+        still lacks the message when the IHAVE lands (q_t > a_h + lat),
+        and a lossy edge loses the IHAVE with the copy (`sv`).
         Returns (a_h (N, 1), sampled, requested)."""
         a_h = torch.maximum(tick + h * params.heartbeat_ms, uplink)[:, None]
         samp = gw_h & live[:, None]
-        return a_h, samp, samp & (q_t > a_h + lat)
+        req = samp & (q_t > a_h + lat)
+        return a_h, samp, req if sv is None else req & sv
 
-    def gossip_fold(t_rx):
+    def gossip_fold(t_rx, f: int):
         """Serialized gossip-answer offers via the per-round fold in the
         static lat order: (g_abs, req_any, drain, mixed, wait_max)."""
         base = t_rx + params.proc_delay_ms
         tick = _next_heartbeat(base, hb_phase, params.heartbeat_ms)
         live = can_send & (t_rx < INF)
         lda_s = lat_sorted * ans_scale
+        if retx_sorted[f] is not None:
+            lda_s = lda_s + retx_sorted[f]
         q_t_s = t_rx[conns_sorted.clamp_min(0).long()]
         txp = tx_ms[:, None]
         busy = uplink
@@ -357,7 +467,7 @@ def disseminate(
         prev_max_w = torch.full((n,), -INF, device=dev)
         for h in range(n_rounds):
             a_h, samp, req = _round_req(h, tick, live, q_t_s, lat_sorted,
-                                        gw_sorted[h])
+                                        gw_sorted[h], sv_sorted[f])
             w = a_h + 2.0 * lat_sorted
             min_w = torch.where(req, w, INF).amin(dim=-1)
             mixed = mixed | (min_w < prev_max_w - 1e-4).any()
@@ -387,7 +497,7 @@ def disseminate(
         drain = torch.where(had_req, busy, 0.0)
         return g_abs, req_any, drain, mixed, wait_max
 
-    def _gossip_jobs(t_rx):
+    def _gossip_jobs(t_rx, f: int):
         """Every sampled (round h, slot i) answer job: its IWANT arrival
         W = announce departure + 2 link traversals (INF if not sampled) and
         whether it is requested; (N, H*C), column h*C + i."""
@@ -398,25 +508,25 @@ def disseminate(
         ws, reqs = [], []
         for h in range(n_rounds):
             a_h, samp, req = _round_req(h, tick, live, q_t, lat_edge,
-                                        g_tgt_w[h])
+                                        g_tgt_w[h], _frag_slice(survive, f))
             ws.append(torch.where(samp, a_h + 2.0 * lat_edge, INF))
             reqs.append(req)
         return torch.cat(ws, dim=-1), torch.cat(reqs, dim=-1)
 
-    def _offers_from_serve(serve_u):
+    def _offers_from_serve(serve_u, f: int):
         """Per-edge answer offer from per-job serve starts: + one tx + the
         answer's cold-flight latency, min over the edge's sampled rounds;
         overflowed sums map back to the INF sentinel."""
         g_abs = (serve_u.reshape(n, n_rounds, c) + tx_ms[:, None, None]
-                 + _ld_ans()[:, None, :]).amin(dim=1)
+                 + ld_ans[f][:, None, :]).amin(dim=1)
         return torch.where(g_abs < INF, g_abs, INF)
 
-    def gossip_serial_exact(t_rx):
+    def gossip_serial_exact(t_rx, f: int):
         """Exact serialized answer offers at the estimate t_rx: each peer's
         answer jobs form one single-server queue in IWANT-arrival order
         (stable: ties by (round, slot)), rounds chaining through the busy
         time. Returns (g_abs, req_any, drain)."""
-        wf, req_b = _gossip_jobs(t_rx)
+        wf, req_b = _gossip_jobs(t_rx, f)
         req_any = req_b.reshape(n, n_rounds, c).any(dim=1)
         txp = tx_ms[:, None]
         perm = torch.argsort(wf, dim=-1, stable=True)
@@ -431,20 +541,25 @@ def disseminate(
         inv = torch.argsort(perm, dim=-1, stable=True)
         serve_u = torch.gather(serve, 1, inv)
         drain = torch.where(R[:, -1] > 0.0, M[:, -1] + R[:, -1] * tx_ms, 0.0)
-        return _offers_from_serve(serve_u), req_any, drain
+        return _offers_from_serve(serve_u, f), req_any, drain
 
     def _queue(rank, k_p, frag_idx):
         return (rank + 1.0 + frag_idx * k_p[:, None]) * tx_ms[:, None]
 
-    def offers(t_rx, rank, k_p, f, frag_idx, send_mask, g_abs=None):
-        """Arrival-time offers made by every peer on every neighbor slot
-        (transmit side: nothing is lost without a loss model)."""
+    def offers(t_rx, rank, k_p, f, frag_idx, send_mask, g_abs=None,
+               deliver_only=False):
+        """Arrival-time offers made by every peer on every neighbor slot.
+        `deliver_only` masks the copies the network loses (or the receiver
+        graylists): for the receiver side; the transmit-side accounting
+        leaves it off."""
         start = torch.maximum(t_rx + params.proc_delay_ms, uplink)
-        cand = start[:, None] + _queue(rank, k_p, frag_idx) + _ld_mesh(f)
+        cand = start[:, None] + _queue(rank, k_p, frag_idx) + ld_mesh[f]
         live = can_send[:, None] & (t_rx[:, None] < INF)
-        cand = torch.where(send_mask & live, cand, INF)
+        sm = _deliver(send_mask, f) if deliver_only else send_mask
+        cand = torch.where(sm & live, cand, INF)
         if with_gossip:
-            cand = torch.minimum(cand, g_abs)
+            cand = torch.minimum(
+                cand, _deliver_g(g_abs, f) if deliver_only else g_abs)
         return cand
 
     def pull(cand):
@@ -460,18 +575,18 @@ def disseminate(
         once, then each sweep is elementwise plus the vmem_gather of the
         (N,) times."""
         return build_recv_constants(
-            conns, rev, lat_edge, tx_ms, rank, k_p, frag_idx, send_mask,
-            can_send, g_tgt, g_off, hb_phase, uplink, rx_const,
-            params.proc_delay_ms, params.heartbeat_ms, gossip,
-            lat_deliver=_ld_mesh(f), ld_gossip=_ld_ans(),
-            packed=params.packed_state,
+            conns, rev, lat_edge, tx_ms, rank, k_p, frag_idx,
+            _deliver(send_mask, f), can_send, _deliver(g_tgt, f), g_off,
+            hb_phase, uplink, rx_const, params.proc_delay_ms,
+            params.heartbeat_ms, gossip, lat_deliver=ld_mesh[f],
+            ld_gossip=ld_ans[f], packed=params.packed_state,
         )
 
     def _mesh_base(rank, k_p, f, frag_idx, send_mask):
         """Sender-side mesh offset of each slot (queue position + deliver
-        latency), INF where the slot does not send."""
-        return torch.where(send_mask & can_send[:, None],
-                           _queue(rank, k_p, frag_idx) + _ld_mesh(f), INF)
+        latency), INF where the slot does not send or its copy is lost."""
+        return torch.where(_deliver(send_mask, f) & can_send[:, None],
+                           _queue(rank, k_p, frag_idx) + ld_mesh[f], INF)
 
     def _mesh_cand(t, a_base):
         """Mesh offers of one sender-side sweep at the estimate t: (live,
@@ -493,8 +608,8 @@ def disseminate(
         # below the budget: sender-major offers, row-gather pull per sweep
         a_base = _mesh_base(rank, k_p, f, frag_idx, send_mask)
         g_base = torch.where(
-            g_tgt & can_send[:, None],
-            2.0 * lat_edge + _ld_ans() + tx_ms[:, None], INF)
+            _deliver(g_tgt, f) & can_send[:, None],
+            2.0 * lat_edge + ld_ans[f] + tx_ms[:, None], INF)
         t_rx = t0
         inc = torch.full(conns.shape, INF, device=dev)
         changed, it = True, 0
@@ -560,8 +675,8 @@ def disseminate(
         t_g[publisher] = t_pub
         changed, it = True, 0
         while changed and it < params.max_relax_iters:
-            g_abs, _, _ = gossip_serial_exact(t_g)
-            t_new = solve(pull(g_abs).amin(dim=-1))
+            g_abs, _, _ = gossip_serial_exact(t_g, f)
+            t_new = solve(pull(_deliver_g(g_abs, f)).amin(dim=-1))
             changed = bool((t_new != t_g).any())
             t_g, it = t_new, it + 1
         return t_g, not changed, it
@@ -583,9 +698,10 @@ def disseminate(
         mixed = torch.zeros((), dtype=torch.bool, device=dev)
         changed, it = True, 0
         while changed and it < params.max_relax_iters:
-            g_abs, req, drain, mixed, _ = gossip_fold(t_g)
+            g_abs, req, drain, mixed, _ = gossip_fold(t_g, f)
             live, cand = _mesh_cand(t_g, a_base)
-            cand = torch.minimum(cand, torch.where(live, g_abs, INF))
+            cand = torch.minimum(
+                cand, torch.where(live, _deliver_g(g_abs, f), INF))
             t_new = torch.where(
                 ~is_pub, torch.maximum(pull(cand).amin(dim=-1), rx_const),
                 t_pub)
@@ -632,7 +748,8 @@ def disseminate(
         masked to answered edges (an unanswered edge's offer must not take
         the first-sender argmin)."""
         return pull(offers(t, rank, k_p, f, frag_idx, send_mask,
-                           g_abs=torch.where(req, g_abs, INF)))
+                           g_abs=torch.where(req, g_abs, INF),
+                           deliver_only=True))
 
     def _phase1_order(f: int):
         """(send set, send ranks, send count) of phase 1 of fragment f."""
@@ -651,7 +768,7 @@ def disseminate(
             # the answer queues folded at both phase results ride in the
             # attribution pulls and the accounting; the fixpoint itself
             # stays unserialized, certified by _diverged
-            g1, req1, drain1, mixed1, _ = gossip_fold(t1)
+            g1, req1, drain1, mixed1, _ = gossip_fold(t1, f)
             inc1p = _attribution(t1, rank1, k1, f, frag_idx, tgt_f, g1, req1)
             hint1 = _diverged(t1, inc1p, mixed1)
             if not params.exclude_first_sender:
@@ -661,7 +778,7 @@ def disseminate(
                 inc1p, t1, rank1, k1, tgt_f)
             t2, _, ok2 = _converge_dyn(rank2, k2, f, frag_idx, t_pub,
                                        send_mask, t_init=t1)
-            g2, req2, drain2, mixed2, _ = gossip_fold(t2)
+            g2, req2, drain2, mixed2, _ = gossip_fold(t2, f)
             inc2 = _attribution(t2, rank2, k2, f, frag_idx, send_mask, g2,
                                 req2)
             return (t2, rank2, k2, send_mask, g2, req2, drain2, inc2,
@@ -679,7 +796,7 @@ def disseminate(
             t_fin, inc_fin, ok = t2, inc2, ok1 and ok2
             rank_o, k_o, mask_o = rank2, k2, send_mask
         if with_gossip:
-            g_f, req_f, drain_f, mixed_o, wait_o = gossip_fold(t_fin)
+            g_f, req_f, drain_f, mixed_o, wait_o = gossip_fold(t_fin, f)
         else:
             g_f = req_f = drain_f = None
             mixed_o = torch.zeros((), dtype=torch.bool, device=dev)
@@ -696,7 +813,7 @@ def disseminate(
         tgt_f, rank1, k1 = order[f]
         t1, conv1, it1 = _converge_serialized(rank1, k1, f, frag_idx, t_pub,
                                               tgt_f, t_seed)
-        g1, req1, drain1 = gossip_serial_exact(t1)
+        g1, req1, drain1 = gossip_serial_exact(t1, f)
         inc1 = _attribution(t1, rank1, k1, f, frag_idx, tgt_f, g1, req1)
         if not params.exclude_first_sender:
             return t1, rank1, k1, tgt_f, g1, req1, drain1, inc1, conv1, it1
@@ -704,7 +821,7 @@ def disseminate(
             inc1, t1, rank1, k1, tgt_f)
         t2, conv2, it2 = _converge_serialized(rank2, k2, f, frag_idx, t_pub,
                                               send_mask, t1)
-        g2, req2, drain2 = gossip_serial_exact(t2)
+        g2, req2, drain2 = gossip_serial_exact(t2, f)
         inc2 = _attribution(t2, rank2, k2, f, frag_idx, send_mask, g2, req2)
         return (t2, rank2, k2, send_mask, g2, req2, drain2, inc2,
                 conv1 and conv2, it1 + it2)
@@ -759,7 +876,9 @@ def disseminate(
     def frag_accounting(f, frag_idx, t_rx_one, rank, k_p, send_mask,
                         g_abs_f, req_any_f, drain_f, inc):
         """Bytes, copies, gossip counters, first-delivery slot, downlink
-        arrivals and uplink drain of one fragment at its final times."""
+        arrivals, uplink drain, network-lost copies and slow-peer marks of
+        one fragment at its final times."""
+        sv_loss = _frag_slice(survive_loss, f)
         cand = offers(t_rx_one, rank, k_p, f, frag_idx, send_mask,
                       g_abs=g_abs_f)
         made_offer = cand < INF
@@ -789,7 +908,8 @@ def disseminate(
             ihave_pp = ihave_ct.sum(dim=-1)
             iwant_rx_pp = gossip_sent.sum(dim=-1).to(f32)
             sends = sends + (gossip_sent & made_offer).sum(dim=-1)
-            arrived = eff_send | (gossip_sent & made_offer)
+            sent_any = eff_send | (gossip_sent & made_offer)
+            arrived = _deliver(sent_any, f)
             # one pull for the IHAVE count, the IWANT flag and the copy
             pack = (ihave_ct * 4.0 + gossip_sent.to(f32) * 2.0
                     + arrived.to(f32))
@@ -803,12 +923,28 @@ def disseminate(
             arrived_rx = rem - q_gs * 2.0 > 0.5
         else:
             ihave_pp = iwant_pp = ihave_rx_pp = iwant_rx_pp = zeros_n
+            sent_any = eff_send
             arrived_rx = reciprocal_pull_bool(
-                eff_send, conns, rev, batch_factor=fragments)
+                _deliver(sent_any, f), conns, rev, batch_factor=fragments)
+        lost_pp = (zeros_n if sv_loss is None
+                   else (sent_any & ~sv_loss).sum(dim=-1).to(f32))
         copies = arrived_rx.sum(dim=-1).to(f32)
         arr_t = torch.where(arrived_rx, inc, -INF)
+        # slow-peer penalty (main.nim:264-299): a delivery that waited
+        # longer than the threshold in the sender's queue (earlier traffic
+        # on its uplink included) marks the sender slow in the receiver's
+        # score of it, the reciprocal slot
+        slow_inc = None
+        if params.slow_weight != 0.0:
+            qdelay = torch.clamp_min(
+                uplink - (t_rx_one + params.proc_delay_ms), 0.0
+            )[:, None] + (rank + frag_idx * k_p[:, None]) * tx_ms[:, None]
+            slow_send = send_mask & made_offer & (
+                qdelay > params.slow_threshold_ms)
+            slow_inc = reciprocal_pull_bool(
+                slow_send, conns, rev, batch_factor=fragments).to(f32)
         return (sends, copies, ihave_pp, iwant_pp, ihave_rx_pp, iwant_rx_pp,
-                first_slot, arr_t, up_end)
+                first_slot, arr_t, up_end, lost_pp, slow_inc)
 
     # publisher emits fragments back-to-back (main.nim:177-179)
     frag_ids = torch.arange(fragments, dtype=f32, device=dev)
@@ -871,7 +1007,7 @@ def disseminate(
         copies_rx=copies,
         ihave_sent=ihave_pp,
         iwant_sent=iwant_pp,
-        lost_tx=torch.zeros((n,), dtype=torch.int32, device=dev),
+        lost_tx=total(9),
         answer_wait_max_ms=answer_wait,
         answer_interleaved=answer_interleaved,
         converged=torch.tensor(converged, device=dev),
@@ -892,6 +1028,11 @@ def disseminate(
                        d_sorted + pos[None, :] * rx_ms[:, None], -INF)
     rx_free_new = torch.maximum(state.rx_free_ms + m_copies * rx_ms,
                                 fold.amax(dim=-1))
+    slow_penalty = state.slow_penalty
+    if params.slow_weight != 0.0:
+        # the counter accrues unweighted; score() applies the weight
+        slow_penalty = slow_penalty + torch.stack(
+            [a[10] for a in acct]).sum(dim=0)
     warm_new = torch.where(received, t_rx - t0_ms, INF)
     new_state = state.replace(
         key=key,
@@ -899,6 +1040,7 @@ def disseminate(
         uplink_free_ms=uplink_new,
         rx_free_ms=rx_free_new,
         fmd=fmd,
+        slow_penalty=slow_penalty,
         bytes_tx=state.bytes_tx + sends.to(f32) * frag_bytes,
         bytes_rx=state.bytes_rx + copies.to(f32) * frag_bytes,
         dup_rx=state.dup_rx + dup.to(torch.int32),

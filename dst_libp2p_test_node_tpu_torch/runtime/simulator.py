@@ -10,6 +10,7 @@ The port of the reference Simulator's main path:
               shadowlog and summaries (runtime/summarize.py, bandwidth.py)
 
 All state lives on one device: CUDA unless the caller passes device="cpu".
+A lossy topology (packet_loss > 0) runs the loss model cfg.loss_mode names.
 Mix routing, telemetry, checkpoints, batched publish and meshes are later
 slices (ROADMAP A) and raise.
 """
@@ -144,10 +145,6 @@ class Simulator:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.topology = topology or Topology.build(cfg.topo)
-        if float(np.max(self.topology.packet_loss)) > 0.0:
-            raise NotImplementedError(
-                "a lossy topology is not ported yet: it comes with the "
-                "loss-models slice (ROADMAP A)")
         n = cfg.topo.network_size
         self.graph = build_connection_graph(
             n, cfg.connect_to, seed=cfg.seed,
@@ -170,9 +167,15 @@ class Simulator:
         self._stage = torch.as_tensor(self.topology.stage_of_peer, device=dev)
         self._lat = torch.as_tensor(self.topology.latency_ms, device=dev)
         self._bw = torch.as_tensor(self.topology.bw_up_mbit, device=dev)
+        # per-stage-pair packet loss (topogen -l); None keeps the lossless
+        # path free of the loss draws
+        self._loss = (
+            torch.as_tensor(self.topology.packet_loss, device=dev)
+            if float(np.max(self.topology.packet_loss)) > 0.0 else None)
         # experiment constants, built once
-        self._lat_edge, _ = edge_tables(
-            self._stage, self._lat, self.arrays["conns"], self.arrays["rev"])
+        self._lat_edge, self._loss_edge = edge_tables(
+            self._stage, self._lat, self.arrays["conns"], self.arrays["rev"],
+            self._loss)
         self._ans_tables = (answer_tables(self._lat_edge, self.arrays["conns"])
                             if cfg.with_gossip else None)
         self._churny = (cfg.churn_down_per_hb > 0.0
@@ -225,8 +228,9 @@ class Simulator:
             self.state, a["conns"], a["rev"], self._stage, self._lat,
             self._bw, publisher=publisher, t0_ms=t0_ms, params=self.params,
             payload_bytes=size, fragments=cfg.topo.num_frags,
-            with_gossip=cfg.with_gossip, loss_mode=cfg.loss_mode,
-            lat_edge=self._lat_edge, ans_tables=self._ans_tables,
+            with_gossip=cfg.with_gossip, loss_stage=self._loss,
+            loss_mode=cfg.loss_mode, lat_edge=self._lat_edge,
+            loss_edge=self._loss_edge, ans_tables=self._ans_tables,
             valid_edge=self._valid_edge,
         )
         if cfg.msgid_mode == "go":

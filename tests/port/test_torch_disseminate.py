@@ -114,10 +114,12 @@ def test_outside_the_slice_raises():
     with pytest.raises(NotImplementedError, match="fanout/warm-start"):
         td.disseminate(*args, publisher=1, t0_ms=0.0, params=warm,
                        payload_bytes=15000)
-    with pytest.raises(NotImplementedError, match="loss-models"):
-        td.disseminate(*args, publisher=1, t0_ms=0.0, params=pt,
-                       payload_bytes=15000,
-                       loss_stage=torch.from_numpy(topo.packet_loss))
+    # a lossy topology is ported now (slice 4): the call runs
+    res, _ = td.disseminate(*args, publisher=1, t0_ms=0.0, params=pt,
+                            payload_bytes=15000,
+                            loss_stage=torch.full((6, 6), 0.5),
+                            loss_mode="message")
+    assert int(res.lost_tx.sum()) > 0
     with pytest.raises(NotImplementedError, match="fanout"):
         td.disseminate(*args, publisher=1, t0_ms=0.0, params=pt,
                        payload_bytes=15000, with_fanout=True)

@@ -82,7 +82,7 @@ def test_run_cli_files_byte_identical(tmp_path, monkeypatch):
     assert outs["torch"] == outs["jax"]
 
 
-def test_cli_refuses_what_is_not_ported(capsys):
+def test_cli_refuses_what_is_not_ported(capsys, tmp_path, monkeypatch):
     base = ["run", "1", "50", "15000", "1", "1", "50", "150", "40", "130",
             "5", "0.0", "4", "0", "1000", "--device", "cpu"]
     for extra in (["--checkpoint", "x"],
@@ -91,10 +91,13 @@ def test_cli_refuses_what_is_not_ported(capsys):
             tcli.main(base + extra)
         assert exc.value.code == 2
     assert "not ported yet" in capsys.readouterr().err
+    # a lossy topology is ported now (slice 4): the run exits 0
     lossy = list(base)
     lossy[11] = "0.1"
-    with pytest.raises(SystemExit):
-        tcli.main(lossy + ["--delivery-mode", "bounded"])
+    monkeypatch.chdir(tmp_path)
+    assert tcli.main(lossy + ["--delivery-mode", "bounded", "--warmup-s",
+                              "5", "--loss-mode", "message"]) == 0
+    assert (tmp_path / "latencies1").read_text().count("\n") > 0
 
 
 def test_experiment_config_fields_match_the_reference():
