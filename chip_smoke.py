@@ -63,33 +63,59 @@ not printed):
                set for that run only: fails on an unconverged fixpoint or
                a kernel of the path that never launched; prints p50/p99
                beside 3b's lossless run.
-  4. main    - the port's `run` entry at full width: 1,000,000 peers,
-               CONNECTTO=10, 15 KB, 1 fragment, 3 messages, bounded
-               delivery mode, a 30 s warm-up. Kernel launch counts are
-               zeroed just before and read just after; fails on coverage
-               < 1, an unconverged fixpoint or a kernel of the path that
-               never launched.
-  5. idle    - a second 1M-peer Simulator: set-up and warm-up timed apart,
-               then one publish three times from one state as in 3b(c):
-               device busy time over the unprofiled and the profiled wall.
+  3e. membership parity - CUDA vs CPU at 2048 peers, byte-identical
+               outputs and equal engine counts: (a) 75% subscribed through
+               set_subscribed, an unsubscribed publisher, 3 messages within
+               the fanout TTL, then an advance past it and a fourth; (b) mix
+               routing on (NUMMIX 16, MIXD 4); (c) (a) with warm_start, whose
+               text must also equal (a)'s; (d) a MultiTopicSimulator of 512
+               peers x 4 topics at subscribe_fraction 0.75 with one
+               unsubscribed publisher (records and every state leaf).
+  3f. config 3 - BASELINE config 3 (bench_configs.py:169-208) at full
+               width: 10,000 peers x 4 topics, 2,000 B, 60 s warm-up, one
+               exact publish per topic from its 5th subscriber, 2 s apart
+               (40k stacked rows: the prefix engine, sender-side). Run twice
+               (the second timed as the bench times it); prints wall,
+               peer-rounds/s, coverage of the subscribers, p50/p99, topic
+               health, routes and launches, then one fanout publish from an
+               unsubscribed peer apart, and one publish per topic of the
+               same stack in 3b(a)'s gossip-heavy setting (the prefix
+               engine at 40k rows). Fails on an unconverged fixpoint or
+               coverage below 1 of the subscribers.
+  4. config 5 - BASELINE config 5 exactly, through the port's `run` entry:
+               1,000,000 peers, 15 KB, 2 messages from peer 132, bounded
+               delivery mode, a 30 s warm-up, mix routing through 4 of 128
+               mix nodes. Kernel launch counts zeroed just before and read
+               just after; prints each message's mix delay and publish wall;
+               fails on coverage < 1, other than 2,000,000 latency lines, an
+               unconverged fixpoint or a kernel of the path that never
+               launched.
+  4b. warm twin - the same experiment through a Simulator built with
+               warm_start=True: its latencies must equal phase 4's byte for
+               byte; prints both runs' gather launches and publish walls and
+               the warm certified / cold-rerun counts.
+  5. idle    - a 1M-peer Simulator without the mix relay (the mix-less 1M
+               bounded path): set-up and warm-up timed apart, then one
+               publish three times from one state as in 3b(c): device busy
+               time over the unprofiled and the profiled wall.
 
 Then one JSON line with every kernel's numbers: at 1M x 40 with
-`launches` from phase 4's 1M bounded run, under `exact` at 100k x 40
-with `launches` from phase 3b's config-4 run, and under `lossy` the same
-100k x 40 numbers with `launches` from phase 3d. Last the line
-{"ok": true, "device": {...}}. Without CUDA it exits 1 and prints no
-result; run alone, without the package beside it, it exits 2.
+`launches` from phase 4's config-5 run, under `exact` at 100k x 40 with
+`launches` from phase 3b's config-4 run, under `lossy` the same 100k x 40
+numbers with `launches` from phase 3d, and the launches of phase 3f
+(`config3`) and 4b (`warm`). Last the line {"ok": true, "device":
+{...}}. Without CUDA it exits 1 and prints no result; run alone, without
+the package beside it, it exits 2.
 
-Machine time: the whole script took 204 s of command time on one H100
-with phases 3c and 3d (150-225 s before them): 3c adds about 30 s (six
-2048-peer runs on each device, 0.8-0.9 s on the card and 2.4-4.6 s on
-the CPU each, and the two direct publishes) and 3d about 15 s, well
-inside a 20-minute budget.
+Machine time: 245.6 and 267.3 s of command time on one H100 in two
+runs (204 s before phases 3e, 3f and 4b), well inside a 20-minute
+budget.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -115,10 +141,19 @@ F32_FLOP_PER_S = 67e12
 FULL_N = 1_000_000
 FULL_WARMUP_S = 30.0
 PARITY_N = 2048
-# run.sh positionals of the full-size run: config 5's topology
+# run.sh positionals of the mix-less 1M run (phase 5): config 5's topology
 # (anchor_stages 5, 50-150 Mbit, 40-130 ms, 15 KB, 2 s spacing)
 FULL_ARGS = ["1", str(FULL_N), "15000", "1", "3", "50", "150", "40", "130",
              "5", "0.0", "4", "0", "2000"]
+# BASELINE config 5 (bench_configs.py:228-234): 2 messages from peer 4 +
+# NUMMIX, relayed through MIXD 4 of the 128 mix nodes, bounded mode
+C5_ARGS = ["1", str(FULL_N), "15000", "1", "2", "50", "150", "40", "130",
+           "5", "0.0", "132", "0", "2000"]
+C5_FLAGS = ["--delivery-mode", "bounded", "--warmup-s", str(FULL_WARMUP_S),
+            "--use-mix", "--num-mix", "128", "--mix-d", "4"]
+# BASELINE config 3 (bench_configs.py:169-208)
+C3_N = 10_000
+C3_TOPICS = ("blocks", "attestations", "aggregates", "sync")
 # BASELINE config 4 (bench_configs.py:211-225), the exact rung: 100k peers,
 # 4 fragments of a 15 KB message, churn 0.001 per heartbeat, 60 s warm-up
 EXACT_N = 100_000
@@ -566,8 +601,8 @@ def phase_config4(dev, tag, args, env=None, lossless=None):
           f"passes {stats['refine_passes']}; launches {launches}; peak "
           f"memory {peak / 2**30:.2f} GiB")
     check(stats["converged"], f"a {tag} config-4 fixpoint hit its cap")
-    check(sum(engines.values()) - engines["prefix_fallback"] == 3,
-          f"engine counts {engines} do not add up to 3 messages")
+    check(sum(engines[k] for k in dis.ROUTES) - engines["prefix_fallback"]
+          == 3, f"engine counts {engines} do not add up to 3 messages")
     for name, count in launches.items():
         check(count > 0, f"the {tag} path never launched {name}")
     return launches, stats
@@ -736,7 +771,305 @@ def phase_lossy_parity(dev):
               f"({gpu[0] / gpu[1]:.4f}), equal on CUDA and CPU")
 
 
+
+# --------------------------------------------------------------- phase 3e
+
+def _run_both(dev, build, script):
+    """`script(sim)` on a Simulator from `build(device)` on `dev` and on the
+    CPU: ((outputs, engine counts, sim) on `dev`, the same on the CPU,
+    seconds on each)."""
+    from dst_libp2p_test_node_tpu_torch.ops import disseminate as dis
+
+    out, walls = [], []
+    for device in (dev, "cpu"):
+        dis.reset_engine_counts()
+        t0 = time.time()
+        sim = build(device)
+        script(sim)
+        walls.append(time.time() - t0)
+        out.append((_outputs(sim), dict(dis.engine_counts), sim))
+    return out[0], out[1], walls[0], walls[1]
+
+
+def _check_same(what, gpu, cpu):
+    for part, a, b in zip(("latencies", "shadowlog", "summaries"), gpu[0],
+                          cpu[0]):
+        check(a == b, f"{what}: CUDA and CPU {part} differ at {PARITY_N} "
+              f"peers")
+    check(gpu[1] == cpu[1], f"{what}: engine counts {gpu[1]} on CUDA, "
+          f"{cpu[1]} on the CPU")
+
+
+def phase_membership_parity(dev):
+    """Fanout publish, mix relay, warm start and the multi-topic Simulator,
+    each on CUDA and on the CPU."""
+    from dst_libp2p_test_node_tpu_torch import interop
+    from dst_libp2p_test_node_tpu_torch.config.env import GossipSubParams
+    from dst_libp2p_test_node_tpu_torch.config.topology import TopoParams
+    from dst_libp2p_test_node_tpu_torch.ops import disseminate as dis
+    from dst_libp2p_test_node_tpu_torch.runtime.multitopic import (
+        MultiTopicConfig, MultiTopicSimulator)
+    from dst_libp2p_test_node_tpu_torch.runtime.simulator import (
+        ExperimentConfig, Simulator)
+
+    topo = TopoParams(network_size=PARITY_N, anchor_stages=5,
+                      min_bandwidth=50, max_bandwidth=150, min_latency=40,
+                      max_latency=130, msg_size_bytes=15000, num_frags=1,
+                      messages=3, delay_seconds=2.0)
+    mask = np.random.default_rng(11).random(PARITY_N) < 0.75
+    pub = int(np.nonzero(~mask)[0][0])
+    fan_sizes = []
+
+    def membership(sim):
+        sim.set_subscribed(mask)
+        sim.warmup()
+        for i in range(3):          # 2 s apart: inside the 60 s TTL
+            if i:
+                sim.advance(2000.0)
+            sim.publish(pub)
+            fan_sizes.append(int(sim.state.fanout_mask[pub].sum()))
+        sim.advance(sim.params.fanout_ttl_ms + 1000.0)
+        fan_sizes.append(int(sim.state.fanout_mask[pub].sum()))
+        sim.publish(pub)
+        fan_sizes.append(int(sim.state.fanout_mask[pub].sum()))
+
+    def member_cfg(warm):
+        return ExperimentConfig(
+            topo=topo, seed=3, warmup_s=30.0, warm_start=warm,
+            gossipsub=GossipSubParams(flood_publish=False))
+
+    # (a) fanout, then (c) the same with warm start
+    texts = {}
+    for name, warm in (("fanout", False), ("fanout + warm start", True)):
+        fan_sizes.clear()
+        gpu, cpu, t_gpu, t_cpu = _run_both(
+            dev, lambda d: Simulator(member_cfg(warm), device=d), membership)
+        _check_same(f"membership ({name})", gpu, cpu)
+        d = member_cfg(warm).gossipsub.d
+        check(fan_sizes[:5] == [d, d, d, 0, d],
+              f"{name}: fanout set sizes {fan_sizes[:5]} (publish x3, "
+              f"expiry, publish)")
+        check(not any(r.received[pub] for r in gpu[2].records),
+              f"{name}: the unsubscribed origin logged its own message")
+        texts[name] = gpu[0]
+        print(f"[member] {PARITY_N} peers, {name}: 4 publishes from "
+              f"unsubscribed peer {pub} (fanout set {fan_sizes[:5]}), "
+              f"outputs byte-identical on CUDA ({t_gpu:.1f} s) and CPU "
+              f"({t_cpu:.1f} s); engines {gpu[1]}")
+    check(texts["fanout"] == texts["fanout + warm start"],
+          "the warm-start run's outputs differ from the cold run's")
+    print("[member] warm-start outputs equal the cold run's byte for byte")
+
+    # (b) mix relay
+    mix_cfg = ExperimentConfig(topo=topo, seed=3, warmup_s=30.0,
+                               uses_mix=True, num_mix=16, mix_d=4,
+                               publisher_id=14, publisher_rotation=True)
+    gpu, cpu, t_gpu, t_cpu = _run_both(
+        dev, lambda d: Simulator(mix_cfg, device=d), lambda sim: sim.run())
+    _check_same("mix relay", gpu, cpu)
+    lines = gpu[0][0].count("\n")
+    check(lines == 3 * PARITY_N, f"mix run wrote {lines} latency lines")
+    print(f"[member] {PARITY_N} peers, mix relay (NUMMIX 16, MIXD 4, "
+          f"publishers 14-16): outputs byte-identical on CUDA "
+          f"({t_gpu:.1f} s) and CPU ({t_cpu:.1f} s); engines {gpu[1]}")
+
+    # (d) the multi-topic Simulator
+    mt_cfg = MultiTopicConfig(
+        topo=TopoParams(network_size=512, anchor_stages=5,
+                        min_bandwidth=50, max_bandwidth=150, min_latency=40,
+                        max_latency=130, msg_size_bytes=2000),
+        topics=C3_TOPICS, subscribe_fraction=0.75, warmup_s=30.0, seed=3)
+    runs = []
+    for device in (dev, "cpu"):
+        dis.reset_engine_counts()
+        t0 = time.time()
+        sim = MultiTopicSimulator(mt_cfg, device=device)
+        sim.warmup()
+        recs = []
+        for ti, topic in enumerate(C3_TOPICS):
+            recs.append(sim.publish(
+                topic, int(np.nonzero(sim.subscribed_np[ti])[0][4])))
+            sim.advance(2000.0)
+        unsub = int(np.nonzero(~sim.subscribed_np[0])[0][0])
+        recs.append(sim.publish(C3_TOPICS[0], unsub))
+        runs.append((recs, interop.state_to_numpy(sim.state),
+                     dict(dis.engine_counts), time.time() - t0))
+    (g_recs, g_state, g_eng, t_gpu), (c_recs, c_state, c_eng, t_cpu) = runs
+    for a, b in zip(g_recs, c_recs):
+        for name in ("delays_ms", "received", "sends", "copies_rx"):
+            check(np.array_equal(getattr(a, name), getattr(b, name)),
+                  f"multi-topic record {name} differs on CUDA and CPU")
+        check((a.ihave, a.iwant, a.converged) == (b.ihave, b.iwant,
+                                                  b.converged),
+              "multi-topic record counters differ on CUDA and CPU")
+    check(interop.leaf_mismatches(c_state, g_state) == [],
+          "multi-topic state differs on CUDA and CPU")
+    check(g_eng == c_eng, f"multi-topic engines {g_eng} vs {c_eng}")
+    check(not g_recs[-1].received[unsub], "fanout origin logged itself")
+    print(f"[member] multi-topic 512 peers x {len(C3_TOPICS)} topics, "
+          f"subscribe_fraction 0.75, one publish per topic and one fanout "
+          f"publish: records and every state leaf equal on CUDA "
+          f"({t_gpu:.1f} s) and CPU ({t_cpu:.1f} s); engines {g_eng}")
+
+
+# --------------------------------------------------------------- phase 3f
+
+def phase_config3(dev):
+    """BASELINE config 3 at full width on the card (module doc)."""
+    from dst_libp2p_test_node_tpu_torch.config.env import GossipSubParams
+    from dst_libp2p_test_node_tpu_torch.config.topology import TopoParams
+    from dst_libp2p_test_node_tpu_torch.native import score_update as su
+    from dst_libp2p_test_node_tpu_torch.native import vmem_gather as vg
+    from dst_libp2p_test_node_tpu_torch.ops import disseminate as dis
+    from dst_libp2p_test_node_tpu_torch.runtime.multitopic import (
+        MultiTopicConfig, MultiTopicSimulator)
+
+    cfg = MultiTopicConfig(
+        topo=TopoParams(network_size=C3_N, anchor_stages=5,
+                        min_bandwidth=50, max_bandwidth=150, min_latency=40,
+                        max_latency=130, msg_size_bytes=2000, num_frags=1,
+                        messages=3, delay_seconds=2.0),
+        topics=C3_TOPICS, connect_to=10, subscribe_fraction=0.75,
+        warmup_s=60.0, seed=0)
+    t0 = time.time()
+    sim = MultiTopicSimulator(cfg, device=dev)
+    torch.cuda.synchronize()
+    setup = time.time() - t0
+
+    def experiment():
+        sim.reset()
+        sim.warmup()
+        recs = []
+        for ti, topic in enumerate(cfg.topics):
+            pub = int(np.nonzero(sim.subscribed_np[ti])[0][4])
+            recs.append(sim.publish(topic, pub))
+            sim.advance(2000.0)
+        torch.cuda.synchronize()
+        return recs
+
+    walls = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(2):
+        torch.cuda.synchronize()
+        vg.launches = 0
+        su.launches = 0
+        dis.reset_engine_counts()
+        t1 = time.time()
+        recs = experiment()
+        walls.append(time.time() - t1)
+        launches = {"vmem_gather": vg.launches, "score_update": su.launches}
+        engines = dict(dis.engine_counts)
+    peak = torch.cuda.max_memory_allocated(dev)
+    wall = walls[-1]
+    rounds = float(sim.state.t_ms) / sim.params.heartbeat_ms
+    prs = C3_N * rounds * len(cfg.topics) / wall
+    delays = np.concatenate([r.delays_ms[sim.subscribed_np[ti]]
+                             for ti, r in enumerate(recs)])
+    coverage = float(np.isfinite(delays).mean())
+    fin = delays[np.isfinite(delays)]
+    health = sim.topic_health()
+    print(f"[config3] {C3_N} peers x {len(cfg.topics)} topics "
+          f"({len(cfg.topics) * C3_N} stacked rows), subscribe_fraction "
+          f"0.75, exact mode: set-up {setup:.3f} s; experiment wall "
+          f"{walls[0]:.3f} s the first time, {wall:.3f} s the second "
+          f"({rounds:g} rounds); peer-rounds/s {prs:.1f}; coverage of the "
+          f"subscribers {coverage}; p50 {np.percentile(fin, 50):.3f} ms, "
+          f"p99 {np.percentile(fin, 99):.3f} ms; health {health}; mesh "
+          f"sizes {sim.mesh_sizes()}; engines {engines}; refine passes "
+          f"{[r.refine_passes for r in recs]}; launches {launches}; peak "
+          f"memory {peak / 2**30:.2f} GiB")
+    check(all(r.converged for r in recs), "a config-3 fixpoint hit its cap")
+    check(coverage >= 1.0, f"config 3 coverage {coverage} of subscribers")
+    check(sum(engines[k] for k in dis.ROUTES) - engines["prefix_fallback"]
+          == len(cfg.topics), f"config 3 engine counts {engines}")
+    check(launches["score_update"] > 0,
+          "the config-3 path never launched score_update")
+    # one fanout publish from a peer outside topic 0
+    unsub = int(np.nonzero(~sim.subscribed_np[0])[0][0])
+    torch.cuda.synchronize()
+    t1 = time.time()
+    rec = sim.publish(cfg.topics[0], unsub)
+    torch.cuda.synchronize()
+    fan_wall = time.time() - t1
+    fan_cov = float(rec.received[sim.subscribed_np[0]].mean())
+    fan = int(sim.states.fanout_mask[0, unsub].sum())
+    print(f"[config3] one fanout publish on {cfg.topics[0]!r} from "
+          f"unsubscribed peer {unsub}: {fan_wall:.3f} s, fanout set of "
+          f"{fan}, coverage of the subscribers {fan_cov}, converged "
+          f"{rec.converged}, refine passes {rec.refine_passes}")
+    check(rec.converged and fan_cov >= 1.0 and not rec.received[unsub],
+          "the config-3 fanout publish")
+    # config 3's own messages keep the fast pipeline; the same stack in the
+    # gossip-heavy setting of 3b(a) sends them through the prefix engine
+    # at this width (sender-side, below the pull budget)
+    heavy = MultiTopicSimulator(dataclasses.replace(
+        cfg, gossipsub=GossipSubParams(flood_publish=False, d_lazy=12)),
+        device=dev)
+    heavy.warmup()
+    dis.reset_engine_counts()
+    pub_walls, recs = [], []
+    for ti, topic in enumerate(cfg.topics):
+        torch.cuda.synchronize()
+        t1 = time.time()
+        recs.append(heavy.publish(
+            topic, int(np.nonzero(heavy.subscribed_np[ti])[0][4])))
+        torch.cuda.synchronize()
+        pub_walls.append(time.time() - t1)
+        heavy.advance(2000.0)
+    engines = dict(dis.engine_counts)
+    cov = min(float(r.received[heavy.subscribed_np[ti]].mean())
+              for ti, r in enumerate(recs))
+    print(f"[config3] gossip-heavy (no flood publish, D_lazy 12), one "
+          f"publish per topic: engines {engines}; refine passes "
+          f"{[r.refine_passes for r in recs]}; publish walls "
+          f"{[round(w, 4) for w in pub_walls]} s; coverage of the "
+          f"subscribers {cov}")
+    check(all(r.converged for r in recs) and cov >= 1.0,
+          "the gossip-heavy config-3 publishes")
+    return launches
+
+
 # ---------------------------------------------------------------- phase 4
+
+@contextlib.contextmanager
+def publish_recorder():
+    """While open, every Simulator.publish is timed (synchronized before
+    and after) and every mix relay's path delay is kept; the port itself
+    is not changed."""
+    from dst_libp2p_test_node_tpu_torch.runtime.simulator import Simulator
+
+    rec = {"walls": [], "mix_ms": []}
+    publish, relay = Simulator.publish, Simulator._mix_relay
+
+    def timed_publish(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = publish(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        rec["walls"].append(time.time() - t0)
+        return out
+
+    def kept_relay(self, *args, **kwargs):
+        out = relay(self, *args, **kwargs)
+        rec["mix_ms"].append(out[0])
+        return out
+
+    Simulator.publish, Simulator._mix_relay = timed_publish, kept_relay
+    try:
+        yield rec
+    finally:
+        Simulator.publish, Simulator._mix_relay = publish, relay
+
+
+def _sha256(path):
+    import hashlib
+
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 24), b""):
+            h.update(block)
+    return h.hexdigest()
+
 
 def phase_main(dev):
     from dst_libp2p_test_node_tpu_torch import cli
@@ -744,19 +1077,18 @@ def phase_main(dev):
     from dst_libp2p_test_node_tpu_torch.native import vmem_gather as vg
 
     os.makedirs(SCRATCH, exist_ok=True)
-    prefix = os.path.join(SCRATCH, "full_")
-    argv = ["run", *FULL_ARGS, "--delivery-mode", "bounded",
-            "--warmup-s", str(FULL_WARMUP_S), "--out-prefix", prefix,
+    prefix = os.path.join(SCRATCH, "c5_")
+    argv = ["run", *C5_ARGS, *C5_FLAGS, "--out-prefix", prefix,
             "--stats-json"]
     print(f"[main] python -m dst_libp2p_test_node_tpu_torch "
-          f"{' '.join(argv)}  (warm-up {FULL_WARMUP_S:g} s = "
-          f"{FULL_WARMUP_S:g} heartbeats, cut from the default 500 s)")
+          f"{' '.join(argv)}  (BASELINE config 5)")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     vg.launches = 0
     su.launches = 0
     t0 = time.time()
-    rc = cli.main(argv)
+    with publish_recorder() as rec:
+        rc = cli.main(argv)
     wall_total = time.time() - t0
     launches = {"vmem_gather": vg.launches, "score_update": su.launches}
     peak = torch.cuda.max_memory_allocated(dev)
@@ -765,20 +1097,75 @@ def phase_main(dev):
         stats = json.load(f)
     with open(prefix + "latencies1") as f:
         lines = sum(1 for _ in f)
+    digest = _sha256(prefix + "latencies1")
     coverage = stats["coverage"] / FULL_N
-    print(f"[main] wall {stats['wall_s']:.3f} s (simulation), "
+    print(f"[main] config 5: wall {stats['wall_s']:.3f} s (simulation), "
           f"{wall_total:.3f} s with outputs; peer-rounds/s "
           f"{stats['peer_rounds_per_sec']:.1f}; coverage {coverage}; "
           f"p50 {stats['p50_ms']:.3f} ms, p99 {stats['p99_ms']:.3f} ms; "
           f"converged {stats['converged']}; answer_wait_max "
-          f"{stats['answer_wait_max_ms']:.3f} ms; launches {launches}; "
+          f"{stats['answer_wait_max_ms']:.3f} ms; mix path delay per "
+          f"message {rec['mix_ms']} ms; publish walls "
+          f"{[round(w, 4) for w in rec['walls']]} s; launches {launches}; "
           f"peak memory {peak / 2**30:.2f} GiB; {lines} latency lines")
     check(coverage >= 1.0, f"coverage {coverage} < 1")
     check(stats["converged"], "a fixpoint hit its iteration cap")
-    check(lines == 3 * FULL_N, f"{lines} latency lines, want {3 * FULL_N}")
+    check(lines == 2 * FULL_N, f"{lines} latency lines, want {2 * FULL_N}")
+    check(len(rec["mix_ms"]) == 2 and min(rec["mix_ms"]) > 0.0,
+          f"mix relay delays {rec['mix_ms']}")
     for name, count in launches.items():
         check(count > 0, f"the main path never launched {name}")
-    return launches, stats, peak
+    return launches, dict(digest=digest, walls=rec["walls"],
+                          mix_ms=rec["mix_ms"])
+
+
+# --------------------------------------------------------------- phase 4b
+
+def phase_warm_twin(dev, cold):
+    """Config 5 again through a Simulator with warm_start=True, built as
+    the `run` entry builds it: latencies byte-identical to phase 4's."""
+    from dst_libp2p_test_node_tpu_torch.cli import (RUN_SH_PARAMS,
+                                                    _topo_from_fields)
+    from dst_libp2p_test_node_tpu_torch.config.env import (
+        gossipsub_params_from_env)
+    from dst_libp2p_test_node_tpu_torch.native import score_update as su
+    from dst_libp2p_test_node_tpu_torch.native import vmem_gather as vg
+    from dst_libp2p_test_node_tpu_torch.ops import disseminate as dis
+    from dst_libp2p_test_node_tpu_torch.runtime.simulator import (
+        ExperimentConfig, Simulator)
+
+    topo = _topo_from_fields(dict(zip(RUN_SH_PARAMS, C5_ARGS)))
+    cfg = ExperimentConfig(
+        topo=topo, gossipsub=gossipsub_params_from_env(), publisher_id=132,
+        warmup_s=FULL_WARMUP_S, seed=0, uses_mix=True, num_mix=128, mix_d=4,
+        serialize_answers=False, warm_start=True)
+    torch.cuda.synchronize()
+    vg.launches = 0
+    su.launches = 0
+    dis.reset_engine_counts()
+    t0 = time.time()
+    with publish_recorder() as rec:
+        sim = Simulator(cfg, device=dev)
+        sim.run()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {"vmem_gather": vg.launches, "score_update": su.launches}
+    engines = dict(dis.engine_counts)
+    path = os.path.join(SCRATCH, "c5_warm_latencies1")
+    sim.write_latencies(path)
+    same = _sha256(path) == cold["digest"]
+    print(f"[warm] config 5 with warm_start: {wall:.3f} s with set-up; "
+          f"publish walls {[round(w, 4) for w in rec['walls']]} s (cold, "
+          f"phase 4: {[round(w, 4) for w in cold['walls']]} s); mix delays "
+          f"{rec['mix_ms']} ms; warm certified {engines['warm_certified']}, "
+          f"cold reruns {engines['warm_cold_rerun']}; launches {launches}; "
+          f"latencies byte-identical to phase 4: {same}")
+    check(same, "the warm-start config-5 latencies differ from phase 4's")
+    check(engines["warm_certified"] + engines["warm_cold_rerun"] == 2,
+          f"warm outcomes {engines} do not add up to 2 messages")
+    check(all(r.converged for r in sim.records), "a warm fixpoint hit its cap")
+    return launches
+
 
 
 # ---------------------------------------------------------------- phase 5
@@ -849,7 +1236,10 @@ def main() -> int:
         phase_lossy_parity(dev)
         launches_lossy, _ = phase_config4(dev, "lossy", LOSSY_ARGS,
                                           LOSSY_ENV, lossless)
-        launches, _, _ = phase_main(dev)
+        phase_membership_parity(dev)
+        launches_c3 = phase_config3(dev)
+        launches, cold = phase_main(dev)
+        launches_warm = phase_warm_twin(dev, cold)
         phase_idle(dev)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
@@ -858,7 +1248,9 @@ def main() -> int:
         shutil.rmtree(SCRATCH, ignore_errors=True)
     line = [dict(v, launches=launches[k],
                  exact=dict(v["exact"], launches=launches_exact[k]),
-                 lossy=dict(v["exact"], launches=launches_lossy[k]))
+                 lossy=dict(v["exact"], launches=launches_lossy[k]),
+                 config3=dict(launches=launches_c3[k]),
+                 warm=dict(launches=launches_warm[k]))
             for k, v in kernels.items()]
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

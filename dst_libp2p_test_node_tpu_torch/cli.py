@@ -12,8 +12,9 @@ latencies<i> and shadowlog<i> and prints the per-run summaries. The
 delivery mode defaults to exact (serialized gossip answers, the model of
 record), as in the reference. A nonzero <packet_loss> (or a lossy --gml)
 runs the loss model --loss-mode names (tcp, the default, or message).
-Flags whose paths are not ported yet (mix routing, checkpoints) exit with
-an error naming what is missing. The topology artifacts
+--use-mix relays every publish through the mix network (--num-mix,
+--mix-d). Flags whose paths are not ported yet (checkpoints) exit with an
+error naming what is missing. The topology artifacts
 (network_topology.gml, shadow.yaml) are not written: that is the
 `topogen` subcommand's job, not ported yet.
 """
@@ -76,8 +77,7 @@ def _run_parser() -> argparse.ArgumentParser:
     p.add_argument("--churn", type=float, default=0.0,
                    help="per-heartbeat down-probability (failure injection)")
     p.add_argument("--use-mix", action="store_true",
-                   help="route publishes through the mix network (not "
-                   "ported yet)")
+                   help="route publishes through the mix network")
     p.add_argument("--num-mix", type=int, default=0, help="NUMMIX")
     p.add_argument("--mix-d", type=int, default=4, help="MIXD")
     p.add_argument("--out-prefix", default="")
@@ -106,7 +106,16 @@ def cmd_run(argv: list[str]) -> int:
     p = _run_parser()
     a = p.parse_args(argv)
     if a.use_mix:
-        p.error("--use-mix is not ported yet (the mix-relay slice)")
+        # a publisher that is itself a mix node is left out of its own
+        # relay path, so rotation or a mix-range publisher_id needs a spare
+        need = a.mix_d + (
+            1 if (int(a.publisher_rotation) or int(a.publisher_id) < a.num_mix)
+            else 0
+        )
+        if a.num_mix < need:
+            p.error(f"--use-mix requires --num-mix >= {need} here "
+                    f"(mix-d={a.mix_d}, publisher inside mix range or "
+                    f"rotation on), got {a.num_mix}")
     if a.checkpoint or a.resume:
         p.error("--checkpoint/--resume are not ported yet (the service "
                 "slice)")
@@ -141,6 +150,9 @@ def cmd_run(argv: list[str]) -> int:
             with_gossip=not a.no_gossip,
             churn_down_per_hb=a.churn,
             churn_up_per_hb=a.churn / 2 if a.churn else 0.0,
+            uses_mix=a.use_mix,
+            num_mix=a.num_mix,
+            mix_d=a.mix_d,
             msgid_mode=a.msgid_mode,
             loss_mode=a.loss_mode,
             serialize_answers=(a.delivery_mode == "exact"),

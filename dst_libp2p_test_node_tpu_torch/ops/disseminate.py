@@ -52,13 +52,24 @@ accrual. A lost or graylisted copy keeps its uplink slot and its tx bytes:
 `survive` gates delivery only, and `lost_tx` counts the copies the network
 dropped (the loss-only mask, without the graylist).
 
-Everything outside these modes raises NotImplementedError naming the
-slice that brings it (ROADMAP A).
+An unsubscribed publisher (`with_fanout`, gossipsub v1.1 fanout publish)
+sends to its persistent fanout set: the unexpired members still valid,
+topped back up to D by rank from one extra key's draws, written back with
+a TTL from this publish (flood publish still floods, and still maintains
+the set). With `params.warm_start` phase 1 is seeded from the previous
+message's arrival offsets; a certificate checks the seed, and if any
+fragment fails it the whole message reruns cold (one host decision per
+message, counted in `engine_counts`), so the result equals a cold start.
+
+A peer-sharded mesh, `return_plan` and `censor_edge` raise
+NotImplementedError naming the slice that brings them (ROADMAP A).
 
 Float arithmetic follows the reference's association order term by term,
 and every division by a constant divides by a device tensor: CUDA turns a
 division by a host scalar into a multiply by its reciprocal, which would
-move results by an ulp.
+move results by an ulp. Where XLA's CPU backend contracts a multiply-add
+into one FMA (the lossless mesh base), the port computes it in float64
+and rounds once (ops/xlamath.fma_f32).
 """
 
 from __future__ import annotations
@@ -79,7 +90,7 @@ from .pull import (
     reciprocal_pull_min,
 )
 from .state import SimParams, SimState
-from .xlamath import exp2_int, log_f32
+from .xlamath import exp2_int, fma_f32, log_f32
 
 INF = 3.4e38
 
@@ -88,11 +99,19 @@ INF = 3.4e38
 RTO_MIN_MS = 200.0
 MAX_RETRIES = 6
 
+# any warm_offset_ms at or above this is "no valid carry" (INF after init,
+# churn or a membership change, and for peers the message never reached)
+WARM_VALID = 1e30
+
 # exact-mode messages by route since the last reset: kept on the fast
 # pipeline, refined by the prefix engine, refined by the serial engine
-# directly, and prefix refinements that fell back to the serial engine
-# (chip_smoke.py zeroes and reads them; they change no result)
-engine_counts = {"fast": 0, "prefix": 0, "serial": 0, "prefix_fallback": 0}
+# directly, and prefix refinements that fell back to the serial engine;
+# with warm_start, messages whose warm seed was certified and messages
+# that reran cold (chip_smoke.py zeroes and reads them; they change no
+# result)
+ROUTES = ("fast", "prefix", "serial", "prefix_fallback")
+engine_counts = dict.fromkeys(ROUTES + ("warm_certified", "warm_cold_rerun"),
+                              0)
 
 
 def reset_engine_counts() -> None:
@@ -245,17 +264,11 @@ def _next_heartbeat(t, phase, hb_ms: float):
     return (torch.floor(_div(t - phase, hb_ms)) + 1.0) * hb_ms + phase
 
 
-def _check_slice(params, *, mesh, with_fanout, return_plan, censor_edge,
-                 loss_mode):
+def _check_slice(*, mesh, return_plan, censor_edge, loss_mode):
     if loss_mode not in ("message", "tcp"):
         raise ValueError(f"unknown loss_mode {loss_mode!r}")
     if mesh is not None:
         raise _later("a peer-sharded mesh", "multi-GPU")
-    if with_fanout:
-        raise _later("fanout publish (unsubscribed publisher)",
-                     "fanout/warm-start")
-    if params.warm_start:
-        raise _later("warm_start", "fanout/warm-start")
     if return_plan:
         raise _later("return_plan (the DES cross-check seam)", "tooling")
     if censor_edge is not None:
@@ -290,16 +303,17 @@ def disseminate(
     """Propagate one message through the mesh; returns (DisseminationResult,
     new_state). The signature is the reference's; the arguments outside
     this slice raise NotImplementedError."""
-    _check_slice(params, mesh=mesh, with_fanout=with_fanout,
-                 return_plan=return_plan, censor_edge=censor_edge,
-                 loss_mode=loss_mode)
+    _check_slice(mesh=mesh, return_plan=return_plan,
+                 censor_edge=censor_edge, loss_mode=loss_mode)
     n, c = conns.shape
     dev = conns.device
     f32 = torch.float32
     publisher = int(publisher)
     t0_ms = torch.as_tensor(t0_ms, dtype=f32).to(dev)
-    # one extra key when loss is on: it moves k_rank and k_gossip too
-    keys = prng.split(state.key, 3 + (loss_stage is not None))
+    # one extra key each for loss and fanout, in that order: they move
+    # k_rank and k_gossip too
+    lossy = loss_stage is not None
+    keys = prng.split(state.key, 3 + lossy + bool(with_fanout))
     key, k_rank, k_gossip = keys[0], keys[1], keys[2]
 
     frag_bytes = max(payload_bytes // fragments, 16)
@@ -347,9 +361,32 @@ def disseminate(
         survive = gray_ok if survive is None else survive & gray_ok
     is_pub = torch.arange(n, device=dev) == publisher
 
+    if with_fanout:
+        # fanout set: the still-valid unexpired members, topped back up to
+        # D by rank from fresh draws over the remaining topic peers (every
+        # row is computed; only the publisher's is used and written back)
+        fan_active = (state.fanout_mask & valid
+                      & (state.fanout_expire[:, None] > t0_ms))
+        if thresholds_can_bind:
+            fan_active = fan_active & pub_ok
+        need_fan = torch.clamp_min(
+            float(params.d) - fan_active.sum(dim=-1).to(f32), 0.0)
+        fan_cand = valid & ~fan_active
+        if thresholds_can_bind:
+            fan_cand = fan_cand & pub_ok
+        fprio = torch.where(fan_cand, prng.uniform(keys[3 + lossy], (n, c)),
+                            INF)
+        fan_row = fan_active | (fan_cand
+                                & (_ranks_f32(fprio) < need_fan[:, None]))
+
     tgt = state.mesh_mask & valid
-    if params.flood_publish:
-        flood_set = valid & pub_ok if thresholds_can_bind else valid
+    flood_set = valid & pub_ok if thresholds_can_bind else valid
+    if with_fanout:
+        # with flood publish the publisher floods; the fanout set is still
+        # maintained
+        pub_tgt = flood_set if params.flood_publish else fan_row
+        tgt = torch.where(is_pub[:, None], pub_tgt, tgt)
+    elif params.flood_publish:
         tgt = torch.where(is_pub[:, None], flood_set, tgt)
 
     # randomized send order per peer (one draw per message)
@@ -378,6 +415,9 @@ def disseminate(
         * params.heartbeat_ms
     hb_phase = state.hb_phase
     can_send = state.alive & state.subscribed
+    if with_fanout:
+        # the unsubscribed publisher originates (and gossips) the message
+        can_send = can_send | (is_pub & state.alive)
     uplink = state.uplink_free_ms
 
     # TCP slow-start flights of the data transfers (see tcp_flights)
@@ -413,6 +453,18 @@ def disseminate(
     if retx_ms is not None:
         ld_mesh = [ld + retx_ms[f] for f, ld in enumerate(ld_mesh)]
         ld_ans = [ld + retx_ms[f] for f, ld in enumerate(ld_ans)]
+    # lossless, XLA's CPU backend contracts the mesh base `queue + lat_edge
+    # * ss_scale` into one FMA (it shows only at fractional latencies, where
+    # the product is inexact); with a stall the latency is a sum and the
+    # base rounds twice
+    mesh_scale = ([ss_scale[f] for f in range(fragments)]
+                  if retx_ms is None else [None] * fragments)
+
+    def _mesh_term(queue, f: int):
+        """queue + fragment f's mesh delivery latency, rounded as XLA."""
+        if mesh_scale[f] is None:
+            return queue + ld_mesh[f]
+        return fma_f32(lat_edge, mesh_scale[f], queue)
 
     if with_gossip:
         if ans_tables is None:
@@ -580,13 +632,14 @@ def disseminate(
             hb_phase, uplink, rx_const, params.proc_delay_ms,
             params.heartbeat_ms, gossip, lat_deliver=ld_mesh[f],
             ld_gossip=ld_ans[f], packed=params.packed_state,
+            mesh_scale=mesh_scale[f],
         )
 
     def _mesh_base(rank, k_p, f, frag_idx, send_mask):
         """Sender-side mesh offset of each slot (queue position + deliver
         latency), INF where the slot does not send or its copy is lost."""
         return torch.where(_deliver(send_mask, f) & can_send[:, None],
-                           _queue(rank, k_p, frag_idx) + ld_mesh[f], INF)
+                           _mesh_term(_queue(rank, k_p, frag_idx), f), INF)
 
     def _mesh_cand(t, a_base):
         """Mesh offers of one sender-side sweep at the estimate t: (live,
@@ -757,13 +810,34 @@ def disseminate(
         rank1 = _ranks_f32(torch.where(tgt_f, rprio, INF))
         return tgt_f, rank1, tgt_f.sum(dim=-1).to(f32)
 
-    def phases_fast(f: int, frag_idx, t_pub):
+    def phases_fast(f: int, frag_idx, t_pub, warm: bool):
         """The unserialized two-phase pipeline of one fragment. Returns
         (t, rank, k, send_mask, g_abs, req_any, drain, inc, wait, mixed,
-        ok, hint): `wait` and `mixed` feed bounded mode's error bar,
-        `hint` asks exact mode for the refinement."""
+        ok, hint, bad): `wait` and `mixed` feed bounded mode's error bar,
+        `hint` asks exact mode for the refinement, `bad` (a 0-dim bool
+        tensor) flags a warm seed the certificate rejects.
+
+        `warm` seeds phase 1 from the cross-publish carry, re-based to this
+        publish: t_pub + offset[q] + offset[publisher] + one heartbeat. The
+        seed is a heuristic upper bound, so the result is certified: at a
+        fixpoint every reached non-publisher peer equals max(min incoming
+        offer, downlink clamp) bitwise, while an undershot seed sticks
+        strictly below it (or the loop was capped)."""
         tgt_f, rank1, k1 = order[f]
-        t1, inc1, ok1 = _converge_dyn(rank1, k1, f, frag_idx, t_pub, tgt_f)
+        if warm:
+            w = state.warm_offset_ms
+            seed = torch.where((w < WARM_VALID) & (w[publisher] < WARM_VALID),
+                               t_pub + w + w[publisher] + params.heartbeat_ms,
+                               INF)
+            t1, inc1, ok1 = _converge_dyn(rank1, k1, f, frag_idx, t_pub,
+                                          tgt_f, t_init=seed)
+            supported = torch.maximum(inc1.amin(dim=-1), rx_const)
+            bad = (((t1 < supported) & (t1 < INF) & ~is_pub).any()
+                   | torch.tensor(not ok1, device=dev))
+        else:
+            t1, inc1, ok1 = _converge_dyn(rank1, k1, f, frag_idx, t_pub,
+                                          tgt_f)
+            bad = torch.zeros((), dtype=torch.bool, device=dev)
         if exact:
             # the answer queues folded at both phase results ride in the
             # attribution pulls and the accounting; the fixpoint itself
@@ -773,7 +847,7 @@ def disseminate(
             hint1 = _diverged(t1, inc1p, mixed1)
             if not params.exclude_first_sender:
                 return (t1, rank1, k1, tgt_f, g1, req1, drain1, inc1p,
-                        None, None, ok1, hint1)
+                        None, None, ok1, hint1, bad)
             rank2, k2, send_mask = _phase2_masks_from_inc(
                 inc1p, t1, rank1, k1, tgt_f)
             t2, _, ok2 = _converge_dyn(rank2, k2, f, frag_idx, t_pub,
@@ -783,7 +857,7 @@ def disseminate(
                                 req2)
             return (t2, rank2, k2, send_mask, g2, req2, drain2, inc2,
                     None, None, ok1 and ok2,
-                    hint1 | _diverged(t2, inc2, mixed2))
+                    hint1 | _diverged(t2, inc2, mixed2), bad)
         if not params.exclude_first_sender:
             t_fin, inc_fin, ok = t1, inc1, ok1
             rank_o, k_o, mask_o = rank1, k1, tgt_f
@@ -802,7 +876,7 @@ def disseminate(
             mixed_o = torch.zeros((), dtype=torch.bool, device=dev)
             wait_o = torch.zeros((), dtype=f32, device=dev)
         return (t_fin, rank_o, k_o, mask_o, g_f, req_f, drain_f, inc_fin,
-                wait_o, mixed_o, ok, None)
+                wait_o, mixed_o, ok, None, bad)
 
     def phases_serial(f: int, frag_idx, t_pub, t_seed):
         """The two-phase pipeline with the global-sort engine supplying
@@ -952,8 +1026,17 @@ def disseminate(
     order = [_phase1_order(f) for f in range(fragments)]
     # profiler spans (chip_smoke.py reads them; no cost without a profiler)
     with record_function("disseminate.fast_pipeline"):
-        fast = [phases_fast(f, frag_ids[f], t_pubs[f])
+        fast = [phases_fast(f, frag_ids[f], t_pubs[f], params.warm_start)
                 for f in range(fragments)]
+        if params.warm_start:
+            # one host decision per message: if any fragment's certificate
+            # rejects its warm seed, every fragment reruns cold
+            if bool(torch.stack([x[12] for x in fast]).any()):
+                engine_counts["warm_cold_rerun"] += 1
+                fast = [phases_fast(f, frag_ids[f], t_pubs[f], False)
+                        for f in range(fragments)]
+            else:
+                engine_counts["warm_certified"] += 1
     if exact:
         # the refinement makes the times exact: no error bar to report
         with record_function("disseminate.refinement"):
@@ -1051,4 +1134,13 @@ def disseminate(
         idontwant_tx=state.idontwant_tx + idw_tx_pp,
         idontwant_rx=state.idontwant_rx + idw_rx_pp,
     )
+    if with_fanout:
+        # persist the publisher's (replenished) fanout set and restart its
+        # TTL from this publish: float32 t0 plus the TTL, rounded once
+        ttl = torch.tensor(params.fanout_ttl_ms, dtype=f32, device=dev)
+        new_state = new_state.replace(
+            fanout_mask=torch.where(is_pub[:, None], fan_row,
+                                    state.fanout_mask),
+            fanout_expire=torch.where(is_pub, t0_ms + ttl,
+                                      state.fanout_expire))
     return result, new_state

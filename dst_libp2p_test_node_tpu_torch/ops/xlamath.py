@@ -52,7 +52,7 @@ def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(v, dtype=torch.float32, device=like.device)
 
 
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor):
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor):
     """float32 a*b + c with one rounding: the float64 product of two
     float32 values is exact, so only the sum rounds (to float64, then to
     float32)."""
@@ -79,14 +79,14 @@ def log_f32(x: torch.Tensor) -> torch.Tensor:
     x3 = x2 * xm
     p = [_f32(v, x) for v in _P]
     y = xm * p[0] + p[1]
-    y1 = _fma(xm, p[3], p[4])
-    y2 = _fma(xm, p[6], p[7])
-    y = _fma(y, xm, p[2])
-    y1 = _fma(y1, xm, p[5])
-    y2 = _fma(y2, xm, p[8])
-    y = _fma(y, x3, y1)
-    y = _fma(y, x3, y2)
-    y = _fma(y, x3, e * _f32(_Q1, x))
+    y1 = fma_f32(xm, p[3], p[4])
+    y2 = fma_f32(xm, p[6], p[7])
+    y = fma_f32(y, xm, p[2])
+    y1 = fma_f32(y1, xm, p[5])
+    y2 = fma_f32(y2, xm, p[8])
+    y = fma_f32(y, x3, y1)
+    y = fma_f32(y, x3, y2)
+    y = fma_f32(y, x3, e * _f32(_Q1, x))
     out = ((xm - x2 * _f32(0.5, x)) + y) + e * _f32(_Q2, x)
     inf = float("inf")
     # XLA treats subnormal inputs as zero

@@ -21,6 +21,7 @@ from dataclasses import dataclass
 import torch
 
 from ..native.vmem_gather import vmem_gather
+from ..ops.xlamath import fma_f32
 
 INF = 3.4e38
 
@@ -51,10 +52,13 @@ def build_recv_constants(
     conns, rev, lat_edge, tx_ms, rank, k_p, frag_idx, send_mask, can_send,
     g_tgt, g_off_s, hb_phase, uplink_free, rx_const, proc_ms: float,
     hb_ms: float, with_gossip: bool, lat_deliver=None, ld_gossip=None,
-    packed: bool = False,
+    packed: bool = False, mesh_scale=None,
 ) -> RecvConstants:
     """Gather every sender-side term of the offers through the reverse-slot
-    map once (see the reference's build_recv_constants for each term)."""
+    map once (see the reference's build_recv_constants for each term).
+    `mesh_scale` (lossless publishes): the mesh delivery latency is
+    lat_edge * mesh_scale, and XLA's CPU backend contracts the reference's
+    `queue + lat_edge * scale` into one FMA, which the port reproduces."""
     if packed:
         raise NotImplementedError(
             "packed_state (bf16 cost tables) is not ported yet: it comes "
@@ -65,7 +69,10 @@ def build_recv_constants(
         lat_deliver = lat_edge
     if ld_gossip is None:
         ld_gossip = lat_deliver
-    a_sender = queue + lat_deliver
+    if mesh_scale is not None:
+        a_sender = fma_f32(lat_edge, mesh_scale, queue)
+    else:
+        a_sender = queue + lat_deliver
     a_ms = torch.where(valid, _edge_gather(a_sender, conns, rev), INF)
     mesh_ok = valid & _edge_gather(send_mask & can_send[:, None], conns, rev)
     if with_gossip:

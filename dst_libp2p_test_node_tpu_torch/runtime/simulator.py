@@ -11,8 +11,10 @@ The port of the reference Simulator's main path:
 
 All state lives on one device: CUDA unless the caller passes device="cpu".
 A lossy topology (packet_loss > 0) runs the loss model cfg.loss_mode names.
-Mix routing, telemetry, checkpoints, batched publish and meshes are later
-slices (ROADMAP A) and raise.
+`set_subscribed` sets topic membership; an unsubscribed publisher takes the
+v1.1 fanout path. With cfg.uses_mix every publish first relays through the
+mix network (ops/mix.py). Telemetry, checkpoints, batched publish and
+meshes are later slices (ROADMAP A) and raise.
 """
 
 from __future__ import annotations
@@ -23,12 +25,14 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .. import prng
 from ..config.env import GossipSubParams
 from ..config.topology import Topology, TopoParams
 from ..device import resolve_device
 from ..ops.disseminate import answer_tables, disseminate, edge_tables
 from ..ops.graph import build_connection_graph
 from ..ops.heartbeat import run_heartbeats
+from ..ops.mix import MixParams, eligible_mix_count, mix_route, mix_wire_bytes
 from ..ops.pull import neighbor_pull_bool
 from ..ops.state import SimParams, graph_arrays, init_state
 from .logemit import LatenciesWriter
@@ -39,6 +43,11 @@ from .summarize import LatencySummary, report, summarize
 EVENT_LOOP_MS = 0.2
 _MUXER_CROSSINGS = {"yamux": 4.0, "mplex": 4.4, "quic": 3.0}
 MUXER_PROC_MS = {m: EVENT_LOOP_MS * x for m, x in _MUXER_CROSSINGS.items()}
+
+
+class MixDegradedError(RuntimeError):
+    """The mix network has fewer eligible nodes than MIXD (a publish-time
+    condition, not an engine failure)."""
 
 
 @dataclass
@@ -107,8 +116,13 @@ class MessageRecord:
         return self.delays_ms[self.received].astype(np.int64)
 
 
-def record_from_result(res, *, msg_id, publisher, t0_ms, drop_self=None):
-    delays = _host(res.delay_ms).astype(np.float64)
+def record_from_result(res, *, msg_id, publisher, t0_ms,
+                       extra_delay_ms: float = 0.0, drop_self=None):
+    """A MessageRecord from a DisseminationResult or a block view of one
+    (multi-topic). `extra_delay_ms` (the mix path) is added to the float64
+    delays on the host; `drop_self`: peer id(s) whose own delivery is not
+    logged (SELFTRIGGER off, unsubscribed originators and exit nodes)."""
+    delays = _host(res.delay_ms).astype(np.float64) + extra_delay_ms
     received = _host(res.received).copy()
     if drop_self is not None:
         received[np.asarray(drop_self)] = False
@@ -138,10 +152,6 @@ class Simulator:
             raise ValueError(f"unknown msgid_mode {cfg.msgid_mode!r}")
         if cfg.loss_mode not in ("message", "tcp"):
             raise ValueError(f"unknown loss_mode {cfg.loss_mode!r}")
-        if cfg.uses_mix:
-            raise NotImplementedError(
-                "mix routing is not ported yet: it comes with the mix-relay "
-                "slice (ROADMAP A)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.topology = topology or Topology.build(cfg.topo)
@@ -181,10 +191,24 @@ class Simulator:
         self._churny = (cfg.churn_down_per_hb > 0.0
                         or cfg.churn_up_per_hb > 0.0)
         self._valid_edge = None if self._churny else self._compute_valid_edge()
+        self._startup_membership()
         self._msg_rng = np.random.default_rng(cfg.seed ^ 0x6D736749)
         self._last_msg_id = -1
         self._hb_carry_ms = 0.0
         self.records: list[MessageRecord] = []
+        self.mix_params = None
+        if cfg.uses_mix:
+            self.mix_params = MixParams(num_mix=cfg.num_mix, mix_d=cfg.mix_d)
+            self.mix_params.validate()
+
+    def _startup_membership(self) -> None:
+        """The host mirror of state.subscribed (publish picks the fanout
+        path without a device sync) and the cumulative SUBSCRIBE /
+        UNSUBSCRIBE messages per peer: every node joins at startup."""
+        n = self.params.n
+        self._subscribed_np = np.ones(n, dtype=bool)
+        self._sub_events_np = np.ones(n, dtype=np.int64)
+        self._unsub_events_np = np.zeros(n, dtype=np.int64)
 
     def _compute_valid_edge(self):
         conns = self.arrays["conns"]
@@ -198,10 +222,38 @@ class Simulator:
         """Rewind to the pre-warm-up state, keeping graph and topology."""
         self.state = init_state(self.params, seed=self.cfg.seed,
                                 device=self.device)
+        self._startup_membership()
         self._msg_rng = np.random.default_rng(self.cfg.seed ^ 0x6D736749)
         self._last_msg_id = -1
         self._hb_carry_ms = 0.0
         self.records = []
+        if not self._churny:
+            self._valid_edge = self._compute_valid_edge()
+
+    def set_subscribed(self, mask) -> None:
+        """Set per-peer topic membership. An unsubscribed peer can still
+        publish, through the v1.1 fanout path."""
+        mask = np.asarray(mask, dtype=bool)
+        if mask.shape != (self.params.n,):
+            raise ValueError(f"subscribed mask must be ({self.params.n},)")
+        if float(self.state.t_ms) == 0.0 and not self.records:
+            # before the warm-up this defines the startup membership: one
+            # SUBSCRIBE per joined node, nothing for the others
+            self._sub_events_np = mask.astype(np.int64)
+            self._unsub_events_np = np.zeros_like(self._sub_events_np)
+        else:
+            # mid-run: every flip broadcasts one more control message
+            self._sub_events_np = (
+                self._sub_events_np + (mask & ~self._subscribed_np))
+            self._unsub_events_np = (
+                self._unsub_events_np + (~mask & self._subscribed_np))
+        self._subscribed_np = mask
+        # the warm-start carry measured offsets on the old membership
+        self.state = self.state.replace(
+            subscribed=torch.as_tensor(mask, device=self.device),
+            warm_offset_ms=torch.full((self.params.n,), 3.4e38,
+                                      dtype=torch.float32,
+                                      device=self.device))
         if not self._churny:
             self._valid_edge = self._compute_valid_edge()
 
@@ -224,14 +276,20 @@ class Simulator:
         size = msg_size if msg_size is not None else cfg.topo.msg_size_bytes
         a = self.arrays
         t0_ms = float(self.state.t_ms) + self._hb_carry_ms
+        origin = publisher
+        mix_delay = 0.0
+        if self.mix_params is not None:
+            mix_delay, publisher = self._mix_relay(origin, size, t0_ms)
         res, self.state = disseminate(
             self.state, a["conns"], a["rev"], self._stage, self._lat,
-            self._bw, publisher=publisher, t0_ms=t0_ms, params=self.params,
-            payload_bytes=size, fragments=cfg.topo.num_frags,
-            with_gossip=cfg.with_gossip, loss_stage=self._loss,
-            loss_mode=cfg.loss_mode, lat_edge=self._lat_edge,
-            loss_edge=self._loss_edge, ans_tables=self._ans_tables,
-            valid_edge=self._valid_edge,
+            self._bw, publisher=publisher, t0_ms=t0_ms + mix_delay,
+            params=self.params, payload_bytes=size,
+            fragments=cfg.topo.num_frags, with_gossip=cfg.with_gossip,
+            loss_stage=self._loss, loss_mode=cfg.loss_mode,
+            lat_edge=self._lat_edge, loss_edge=self._loss_edge,
+            ans_tables=self._ans_tables, valid_edge=self._valid_edge,
+            # an unsubscribed publisher takes the v1.1 fanout path
+            with_fanout=not bool(self._subscribed_np[publisher]),
         )
         if cfg.msgid_mode == "go":
             msg_id = max(int(t0_ms * 1e6), self._last_msg_id + 1)
@@ -239,10 +297,54 @@ class Simulator:
         else:
             msg_id = int(self._msg_rng.integers(0, 2**63, dtype=np.int64))
         rec = record_from_result(
-            res, msg_id=msg_id, publisher=publisher, t0_ms=t0_ms,
-            drop_self=None if cfg.self_trigger else [publisher])
+            res, msg_id=msg_id, publisher=origin, t0_ms=t0_ms,
+            extra_delay_ms=mix_delay,
+            # a peer does not log its own message with SELFTRIGGER off, and
+            # never when unsubscribed (no topic handler): the origin on the
+            # fanout path, and an unsubscribed mix exit node
+            drop_self=[
+                p for p in {origin, publisher}
+                if (p == origin and not cfg.self_trigger)
+                or not self._subscribed_np[p]
+            ] or None,
+        )
         self.records.append(rec)
         return rec
+
+    def _mix_relay(self, origin: int, size: int, t0_ms: float):
+        """Relay one message through the mix network (occupancy-coupled);
+        the exit node publishes on the origin's behalf. Returns (path
+        delay in ms as a Python float, exit node)."""
+        mp = self.mix_params
+        eligible = eligible_mix_count(_host(self.state.alive), origin,
+                                      self.params.n, mp.num_mix)
+        if eligible < mp.mix_d:
+            raise MixDegradedError(
+                f"mix network degraded: {eligible} eligible mix nodes "
+                f"(alive, mounted, != publisher) < MIXD={mp.mix_d}")
+        key, k_mix = prng.split(self.state.key)
+        path, exit_node, path_delay, uplink_new, rx_new = mix_route(
+            k_mix, origin, self.state.alive, self._stage, self._lat,
+            self._bw, params=mp, n=self.params.n, payload_bytes=size,
+            uplink_free_ms=self.state.uplink_free_ms,
+            rx_free_ms=self.state.rx_free_ms, t0_ms=t0_ms)
+        wire = float(mix_wire_bytes(mp, size))
+        # per-hop bytes at both ends: senders are the origin and the first
+        # mix_d - 1 relays, receivers the mix_d relays (distinct ids)
+        path = path.long()
+        senders = torch.cat([torch.tensor([origin], device=self.device),
+                             path[:-1]])
+
+        def _add(x, idx):
+            return x.index_add(0, idx, torch.full(idx.shape, wire,
+                                                  dtype=x.dtype,
+                                                  device=x.device))
+
+        self.state = self.state.replace(
+            key=key, bytes_tx=_add(self.state.bytes_tx, senders),
+            bytes_rx=_add(self.state.bytes_rx, path),
+            uplink_free_ms=uplink_new, rx_free_ms=rx_new)
+        return float(path_delay), int(exit_node)
 
     def run(self) -> list[MessageRecord]:
         """Full experiment: warm-up, then the injection schedule."""

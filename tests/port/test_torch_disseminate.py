@@ -110,16 +110,22 @@ def test_outside_the_slice_raises():
     args = (st, at["conns"], at["rev"], torch.from_numpy(topo.stage_of_peer),
             torch.from_numpy(topo.latency_ms),
             torch.from_numpy(topo.bw_up_mbit))
-    warm = dataclasses.replace(pt, warm_start=True)
-    with pytest.raises(NotImplementedError, match="fanout/warm-start"):
-        td.disseminate(*args, publisher=1, t0_ms=0.0, params=warm,
-                       payload_bytes=15000)
+    kw = dict(publisher=1, t0_ms=0.0, params=pt, payload_bytes=15000)
+    for extra, slice_name in ((dict(return_plan=True), "tooling"),
+                              (dict(censor_edge=at["conns"] >= 0),
+                               "campaign-stack"),
+                              (dict(mesh=object()), "multi-GPU")):
+        with pytest.raises(NotImplementedError, match=slice_name):
+            td.disseminate(*args, **kw, **extra)
     # a lossy topology is ported now (slice 4): the call runs
-    res, _ = td.disseminate(*args, publisher=1, t0_ms=0.0, params=pt,
-                            payload_bytes=15000,
-                            loss_stage=torch.full((6, 6), 0.5),
+    res, _ = td.disseminate(*args, **kw, loss_stage=torch.full((6, 6), 0.5),
                             loss_mode="message")
     assert int(res.lost_tx.sum()) > 0
-    with pytest.raises(NotImplementedError, match="fanout"):
-        td.disseminate(*args, publisher=1, t0_ms=0.0, params=pt,
-                       payload_bytes=15000, with_fanout=True)
+    # fanout publish and warm start are ported now (slice 5): they run
+    res, new = td.disseminate(*args, **kw, with_fanout=True)
+    assert bool(new.fanout_mask[1].any()) and bool(res.received[1])
+    td.reset_engine_counts()
+    warm = dataclasses.replace(pt, warm_start=True)
+    td.disseminate(*args, publisher=1, t0_ms=0.0, params=warm,
+                   payload_bytes=15000)
+    assert td.engine_counts["warm_certified"] == 1

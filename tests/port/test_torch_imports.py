@@ -1,6 +1,7 @@
 """The port imports torch and never jax, and nothing of the JAX package:
-every module of dst_libp2p_test_node_tpu_torch, and chip_smoke.py, import in
-a fresh interpreter where `import jax` fails."""
+every module of dst_libp2p_test_node_tpu_torch (ops.mix and
+runtime.multitopic named), and chip_smoke.py, import in a fresh interpreter
+where `import jax` fails."""
 
 import os
 import subprocess
@@ -25,6 +26,8 @@ bad = sorted(m for m in sys.modules
              or m == "jax" and sys.modules[m] is not None
              or m.startswith(("jax.", "jaxlib.", "flax")))
 print(len(names), "modules;", "leaked:", bad)
+for name in ("ops.mix", "runtime.multitopic"):
+    assert port.__name__ + "." + name in names, name
 sys.exit(1 if bad else 0)
 """
 

@@ -2,8 +2,9 @@
 reference, bitwise: XLA's float32 log (ops/xlamath.py) against jnp.log,
 the tcp retry count and stall at the p^k boundaries, the per-fragment loss
 draws against the reference's returned plan, the score gates (graylist,
-publish, gossip) with the slow-peer accrual, a lossy publish at fractional
-latencies, the heartbeat with live slow-peer counters, and the Simulator
+publish, gossip) with the slow-peer accrual, lossy and lossless publishes
+at fractional latencies (XLA's FMA contraction of the mesh base), the
+heartbeat with live slow-peer counters, and the Simulator
 and `run` CLI text for lossy runs (tcp, message, a lossy GML). The routes
 of the lossy exact mode are in test_torch_loss_routes.py."""
 
@@ -16,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+import dst_libp2p_test_node_tpu.ops.pull as jpull
+import dst_libp2p_test_node_tpu_torch.ops.pull as tpull
 from dst_libp2p_test_node_tpu import cli as jcli
 from dst_libp2p_test_node_tpu.config.env import GossipSubParams as JGossip
 from dst_libp2p_test_node_tpu.config.topology import Topology, TopoParams
@@ -265,6 +268,56 @@ def test_lossy_tcp_publish_at_fractional_latencies():
     frac = dataclasses.replace(topo, latency_ms=lat)
     res, _ = publish_twice((frac, g, pj, pt, aj, sj), 1, "tcp")
     assert all(bool(r.received.all()) for r in res)
+
+
+@pytest.mark.parametrize("mode,fragments,budget,engine", [
+    ("exact", 1, "default", "prefix"),
+    ("exact", 3, "default", "prefix"),
+    ("bounded", 1, "default", None),
+    ("bounded", 1, "lowered", None),
+])
+def test_lossless_publish_at_fractional_latencies(mode, fragments, budget,
+                                                  engine, monkeypatch):
+    # without loss the mesh base `queue + lat_edge * flights` feeds an add
+    # directly, and XLA's CPU backend contracts it into one FMA: at
+    # fractional latencies the product is inexact and a two-rounding port
+    # drifts by an ulp (the sender-side base and the receiver-side
+    # constant alike, the latter with the budget lowered)
+    if budget == "lowered":
+        monkeypatch.setattr(jpull, "_MAX_INTERMEDIATE_BYTES", 1)
+        monkeypatch.setattr(tpull, "_MAX_INTERMEDIATE_BYTES", 1)
+        jd.disseminate.clear_cache()
+    try:
+        topo, g, pj, pt, aj, sj = _world(
+            seed=2, serialize_answers=(mode == "exact"))
+        rng = np.random.default_rng(3)
+        lat = topo.latency_ms + rng.uniform(0.0, 1.0, topo.latency_ms.shape)
+        lat = (np.triu(lat) + np.triu(lat, 1).T).astype(np.float32)
+        st = interop.state_from_numpy(_leaves(sj), "cpu")
+        at = tst.graph_arrays(g, "cpu")
+        arrays = (topo.stage_of_peer, lat, topo.bw_up_mbit)
+        consts_j = [jnp.asarray(x) for x in arrays]
+        consts_t = [torch.from_numpy(x) for x in arrays]
+        td.reset_engine_counts()
+        t_base = float(sj.t_ms)
+        for publisher, dt in ((7, 250.5), (40, 900.25)):
+            kw = dict(publisher=publisher, t0_ms=t_base + dt,
+                      payload_bytes=15000, fragments=fragments)
+            rj, sj = jd.disseminate(sj, aj["conns"], aj["rev"], *consts_j,
+                                    params=pj, **kw)
+            rt, st = td.disseminate(st, at["conns"], at["rev"], *consts_t,
+                                    params=pt, **kw)
+            assert interop.leaf_mismatches(_leaves(rj),
+                                           _torch_leaves(rt)) == []
+            assert interop.leaf_mismatches(
+                _leaves(sj), interop.state_to_numpy(st)) == []
+            assert bool(rt.converged) and bool(rt.received.all())
+    finally:
+        monkeypatch.undo()
+        jd.disseminate.clear_cache()
+    if engine is not None:
+        assert td.engine_counts[engine] > 0, td.engine_counts
+    assert lat[0, 1] != np.round(lat[0, 1])
 
 
 # ------------------------------------------------------------ heartbeat

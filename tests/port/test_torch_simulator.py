@@ -85,19 +85,37 @@ def test_run_cli_files_byte_identical(tmp_path, monkeypatch):
 def test_cli_refuses_what_is_not_ported(capsys, tmp_path, monkeypatch):
     base = ["run", "1", "50", "15000", "1", "1", "50", "150", "40", "130",
             "5", "0.0", "4", "0", "1000", "--device", "cpu"]
-    for extra in (["--checkpoint", "x"],
-                  ["--delivery-mode", "bounded", "--use-mix"]):
+    for extra in (["--checkpoint", "x"], ["--resume", "x"]):
         with pytest.raises(SystemExit) as exc:
             tcli.main(base + extra)
         assert exc.value.code == 2
     assert "not ported yet" in capsys.readouterr().err
-    # a lossy topology is ported now (slice 4): the run exits 0
+    # a lossy topology is ported now (slice 4), and mix routing (slice 5):
+    # the runs exit 0
+    monkeypatch.chdir(tmp_path)
     lossy = list(base)
     lossy[11] = "0.1"
-    monkeypatch.chdir(tmp_path)
     assert tcli.main(lossy + ["--delivery-mode", "bounded", "--warmup-s",
                               "5", "--loss-mode", "message"]) == 0
     assert (tmp_path / "latencies1").read_text().count("\n") > 0
+    assert tcli.main(base + ["--delivery-mode", "bounded", "--warmup-s", "5",
+                             "--use-mix", "--num-mix", "5"]) == 0
+    assert (tmp_path / "latencies1").read_text().count("\n") == 50
+
+
+def test_what_is_not_ported_raises():
+    # the multi-topic Simulator is ported (slice 5); its batched publish
+    # is a later slice
+    from dst_libp2p_test_node_tpu_torch.runtime.multitopic import (
+        MultiTopicConfig, MultiTopicSimulator)
+
+    sim = MultiTopicSimulator(MultiTopicConfig(
+        topo=TopoParams(network_size=40, anchor_stages=5),
+        topics=("a", "b")), device="cpu")
+    with pytest.raises(NotImplementedError, match="publish_batch"):
+        sim.publish_batch([("a", 1)])
+    rec = sim.publish("b", 1)
+    assert rec.received.sum() > 0
 
 
 def test_experiment_config_fields_match_the_reference():
