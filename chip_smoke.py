@@ -48,6 +48,17 @@ not printed):
                fast-pipeline and refinement time (the disseminate spans),
                host syncs, device busy time over the unprofiled and over
                the profiled wall.
+  6. batch and resume - config 4 at full width (phase 3b's arguments):
+               (a) one Simulator after its warm-up; publish_batch([4, 5, 6]),
+               the same with pad_to=4, and three publish() calls, each from
+               a copy of the same state: records and every SimState leaf
+               bitwise equal; prints each wall and its launches, fails if
+               the gather never launched. (b) warm-up, message 1,
+               save_checkpoint; then `run <3b positionals> --resume <file>`
+               must write phase 3b's latencies1 byte for byte; prints the
+               save and load seconds and the file's size. (c) at 2048
+               peers (4 fragments) a checkpoint written on CUDA resumes on
+               CUDA and on the CPU to byte-identical outputs.
   3c. lossy parity - lossy topologies (packet_loss 0.05) at 2048 peers,
                3 messages, CUDA vs CPU, gossip-heavy as in 3b(a): tcp and
                message loss through the prefix, serial and receiver-side
@@ -86,7 +97,9 @@ not printed):
                1,000,000 peers, 15 KB, 2 messages from peer 132, bounded
                delivery mode, a 30 s warm-up, mix routing through 4 of 128
                mix nodes. Kernel launch counts zeroed just before and read
-               just after; prints each message's mix delay and publish wall;
+               just after; prints each message's mix delay and publish wall,
+               and the wall with outputs (the latency lines go through the
+               native emitter, native/logemit.cpp);
                fails on coverage < 1, other than 2,000,000 latency lines, an
                unconverged fixpoint or a kernel of the path that never
                launched.
@@ -97,19 +110,26 @@ not printed):
   5. idle    - a 1M-peer Simulator without the mix relay (the mix-less 1M
                bounded path): set-up and warm-up timed apart, then one
                publish three times from one state as in 3b(c): device busy
-               time over the unprofiled and the profiled wall.
+               time over the unprofiled and the profiled wall. Then the same
+               publish with packed_state on (bf16 cost tables): `received`
+               equal, the 99th percentile of the per-peer delay gap inside
+               25 ms, at most 0.2% of the receivers beyond rtol 1e-2 / atol
+               25 ms and none beyond one heartbeat + 25 ms, both walls and
+               one relaxation sweep in each layout; and packed
+               CUDA = CPU bytes at 2048 peers on the receiver-side path.
 
 Then one JSON line with every kernel's numbers: at 1M x 40 with
 `launches` from phase 4's config-5 run, under `exact` at 100k x 40 with
 `launches` from phase 3b's config-4 run, under `lossy` the same 100k x 40
 numbers with `launches` from phase 3d, and the launches of phase 3f
-(`config3`) and 4b (`warm`). Last the line {"ok": true, "device":
-{...}}. Without CUDA it exits 1 and prints no result; run alone, without
-the package beside it, it exits 2.
+(`config3`), 4b (`warm`), 6(a)'s unpadded batch (`batch`) and 6(b)'s
+resumed run (`resume`). Then the total run time, and last the line
+{"ok": true, "device": {...}}. Without CUDA it exits 1 and prints no
+result; run alone, without the package beside it, it exits 2.
 
 Machine time: 245.6 and 267.3 s of command time on one H100 in two
-runs (204 s before phases 3e, 3f and 4b), well inside a 20-minute
-budget.
+runs before phase 6 (204 s before phases 3e, 3f and 4b), well inside a
+20-minute budget.
 """
 
 from __future__ import annotations
@@ -656,6 +676,184 @@ def phase_exact_idle(dev):
                       for e in top[:6]))
 
 
+# ---------------------------------------------------------------- phase 6
+
+def _config4_cfg():
+    """BASELINE config 4 as phase 3b's `run` arguments build it."""
+    from dst_libp2p_test_node_tpu_torch.cli import (RUN_SH_PARAMS,
+                                                    _topo_from_fields)
+    from dst_libp2p_test_node_tpu_torch.config.env import (
+        gossipsub_params_from_env)
+    from dst_libp2p_test_node_tpu_torch.runtime.simulator import (
+        ExperimentConfig)
+
+    return ExperimentConfig(
+        topo=_topo_from_fields(dict(zip(RUN_SH_PARAMS, EXACT_ARGS))),
+        gossipsub=gossipsub_params_from_env(), warmup_s=EXACT_WARMUP_S,
+        churn_down_per_hb=EXACT_CHURN, churn_up_per_hb=EXACT_CHURN / 2)
+
+
+def _same_records(what, want, got):
+    check(len(want) == len(got), f"{what}: {len(got)} records, want "
+          f"{len(want)}")
+    for a, b in zip(want, got):
+        for f in dataclasses.fields(a):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            same = (x.dtype == y.dtype and x.tobytes() == y.tobytes()
+                    if isinstance(x, np.ndarray) else x == y)
+            check(same, f"{what}: record field {f.name} differs")
+
+
+def _same_state(what, want, got):
+    from dst_libp2p_test_node_tpu_torch import interop
+
+    bad = interop.leaf_mismatches(interop.state_to_numpy(want),
+                                  interop.state_to_numpy(got))
+    check(not bad, f"{what}: state leaves {bad} differ")
+
+
+def phase_batch(dev):
+    """6(a): config 4 after its warm-up; publish_batch([4, 5, 6]), the same
+    padded to 4, and three publish() calls, each from a copy of the same
+    state: records and every state leaf bitwise."""
+    from dst_libp2p_test_node_tpu_torch.native import score_update as su
+    from dst_libp2p_test_node_tpu_torch.native import vmem_gather as vg
+    from dst_libp2p_test_node_tpu_torch.runtime.simulator import Simulator
+
+    pubs = [4, 5, 6]
+    sim = Simulator(_config4_cfg(), device=dev)
+    sim.warmup()
+    s0 = sim.state
+    rng0 = sim._msg_rng.bit_generator.state
+
+    def from_copy(publish):
+        sim.state = dataclasses.replace(
+            s0, **{f.name: getattr(s0, f.name).clone()
+                   for f in dataclasses.fields(s0)})
+        sim._msg_rng.bit_generator.state = rng0
+        sim.records = []
+        torch.cuda.synchronize()
+        vg.launches = 0
+        su.launches = 0
+        t0 = time.time()
+        recs = publish()
+        torch.cuda.synchronize()
+        return (recs, sim.state, time.time() - t0,
+                {"vmem_gather": vg.launches, "score_update": su.launches})
+
+    runs = {
+        "batch": from_copy(lambda: sim.publish_batch(pubs)),
+        "batch, pad_to=4": from_copy(lambda: sim.publish_batch(pubs,
+                                                               pad_to=4)),
+        "sequential": from_copy(lambda: [sim.publish(p) for p in pubs]),
+    }
+    recs_s, state_s, _, _ = runs["sequential"]
+    for name in ("batch", "batch, pad_to=4"):
+        recs, state, _, _ = runs[name]
+        _same_records(f"config 4 {name} vs sequential", recs_s, recs)
+        _same_state(f"config 4 {name} vs sequential", state_s, state)
+    for name, (recs, _, wall, launches) in runs.items():
+        print(f"[batch] config 4, publishers {pubs}, {name}: {wall:.3f} s; "
+              f"launches {launches}; refine passes "
+              f"{[r.refine_passes for r in recs]}")
+        check(launches["vmem_gather"] > 0,
+              f"config 4 {name} never launched vmem_gather")
+    check(all(r.converged for r in recs_s), "a batch fixpoint hit its cap")
+    print("[batch] records and every state leaf bitwise equal: batch, "
+          "padded batch and sequential publishes")
+    return runs["batch"][3]
+
+
+def phase_resume(dev):
+    """6(b): config 4 by phase 3b's arguments, warmed up, message 1
+    published and checkpointed; `run ... --resume` must write phase 3b's
+    latencies1 byte for byte."""
+    from dst_libp2p_test_node_tpu_torch import cli
+    from dst_libp2p_test_node_tpu_torch.native import score_update as su
+    from dst_libp2p_test_node_tpu_torch.native import vmem_gather as vg
+    from dst_libp2p_test_node_tpu_torch.runtime.checkpoint import (
+        load_checkpoint, save_checkpoint)
+    from dst_libp2p_test_node_tpu_torch.runtime.simulator import Simulator
+
+    cfg = _config4_cfg()
+    sim = Simulator(cfg, device=dev)
+    sim.warmup()
+    sim.publish(cfg.publisher_id)
+    ck = os.path.join(SCRATCH, "config4.npz")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    save_checkpoint(sim, ck)
+    t_save = time.time() - t0
+    t0 = time.time()
+    back = load_checkpoint(ck, device=dev)
+    torch.cuda.synchronize()
+    t_load = time.time() - t0
+    check(back.cfg == cfg and len(back.records) == 1,
+          "the loaded checkpoint is not the saved experiment")
+    _same_state("config 4 checkpoint round trip", sim.state, back.state)
+    del sim, back
+    prefix = os.path.join(SCRATCH, "resume_")
+    argv = ["run", *EXACT_ARGS, "--churn", str(EXACT_CHURN), "--warmup-s",
+            str(EXACT_WARMUP_S), "--out-prefix", prefix, "--resume", ck]
+    torch.cuda.synchronize()
+    vg.launches = 0
+    su.launches = 0
+    t0 = time.time()
+    rc = cli.main(argv)
+    wall = time.time() - t0
+    launches = {"vmem_gather": vg.launches, "score_update": su.launches}
+    check(rc == 0, f"the resumed run exited {rc}")
+    same = (_sha256(prefix + "latencies1")
+            == _sha256(os.path.join(SCRATCH, "exact_latencies1")))
+    print(f"[resume] config 4 checkpoint after message 1: "
+          f"{os.path.getsize(ck) / 2**20:.1f} MiB, saved in {t_save:.3f} s, "
+          f"loaded in {t_load:.3f} s (graph rebuilt); python -m "
+          f"dst_libp2p_test_node_tpu_torch {' '.join(argv[:15])} ... "
+          f"--resume: {wall:.3f} s with outputs, launches {launches}; "
+          f"latencies1 byte-identical to phase 3b's: {same}")
+    check(same, "the resumed config-4 latencies differ from phase 3b's")
+    for name, count in launches.items():
+        check(count > 0, f"the resumed run never launched {name}")
+    return launches
+
+
+def phase_resume_parity(dev):
+    """6(c): at 2048 peers a checkpoint written on CUDA resumes on the CPU
+    to the bytes of the CUDA resume."""
+    from dst_libp2p_test_node_tpu_torch.config.topology import TopoParams
+    from dst_libp2p_test_node_tpu_torch.runtime.checkpoint import (
+        load_checkpoint, save_checkpoint)
+    from dst_libp2p_test_node_tpu_torch.runtime.simulator import (
+        ExperimentConfig, Simulator)
+
+    topo = TopoParams(network_size=PARITY_N, anchor_stages=5,
+                      min_bandwidth=50, max_bandwidth=150, min_latency=40,
+                      max_latency=130, msg_size_bytes=15000, num_frags=4,
+                      messages=3, delay_seconds=2.0)
+    cfg = ExperimentConfig(topo=topo, seed=3, warmup_s=30.0,
+                           churn_down_per_hb=EXACT_CHURN,
+                           churn_up_per_hb=EXACT_CHURN / 2)
+    sim = Simulator(cfg, device=dev)
+    sim.warmup()
+    sim.publish(cfg.publisher_id)
+    ck = os.path.join(SCRATCH, "parity.npz")
+    save_checkpoint(sim, ck)
+    outs = []
+    for where in (dev, "cpu"):
+        t0 = time.time()
+        back = load_checkpoint(ck, device=where)
+        back.run()
+        outs.append((_outputs(back), time.time() - t0))
+    for what, a, b in zip(("latencies", "shadowlog", "summaries"),
+                          outs[0][0], outs[1][0]):
+        check(a == b, f"a CUDA checkpoint resumed on CUDA and on the CPU: "
+              f"{what} differ")
+    print(f"[resume] {PARITY_N} peers, 4 fragments: a checkpoint written on "
+          f"CUDA resumes to byte-identical latencies, shadowlog and "
+          f"summaries on CUDA ({outs[0][1]:.1f} s) and on the CPU "
+          f"({outs[1][1]:.1f} s)")
+
+
 # --------------------------------------------------------------- phase 3c
 
 # (name, loss_mode, answer_queue_mode, budget lowered, engine, slow gate)
@@ -1170,6 +1368,95 @@ def phase_warm_twin(dev, cold):
 
 # ---------------------------------------------------------------- phase 5
 
+def packed_parity(dev):
+    """packed_state at 2048 peers, pull budget lowered (receiver-side: the
+    gather on bf16-packed constants): CUDA and CPU outputs byte-identical."""
+    from dst_libp2p_test_node_tpu_torch.config.topology import TopoParams
+    from dst_libp2p_test_node_tpu_torch.ops import pull
+    from dst_libp2p_test_node_tpu_torch.runtime.simulator import (
+        ExperimentConfig, Simulator)
+
+    topo = TopoParams(network_size=PARITY_N, anchor_stages=5,
+                      min_bandwidth=50, max_bandwidth=150, min_latency=40,
+                      max_latency=130, msg_size_bytes=15000, num_frags=1,
+                      messages=3, delay_seconds=2.0)
+    cfg = ExperimentConfig(topo=topo, seed=3, warmup_s=30.0,
+                           serialize_answers=False, packed_state=True)
+    saved = pull._MAX_INTERMEDIATE_BYTES
+    pull._MAX_INTERMEDIATE_BYTES = 1
+    try:
+        outs = []
+        for where in (dev, "cpu"):
+            sim = Simulator(cfg, device=where)
+            sim.run()
+            outs.append(_outputs(sim))
+    finally:
+        pull._MAX_INTERMEDIATE_BYTES = saved
+    for what, a, b in zip(("latencies", "shadowlog", "summaries"), *outs):
+        check(a == b, f"packed_state at {PARITY_N} peers: CUDA and CPU "
+              f"{what} differ")
+    print(f"[packed] {PARITY_N} peers, receiver-side, packed_state: "
+          f"latencies, shadowlog and summaries byte-identical on CUDA and "
+          f"CPU")
+
+
+def packed_publish(sim, publisher, rec, wall):
+    """The publish of phase 5 (`rec`, from sim.state) again from the same
+    state with packed_state on (bf16 relative cost tables): `received`
+    equal and the per-peer delay gap against rtol 1e-2 / atol 25 ms (the
+    reference's own pin at its test size). A bf16-rounded heartbeat phase
+    can move a gossip offer to the next heartbeat tick, so a few peers may
+    exceed the pin: at most 0.2% of the receivers, none by more than one
+    heartbeat plus atol, and the gap's 99th percentile inside atol. Both
+    walls, and one relaxation sweep at 1M x 40 in each layout."""
+    from dst_libp2p_test_node_tpu_torch.parallel import exchange
+
+    s0, params = sim.state, sim.params
+    sim.params = dataclasses.replace(params, packed_state=True)
+    walls = []
+    try:
+        for _ in range(2):
+            sim.state = s0
+            torch.cuda.synchronize()
+            t0 = time.time()
+            got = sim.publish(publisher)
+            torch.cuda.synchronize()
+            walls.append(time.time() - t0)
+    finally:
+        sim.state, sim.params = s0, params
+    check(np.array_equal(got.received, rec.received),
+          "packed_state changed who received the message")
+    ok = rec.received
+    gap = np.abs(got.delays_ms[ok] - rec.delays_ms[ok])
+    beyond = int((gap > 25.0 + 1e-2 * np.abs(rec.delays_ms[ok])).sum())
+    p99 = float(np.percentile(gap, 99))
+    gen = torch.Generator(device=s0.device).manual_seed(1)
+    t, src = _gather_inputs(FULL_N, 40, gen, s0.device)
+    consts = _recv_constants(src, gen, s0.device)
+    bf16 = torch.bfloat16
+    packed = dataclasses.replace(
+        consts, **{f: getattr(consts, f).to(bf16)
+                   for f in ("a_ms", "g_ms", "g_off", "phase")})
+    sweeps = [cuda_ms(lambda c=c: exchange._inc_from(t, c).amin(dim=-1))
+              for c in (consts, packed, consts, packed)]
+    print(f"[packed] one bounded publish at {FULL_N} peers from the same "
+          f"state: unpacked {wall:.3f} s, packed_state {walls[0]:.3f} / "
+          f"{walls[1]:.3f} s; received equal; delay gap p50 "
+          f"{float(np.median(gap)):.3f} ms, p99 {p99:.3f} ms, max "
+          f"{float(gap.max()):.3f} ms; {beyond} of {int(ok.sum())} peers "
+          f"beyond rtol 1e-2 / atol 25 ms; one sweep (_inc_from + row min) "
+          f"at {FULL_N}x40: f32 tables {min(sweeps[0], sweeps[2]):.4f} ms, "
+          f"bf16 tables {min(sweeps[1], sweeps[3]):.4f} ms")
+    check(p99 <= 25.0, f"packed_state delay gap p99 {p99:.3f} ms > 25 ms")
+    check(beyond <= 0.002 * int(ok.sum()),
+          f"packed_state: {beyond} of {int(ok.sum())} peers beyond rtol "
+          f"1e-2 / atol 25 ms, more than 0.2%")
+    worst = float(gap.max())
+    check(worst <= params.heartbeat_ms + 25.0,
+          f"packed_state delay gap max {worst:.3f} ms > one heartbeat "
+          f"({params.heartbeat_ms} ms) + 25 ms")
+
+
 def phase_idle(dev):
     """Device busy share of one 1M-peer publish (torch.profiler)."""
     from torch.autograd import DeviceType
@@ -1188,8 +1475,12 @@ def phase_idle(dev):
     sim.warmup()
     torch.cuda.synchronize()
     t2 = time.time()
-    (first, wall, wall_prof), prof, _, _ = profile_publish(
+    s0 = sim.state
+    (first, wall, wall_prof), prof, rec, _ = profile_publish(
         sim, cfg.publisher_id)
+    sim.state = s0
+    packed_publish(sim, cfg.publisher_id, rec, wall)
+    packed_parity(dev)
     print(f"[idle] at {FULL_N} peers: Simulator set-up (graph build, state, "
           f"edge tables) {t1 - t0:.3f} s; warm-up of 5 heartbeats "
           f"{t2 - t1:.3f} s; one publish {first:.3f} s the first time, "
@@ -1223,6 +1514,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
         return 1
+    started = time.time()
     dev = torch.device("cuda", 0)
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
@@ -1233,6 +1525,9 @@ def main() -> int:
         phase_exact_parity(dev)
         launches_exact, lossless = phase_config4(dev, "exact", EXACT_ARGS)
         phase_exact_idle(dev)
+        launches_batch = phase_batch(dev)
+        launches_resume = phase_resume(dev)
+        phase_resume_parity(dev)
         phase_lossy_parity(dev)
         launches_lossy, _ = phase_config4(dev, "lossy", LOSSY_ARGS,
                                           LOSSY_ENV, lossless)
@@ -1250,9 +1545,13 @@ def main() -> int:
                  exact=dict(v["exact"], launches=launches_exact[k]),
                  lossy=dict(v["exact"], launches=launches_lossy[k]),
                  config3=dict(launches=launches_c3[k]),
-                 warm=dict(launches=launches_warm[k]))
+                 warm=dict(launches=launches_warm[k]),
+                 batch=dict(launches=launches_batch[k]),
+                 resume=dict(launches=launches_resume[k]))
             for k, v in kernels.items()]
     print(json.dumps({"kernels": line}))
+    print(f"[total] {time.time() - started:.1f} s of run time, builds "
+          f"included")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

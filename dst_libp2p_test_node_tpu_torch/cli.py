@@ -13,10 +13,12 @@ delivery mode defaults to exact (serialized gossip answers, the model of
 record), as in the reference. A nonzero <packet_loss> (or a lossy --gml)
 runs the loss model --loss-mode names (tcp, the default, or message).
 --use-mix relays every publish through the mix network (--num-mix,
---mix-d). Flags whose paths are not ported yet (checkpoints) exit with an
-error naming what is missing. The topology artifacts
-(network_topology.gml, shadow.yaml) are not written: that is the
-`topogen` subcommand's job, not ported yet.
+--mix-d). Beside the outputs it writes the topology artifacts
+network_topology.gml and shadow.yaml, as the reference does (not under
+--gml, whose file already exists, nor under --resume). --checkpoint FILE
+snapshots the run after every --checkpoint-every messages and after the
+last; --resume FILE continues such a snapshot on --device, with the same
+positionals and flags (runs must be 1 for both).
 """
 
 from __future__ import annotations
@@ -83,9 +85,14 @@ def _run_parser() -> argparse.ArgumentParser:
     p.add_argument("--out-prefix", default="")
     p.add_argument("--stats-json", action="store_true",
                    help="also write stats<i>.json next to latencies<i>")
-    p.add_argument("--checkpoint", default=None, help="(not ported yet)")
-    p.add_argument("--checkpoint-every", type=int, default=1)
-    p.add_argument("--resume", default=None, help="(not ported yet)")
+    p.add_argument("--checkpoint", default=None,
+                   help="snapshot the experiment to this .npz during the "
+                   "run (requires runs == 1)")
+    p.add_argument("--checkpoint-every", type=int, default=1,
+                   help="messages between snapshots")
+    p.add_argument("--resume", default=None,
+                   help="resume from a --checkpoint file and finish its "
+                   "schedule (requires runs == 1, same config)")
     p.add_argument("--gml", default=None,
                    help="ingest an existing network_topology.gml (needs "
                    "networkx)")
@@ -105,6 +112,12 @@ def _run_parser() -> argparse.ArgumentParser:
 def cmd_run(argv: list[str]) -> int:
     p = _run_parser()
     a = p.parse_args(argv)
+    if (a.checkpoint or a.resume) and int(a.runs) != 1:
+        # per-run states would overwrite one checkpoint file
+        p.error("--checkpoint/--resume require runs == 1")
+    if a.resume and a.gml:
+        # a resumed run continues on the checkpoint's own topology
+        p.error("--resume restores the checkpoint's topology; drop --gml")
     if a.use_mix:
         # a publisher that is itself a mix node is left out of its own
         # relay path, so rotation or a mix-range publisher_id needs a spare
@@ -116,10 +129,6 @@ def cmd_run(argv: list[str]) -> int:
             p.error(f"--use-mix requires --num-mix >= {need} here "
                     f"(mix-d={a.mix_d}, publisher inside mix range or "
                     f"rotation on), got {a.num_mix}")
-    if a.checkpoint or a.resume:
-        p.error("--checkpoint/--resume are not ported yet (the service "
-                "slice)")
-
     from .device import resolve_device
     from .runtime.simulator import ExperimentConfig, Simulator
     from .runtime.summarize import report, sanitize_nonfinite
@@ -133,8 +142,14 @@ def cmd_run(argv: list[str]) -> int:
         t = Topology.from_gml(a.gml, network_size=topo.network_size,
                               params=topo)
         topo = t.params
+    elif a.resume:
+        # the checkpoint holds its topology; the experiment dir's
+        # artifacts are left as they are
+        t = None
     else:
         t = Topology.build(topo)
+        t.write_gml(a.out_prefix + "network_topology.gml")
+        t.write_shadow_yaml(a.out_prefix + "shadow.yaml")
 
     large = topo.msg_size_bytes >= 1000
     for i in range(1, int(a.runs) + 1):
@@ -158,8 +173,18 @@ def cmd_run(argv: list[str]) -> int:
             serialize_answers=(a.delivery_mode == "exact"),
         )
         t0 = time.time()
-        sim = Simulator(cfg, topology=t, device=device)
-        sim.run()
+        if a.resume:
+            from .runtime.checkpoint import load_checkpoint
+
+            sim = load_checkpoint(a.resume, device=device)
+            if sim.cfg != cfg:
+                p.error("--resume checkpoint was created with a different "
+                        "configuration than these arguments; re-run with "
+                        "the original parameters")
+        else:
+            sim = Simulator(cfg, topology=t, device=device)
+        sim.run(checkpoint_path=a.checkpoint,
+                checkpoint_every=a.checkpoint_every)
         if device.type == "cuda":
             import torch
 

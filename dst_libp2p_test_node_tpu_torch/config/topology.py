@@ -22,6 +22,7 @@ reference topogen (so `SIMBACKEND=tpu` can run an existing experiment dir).
 from __future__ import annotations
 
 import math
+import re
 from dataclasses import dataclass, replace
 
 import numpy as np
@@ -137,22 +138,33 @@ class Topology:
     # ------------------------------------------------------------------- emit
 
     def write_gml(self, path: str = GML_FILE) -> None:
-        import networkx as nx
-
+        """network_topology.gml byte for byte as the reference writes it
+        (networkx.write_gml of topogen's complete stage graph with
+        self-loops and the injector node), without networkx."""
         s = self.n_stages
-        g = nx.complete_graph(s)
-        for i in range(s):
-            bw_str = f"{int(self.bw_up_mbit[i])} Mbit"
-            g.nodes[i]["host_bandwidth_up"] = bw_str
-            g.nodes[i]["host_bandwidth_down"] = bw_str
-            g.add_edge(i, i)
-            for j in range(i, s):
-                g.edges[i, j]["latency"] = f"{int(self.latency_ms[i, j])} ms"
-                g.edges[i, j]["packet_loss"] = float(self.packet_loss[i, j])
-        g.add_node(s, host_bandwidth_up="100 Mbit", host_bandwidth_down="100 Mbit")
+        lines = ["graph ["]
         for i in range(s + 1):
-            g.add_edge(i, s, latency="1 ms", packet_loss=0.0)
-        nx.write_gml(g, path)
+            bw_str = (f"{int(self.bw_up_mbit[i])} Mbit" if i < s
+                      else "100 Mbit")
+            lines += ["  node [", f"    id {i}", f'    label "{i}"',
+                      f'    host_bandwidth_up "{bw_str}"',
+                      f'    host_bandwidth_down "{bw_str}"', "  ]"]
+        # networkx's edge order: each node's neighbours in insertion order
+        # (the complete graph, then its self-loop, then the injector),
+        # skipping nodes already visited
+        for i in range(s + 1):
+            for j in [*range(i + 1, s), i, s] if i < s else [s]:
+                if j < s:
+                    lat = f"{int(self.latency_ms[i, j])} ms"
+                    loss = float(self.packet_loss[i, j])
+                else:
+                    lat, loss = "1 ms", 0.0
+                lines += ["  edge [", f"    source {i}", f"    target {j}",
+                          f'    latency "{lat}"',
+                          f"    packet_loss {_gml_float(loss)}", "  ]"]
+        lines.append("]")
+        with open(path, "w", encoding="ascii", newline="\n") as f:
+            f.write("".join(ln + "\n" for ln in lines))
 
     def shadow_config(self) -> dict:
         """shadow.yaml dict in the reference schema (topogen.py:74-136)."""
@@ -204,10 +216,14 @@ class Topology:
         }
 
     def write_shadow_yaml(self, path: str = YAML_FILE) -> None:
-        import yaml
-
-        with open(path, "w") as f:
-            yaml.dump(self.shadow_config(), f, default_flow_style=False, sort_keys=False)
+        """shadow.yaml byte for byte as the reference writes it
+        (yaml.dump(..., default_flow_style=False, sort_keys=False)),
+        without PyYAML: hosts sharing a stage share one anchored mapping."""
+        doc = self.shadow_config()
+        lines: list[str] = []
+        _yaml_block(doc, 0, _yaml_anchors(doc), set(), lines)
+        with open(path, "w", encoding="ascii", newline="\n") as f:
+            f.write("".join(ln + "\n" for ln in lines))
 
     # ----------------------------------------------------------------- ingest
 
@@ -236,3 +252,111 @@ class Topology:
         else:
             params = replace(params, network_size=network_size, anchor_stages=s)
         return cls(params, lat, bw, loss, stage)
+
+
+# ------------------------------------------------------- artifact writers
+#
+# The two files are written without networkx or PyYAML, byte-identical to
+# what those libraries write for the reference (networkx.write_gml;
+# yaml.dump with default_flow_style=False, sort_keys=False).
+
+def _gml_float(x: float) -> str:
+    """A real literal as networkx writes it: repr, upper case, a decimal
+    point before any exponent, +INF."""
+    text = repr(float(x)).upper()
+    if text == "INF":
+        return "+INF"
+    epos = text.rfind("E")
+    if epos != -1 and text.find(".", 0, epos) == -1:
+        text = text[:epos] + "." + text[epos:]
+    return text
+
+
+_YAML_WIDTH = 80
+# PyYAML's implicit resolvers (YAML 1.1: bool, null, int, float, timestamp,
+# merge, value): a string that reads back as another type is single-quoted
+_YAML_IMPLICIT = re.compile(r"""^(?:
+    yes|Yes|YES|no|No|NO|true|True|TRUE|false|False|FALSE|on|On|ON|off|Off|OFF
+    |~|null|Null|NULL|
+    |[-+]?0b[0-1_]+|[-+]?0[0-7_]+|[-+]?(?:0|[1-9][0-9_]*)|[-+]?0x[0-9a-fA-F_]+
+    |[-+]?[1-9][0-9_]*(?::[0-5]?[0-9])+
+    |[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?
+    |\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?
+    |[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+\.[0-9_]*
+    |[-+]?\.(?:inf|Inf|INF)|\.(?:nan|NaN|NAN)
+    |[0-9]{4}-[0-9]{1,2}-[0-9]{1,2}.*
+    |<<|=)$""", re.X)
+# strings PyYAML leaves plain: no indicator first, single spaces, no ': '
+# or ' #'
+_YAML_PLAIN = re.compile(r"^[A-Za-z0-9./_][A-Za-z0-9./_-]*"
+                         r"(?: [A-Za-z0-9./_-]+)*$")
+
+
+def _yaml_scalar(v) -> str:
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, str) and _YAML_IMPLICIT.match(v):
+        return f"'{v}'"
+    if isinstance(v, str) and _YAML_PLAIN.match(v):
+        return v
+    raise ValueError(f"no plain YAML form for {v!r}")
+
+
+def _yaml_anchors(doc) -> dict:
+    """id() of each mapping the document holds more than once -> its
+    anchor, numbered in the order of the second encounter, as PyYAML's
+    serializer numbers them."""
+    seen: set = set()
+    anchors: dict = {}
+
+    def walk(x):
+        if not isinstance(x, (dict, list)):
+            return
+        if id(x) in seen:
+            anchors.setdefault(id(x), f"id{len(anchors) + 1:03d}")
+            return
+        seen.add(id(x))
+        for v in (x.values() if isinstance(x, dict) else x):
+            walk(v)
+
+    walk(doc)
+    return anchors
+
+
+def _yaml_block(mapping: dict, indent: int, anchors: dict, done: set,
+                lines: list) -> None:
+    """Append the block-style lines of `mapping` at `indent`: nested
+    mappings indented by 2, lists of mappings as indentless sequences, a
+    plain scalar folded at a space once its line passes 80 columns."""
+    pad = " " * indent
+    for k, v in mapping.items():
+        head = f"{pad}{k}:"
+        if isinstance(v, dict):
+            anchor = anchors.get(id(v))
+            if anchor and id(v) in done:
+                lines.append(f"{head} *{anchor}")
+                continue
+            if anchor:
+                done.add(id(v))
+                head += f" &{anchor}"
+            lines.append(head)
+            _yaml_block(v, indent + 2, anchors, done, lines)
+        elif isinstance(v, list):
+            lines.append(head)
+            for item in v:
+                sub: list = []
+                _yaml_block(item, indent + 2, anchors, done, sub)
+                sub[0] = f"{pad}- {sub[0][indent + 2:]}"
+                lines += sub
+        else:
+            words = _yaml_scalar(v).split(" ")
+            line = f"{head} {words[0]}"
+            for w in words[1:]:
+                if len(line) > _YAML_WIDTH:
+                    lines.append(line)
+                    line = " " * (indent + 2) + w
+                else:
+                    line += " " + w
+            lines.append(line)

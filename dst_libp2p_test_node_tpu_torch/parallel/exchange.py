@@ -10,7 +10,10 @@ fixpoint so that an iteration touches only the (N,) arrival-time vector:
 with A and G per-edge constants gathered once through the reverse-slot
 map. ops/disseminate.py takes this path above the pull memory budget (the
 1M-peer class), and its hot gather `t_rx[src]` is the vmem_gather kernel
-(native/vmem_gather.py) on every sweep. The sharded variant
+(native/vmem_gather.py) on every sweep. With `packed` (SimParams.
+packed_state) the relative cost tables a_ms, g_ms, g_off and phase are
+stored as bfloat16 and upcast to float32 at the start of each sweep;
+u_ms, rx_c and the flags stay float32 / int8. The sharded variant
 (converge_sharded) is a later slice.
 """
 
@@ -29,13 +32,14 @@ INF = 3.4e38
 @dataclass
 class RecvConstants:
     """Per-receiver-slot constants of one fixpoint (fragment x phase); the
-    reference's fields, unpacked (f32 tables, int8 flags word)."""
+    reference's fields (f32 or, packed, bf16 relative tables; int8 flags
+    word)."""
 
     src: torch.Tensor      # (N, C) int32 sender peer id (conns), -1 pad
-    a_ms: torch.Tensor     # (N, C) f32 mesh-edge additive constant
-    g_ms: torch.Tensor     # (N, C) f32 gossip additive constant
-    g_off: torch.Tensor    # (N, C) f32 gossip-round heartbeat offset
-    phase: torch.Tensor    # (N, C) f32 sender heartbeat phase
+    a_ms: torch.Tensor     # (N, C) f32/bf16 mesh-edge additive constant
+    g_ms: torch.Tensor     # (N, C) f32/bf16 gossip additive constant
+    g_off: torch.Tensor    # (N, C) f32/bf16 gossip-round heartbeat offset
+    phase: torch.Tensor    # (N, C) f32/bf16 sender heartbeat phase
     u_ms: torch.Tensor     # (N, C) f32 sender uplink-free time
     flags: torch.Tensor    # (N, C) int8: bit 0 mesh edge, bit 1 gossip edge
     rx_c: torch.Tensor     # (N,) f32 receiver downlink clamp
@@ -58,11 +62,9 @@ def build_recv_constants(
     map once (see the reference's build_recv_constants for each term).
     `mesh_scale` (lossless publishes): the mesh delivery latency is
     lat_edge * mesh_scale, and XLA's CPU backend contracts the reference's
-    `queue + lat_edge * scale` into one FMA, which the port reproduces."""
-    if packed:
-        raise NotImplementedError(
-            "packed_state (bf16 cost tables) is not ported yet: it comes "
-            "with the port's benchmark slice (ROADMAP A)")
+    `queue + lat_edge * scale` into one FMA, which the port reproduces.
+    `packed`: store the relative cost tables as bfloat16 (round to
+    nearest even, as XLA's convert; INF rounds up to inf)."""
     valid = (conns >= 0) & (rev >= 0)
     queue = (rank + 1.0 + frag_idx * k_p[:, None]) * tx_ms[:, None]
     if lat_deliver is None:
@@ -87,12 +89,13 @@ def build_recv_constants(
     phase = _edge_gather(hb_phase[:, None].expand(conns.shape), conns, rev)
     u_ms = _edge_gather(uplink_free[:, None].expand(conns.shape), conns, rev)
     dev = conns.device
+    table = torch.bfloat16 if packed else torch.float32
     return RecvConstants(
         src=torch.where(valid, conns, -1).to(torch.int32).contiguous(),
-        a_ms=a_ms,
-        g_ms=g_ms,
-        g_off=g_off,
-        phase=phase,
+        a_ms=a_ms.to(table),
+        g_ms=g_ms.to(table),
+        g_off=g_off.to(table),
+        phase=phase.to(table),
         u_ms=u_ms,
         flags=mesh_ok.to(torch.int8) | (g_ok.to(torch.int8) << 1),
         rx_c=rx_const.to(torch.float32),
@@ -108,17 +111,22 @@ def _src_gather(t_all: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
 
 
 def _inc_from(t_all: torch.Tensor, c: RecvConstants) -> torch.Tensor:
-    """Incoming offers of every receiver slot given the global t_rx."""
+    """Incoming offers of every receiver slot given the global t_rx. The
+    (possibly bf16) relative tables are upcast to f32 first; the clamp to
+    INF keeps a packed table's inf from leaking out."""
     t_src = _src_gather(t_all, c.src)
     live = (c.src >= 0) & (t_src < INF)
     mesh_ok = (c.flags & 1) > 0
     g_ok = (c.flags & 2) > 0
+    f32 = torch.float32
+    a_ms, g_ms = c.a_ms.to(f32), c.g_ms.to(f32)
+    g_off, phase = c.g_off.to(f32), c.phase.to(f32)
     base = t_src + c.proc_ms
     start = torch.maximum(base, c.u_ms)
-    inc = torch.where(mesh_ok & live, start + c.a_ms, INF)
-    hb = (torch.floor((base - c.phase) / c.hb_ms) + 1.0) * c.hb_ms + c.phase
+    inc = torch.where(mesh_ok & live, start + a_ms, INF)
+    hb = (torch.floor((base - phase) / c.hb_ms) + 1.0) * c.hb_ms + phase
     inc_g = torch.where(g_ok & live,
-                        torch.maximum(hb + c.g_off, c.u_ms) + c.g_ms, INF)
+                        torch.maximum(hb + g_off, c.u_ms) + g_ms, INF)
     return torch.clamp_max(torch.minimum(inc, inc_g), INF)
 
 

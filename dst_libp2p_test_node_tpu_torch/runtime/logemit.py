@@ -17,8 +17,9 @@ written for `peer<i>` naming (SURVEY.md §7 quirks). We emit `peer<id>` so the
 *reference awk scripts run unchanged* on our latencies files; our own parser
 (runtime/summarize.py) accepts both spellings.
 
-Lines are formatted in Python; at 1M receivers per message that takes a
-few seconds per message on the host.
+`LatenciesWriter` formats each message's block with the native emitter
+(runtime/native_logemit.py, native/logemit.cpp); `grep_lines` is its plain
+Python version.
 """
 
 from __future__ import annotations
@@ -61,24 +62,27 @@ class LatenciesWriter:
 
     def __init__(self) -> None:
         self._chunks: list[tuple[int, np.ndarray, np.ndarray]] = []
-        self._next_lineno: dict[int, int] = {}
+        # lines written so far to each peer's stdout, indexed by peer id
+        self._lines = np.zeros(0, dtype=np.int64)
 
     def add_message(
         self, msg_id: int, peer_ids: np.ndarray, delays_ms: np.ndarray
     ) -> None:
         peer_ids = np.asarray(peer_ids, dtype=np.int64)
+        if peer_ids.size and peer_ids.min() < 0:
+            raise ValueError("peer ids must be non-negative")
         order = np.argsort(peer_ids)
         peer_ids = peer_ids[order]
         delays = np.asarray(delays_ms)[order].astype(np.int64)
-        linenos = np.array(
-            [self._bump(int(p)) for p in peer_ids], dtype=np.int64
-        )
+        if peer_ids.size and peer_ids[-1] >= self._lines.size:
+            self._lines = np.concatenate([self._lines, np.zeros(
+                int(peer_ids[-1]) + 1 - self._lines.size, dtype=np.int64)])
+        # a peer listed k times gets k consecutive line numbers
+        rank = (np.arange(peer_ids.size)
+                - np.searchsorted(peer_ids, peer_ids, side="left"))
+        linenos = self._lines[peer_ids] + 1 + rank
+        np.add.at(self._lines, peer_ids, 1)
         self._chunks.append((int(msg_id), peer_ids, np.stack([linenos, delays])))
-
-    def _bump(self, pid: int) -> int:
-        n = self._next_lineno.get(pid, 1)
-        self._next_lineno[pid] = n + 1
-        return n
 
     def write(self, path: str) -> int:
         """Returns the number of lines written."""
@@ -88,10 +92,11 @@ class LatenciesWriter:
         return total
 
     def write_to(self, f: io.TextIOBase) -> int:
+        from .native_logemit import format_block
+
         total = 0
         for msg_id, peers, ld in self._chunks:
-            f.writelines(line + "\n" for line in
-                         grep_lines(peers, msg_id, ld[1], ld[0]))
+            f.write(format_block(msg_id, peers, ld[0], ld[1]))
             total += len(peers)
         return total
 

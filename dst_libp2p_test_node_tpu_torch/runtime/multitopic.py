@@ -19,8 +19,8 @@ blocks (per-node max) and tiled back.
 
 `subscribe_fraction` < 1 subscribes each peer to each topic independently
 with that probability (seeded); a peer publishing on a topic it is not
-subscribed to takes the v1.1 fanout path. Batched publish
-(`publish_batch`) is a later slice and raises.
+subscribed to takes the v1.1 fanout path. `publish_batch` injects several
+(topic, publisher) messages at one sim time, topics mixed.
 """
 
 from __future__ import annotations
@@ -271,10 +271,20 @@ class MultiTopicSimulator:
         return rec
 
     def publish_batch(self, items, msg_size: int | None = None,
-                      pad_to: int | None = None):
-        raise NotImplementedError(
-            "publish_batch is not ported yet: it comes with the "
-            "publish_batch slice (runtime/publisher.py, ROADMAP A)")
+                      pad_to: int | None = None) -> list[MessageRecord]:
+        """Inject the (topic, publisher) pairs of `items` at the current
+        sim time, in order: one publish() each, so one batch may mix
+        topics and the cross-topic occupancy fold runs between messages.
+        All pairs must share one fanout bucket. `pad_to` as in
+        Simulator.publish_batch."""
+        pairs = [(str(t), int(p)) for t, p in items]
+        if len({bool(self.subscribed_np[self.topic_index(t)][p])
+                for t, p in pairs}) > 1:
+            raise ValueError(
+                "publish_batch requires a uniform fanout bucket: mixed "
+                "subscribed/unsubscribed (topic, publisher) pairs in one "
+                "batch — group them first (NodeService._group_batch does)")
+        return [self.publish(t, p, msg_size=msg_size) for t, p in pairs]
 
     # --------------------------------------------------------------- metrics
 

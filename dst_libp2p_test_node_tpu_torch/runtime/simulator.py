@@ -13,8 +13,11 @@ All state lives on one device: CUDA unless the caller passes device="cpu".
 A lossy topology (packet_loss > 0) runs the loss model cfg.loss_mode names.
 `set_subscribed` sets topic membership; an unsubscribed publisher takes the
 v1.1 fanout path. With cfg.uses_mix every publish first relays through the
-mix network (ops/mix.py). Telemetry, checkpoints, batched publish and
-meshes are later slices (ROADMAP A) and raise.
+mix network (ops/mix.py). `publish_batch` injects several messages at one
+sim time, one publish() each; `run(checkpoint_path=)` snapshots the
+experiment (runtime/checkpoint.py), and a run loaded from the snapshot
+continues its schedule. Telemetry and meshes are later slices (ROADMAP A)
+and raise.
 """
 
 from __future__ import annotations
@@ -311,6 +314,24 @@ class Simulator:
         self.records.append(rec)
         return rec
 
+    def publish_batch(self, publishers, msg_size: int | None = None,
+                      pad_to: int | None = None) -> list[MessageRecord]:
+        """Inject len(publishers) messages at the current sim time, in
+        order: one publish() each. publish() does not move the clock, so
+        every message starts at the same t0, as in the reference's batched
+        dispatch, and the records and the state equal that dispatch's.
+        All publishers must share one fanout bucket (all subscribed or
+        all not), as there. `pad_to` keeps the reference's signature: its
+        padding columns change nothing, so it is not used."""
+        pubs = [int(p) for p in publishers]
+        if self.mix_params is None and len(
+                {bool(self._subscribed_np[p]) for p in pubs}) > 1:
+            raise ValueError(
+                "publish_batch requires a uniform fanout bucket: mixed "
+                "subscribed/unsubscribed publishers in one batch — group "
+                "them first (NodeService._group_batch does)")
+        return [self.publish(p, msg_size=msg_size) for p in pubs]
+
     def _mix_relay(self, origin: int, size: int, t0_ms: float):
         """Relay one message through the mix network (occupancy-coupled);
         the exit node publishes on the origin's behalf. Returns (path
@@ -346,19 +367,33 @@ class Simulator:
             uplink_free_ms=uplink_new, rx_free_ms=rx_new)
         return float(path_delay), int(exit_node)
 
-    def run(self) -> list[MessageRecord]:
-        """Full experiment: warm-up, then the injection schedule."""
+    def run(self, checkpoint_path: str | None = None,
+            checkpoint_every: int = 1) -> list[MessageRecord]:
+        """Full experiment: warm-up, then the injection schedule. A run
+        with records (one resumed from a checkpoint) skips the warm-up and
+        continues the schedule. `checkpoint_path`: snapshot after every
+        `checkpoint_every`-th message and after the last one."""
         cfg = self.cfg
         n = cfg.topo.network_size
-        self.warmup()
+        done = len(self.records)
+        if done == 0:
+            self.warmup()
         delay_ms = cfg.topo.delay_seconds * 1000.0
         pub = cfg.publisher_id % n
-        for i in range(cfg.topo.messages):
+        if cfg.publisher_rotation:
+            pub = (pub + done) % n
+        for i in range(done, cfg.topo.messages):
             if i > 0:
                 self.advance(delay_ms)
             self.publish(pub)
             if cfg.publisher_rotation:
                 pub = (pub + 1) % n
+            if checkpoint_path is not None and (
+                    (i + 1) % max(checkpoint_every, 1) == 0
+                    or i == cfg.topo.messages - 1):
+                from .checkpoint import save_checkpoint
+
+                save_checkpoint(self, checkpoint_path)
         return self.records
 
     # --------------------------------------------------------------- outputs

@@ -1,7 +1,8 @@
-"""The port imports torch and never jax, and nothing of the JAX package:
-every module of dst_libp2p_test_node_tpu_torch (ops.mix and
-runtime.multitopic named), and chip_smoke.py, import in a fresh interpreter
-where `import jax` fails."""
+"""The port imports torch and never jax, flax or anything of the JAX
+package: every module of dst_libp2p_test_node_tpu_torch (ops.mix,
+runtime.multitopic, runtime.checkpoint and runtime.native_logemit
+named), and chip_smoke.py, import in a fresh
+interpreter where `import jax` and `import flax` fail."""
 
 import os
 import subprocess
@@ -14,6 +15,7 @@ _PROBE = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["jaxlib"] = None
+sys.modules["flax"] = None
 import dst_libp2p_test_node_tpu_torch as port
 names = [port.__name__] + [m.name for m in pkgutil.walk_packages(
     port.__path__, port.__name__ + ".") if not m.name.endswith("__main__")]
@@ -23,10 +25,11 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "dst_libp2p_test_node_tpu"
              or m.startswith("dst_libp2p_test_node_tpu.")
-             or m == "jax" and sys.modules[m] is not None
-             or m.startswith(("jax.", "jaxlib.", "flax")))
+             or m in ("jax", "flax") and sys.modules[m] is not None
+             or m.startswith(("jax.", "jaxlib.", "flax.")))
 print(len(names), "modules;", "leaked:", bad)
-for name in ("ops.mix", "runtime.multitopic"):
+for name in ("ops.mix", "runtime.multitopic", "runtime.checkpoint",
+             "runtime.native_logemit"):
     assert port.__name__ + "." + name in names, name
 sys.exit(1 if bad else 0)
 """
@@ -51,7 +54,8 @@ def test_port_sources_name_no_jax_import():
         with open(path) as f:
             for line in f:
                 s = line.strip()
-                assert not s.startswith(("import jax", "from jax")), path
+                assert not s.startswith(("import jax", "from jax",
+                                         "import flax", "from flax")), path
                 assert not s.startswith(
                     ("import dst_libp2p_test_node_tpu ",
                      "from dst_libp2p_test_node_tpu ",

@@ -4,7 +4,7 @@ publish (the block-diagonal stacked graph, the seeded subscription draw,
 the tiled per-node heartbeat phase, the cross-topic uplink/downlink fold),
 every MessageRecord array of each topic's publish (exact mode, an
 unsubscribed publisher included), mesh_sizes and topic_health; and
-publish_batch, a later slice, raising."""
+publish_batch across topics (test_torch_batch.py has the rest)."""
 
 import dataclasses
 
@@ -127,8 +127,16 @@ def test_unsubscribed_publisher_and_reset(sims):
 
 
 def test_publish_batch_is_a_later_slice(sims):
-    _, t = sims
-    with pytest.raises(NotImplementedError, match="publish_batch"):
-        t.publish_batch([(TOPICS[0], 1), (TOPICS[1], 2)])
+    # one batch across two topics, as the reference's
+    j, t = sims
+    if float(t.state.t_ms) == 0.0:
+        j.warmup()
+        t.warmup()
+    items = [(TOPICS[0], int(np.nonzero(t.subscribed_np[0])[0][0])),
+             (TOPICS[1], int(np.nonzero(t.subscribed_np[1])[0][1]))]
+    for a, b in zip(j.publish_batch(items, pad_to=4),
+                    t.publish_batch(items, pad_to=4)):
+        _same_record(a, b)
+    _same_state(j, t)
     with pytest.raises(KeyError):
         t.publish("nope", 1)

@@ -83,15 +83,19 @@ def test_run_cli_files_byte_identical(tmp_path, monkeypatch):
 
 
 def test_cli_refuses_what_is_not_ported(capsys, tmp_path, monkeypatch):
+    # checkpoints are ported: what `run` still refuses are the
+    # reference's own refusals; a lossy topology and mix routing run
     base = ["run", "1", "50", "15000", "1", "1", "50", "150", "40", "130",
             "5", "0.0", "4", "0", "1000", "--device", "cpu"]
-    for extra in (["--checkpoint", "x"], ["--resume", "x"]):
+    runs2 = list(base)
+    runs2[1] = "2"
+    for argv in (runs2 + ["--checkpoint", "x"],
+                 base + ["--resume", "x", "--gml", "y"]):
         with pytest.raises(SystemExit) as exc:
-            tcli.main(base + extra)
+            tcli.main(argv)
         assert exc.value.code == 2
-    assert "not ported yet" in capsys.readouterr().err
-    # a lossy topology is ported now (slice 4), and mix routing (slice 5):
-    # the runs exit 0
+    err = capsys.readouterr().err
+    assert "runs == 1" in err and "drop --gml" in err
     monkeypatch.chdir(tmp_path)
     lossy = list(base)
     lossy[11] = "0.1"
@@ -104,18 +108,24 @@ def test_cli_refuses_what_is_not_ported(capsys, tmp_path, monkeypatch):
 
 
 def test_what_is_not_ported_raises():
-    # the multi-topic Simulator is ported (slice 5); its batched publish
-    # is a later slice
+    # the multi-topic Simulator and its batched publish are ported;
+    # checkpoints of a sharded run and the DHT leaves are later slices
+    from dst_libp2p_test_node_tpu_torch.runtime.checkpoint import (
+        load_checkpoint, save_checkpoint)
     from dst_libp2p_test_node_tpu_torch.runtime.multitopic import (
         MultiTopicConfig, MultiTopicSimulator)
 
     sim = MultiTopicSimulator(MultiTopicConfig(
         topo=TopoParams(network_size=40, anchor_stages=5),
         topics=("a", "b")), device="cpu")
-    with pytest.raises(NotImplementedError, match="publish_batch"):
-        sim.publish_batch([("a", 1)])
+    recs = sim.publish_batch([("a", 1), ("b", 2)])
+    assert len(recs) == 2 and recs[0].received.sum() > 0
     rec = sim.publish("b", 1)
     assert rec.received.sum() > 0
+    with pytest.raises(NotImplementedError, match="A13"):
+        load_checkpoint("unused.npz", mesh=object())
+    with pytest.raises(NotImplementedError, match="A10"):
+        save_checkpoint(sim, "unused.npz", kad_state=object())
 
 
 def test_experiment_config_fields_match_the_reference():
