@@ -118,18 +118,32 @@ not printed):
                one relaxation sweep in each layout; and packed
                CUDA = CPU bytes at 2048 peers on the receiver-side path.
 
+  7. roles   - the reference harness's role workloads (kad-dht in both
+               DISCOVERY modes, service discovery, the regression node,
+               the connection manager): (a) CUDA vs CPU at 384 peers, every
+               state leaf, record, log line and summary byte-identical
+               (extended kad with a retry budget; the regression also with
+               the pull budget lowered, so the gather runs); (b) each at
+               10,000 peers (connmanager: the reference defaults and 4 hubs
+               x 10,000 spokes): set-up and phase walls, kad lookups/s,
+               the regression path's launches (counts zeroed just before
+               its warm-up, read after its pings), p50/p99 and coverage,
+               and peak memory. Fails on a CUDA/CPU difference, a wrong
+               lookup or advertisement count, an unconverged regression
+               fixpoint or a score_update that never launched.
+
 Then one JSON line with every kernel's numbers: at 1M x 40 with
 `launches` from phase 4's config-5 run, under `exact` at 100k x 40 with
 `launches` from phase 3b's config-4 run, under `lossy` the same 100k x 40
 numbers with `launches` from phase 3d, and the launches of phase 3f
-(`config3`), 4b (`warm`), 6(a)'s unpadded batch (`batch`) and 6(b)'s
-resumed run (`resume`). Then the total run time, and last the line
+(`config3`), 4b (`warm`), 6(a)'s unpadded batch (`batch`), 6(b)'s
+resumed run (`resume`) and 7(b)'s regression run (`roles`). Then the total run time, and last the line
 {"ok": true, "device": {...}}. Without CUDA it exits 1 and prints no
 result; run alone, without the package beside it, it exits 2.
 
 Machine time: 245.6 and 267.3 s of command time on one H100 in two
-runs before phase 6 (204 s before phases 3e, 3f and 4b), well inside a
-20-minute budget.
+runs before phase 6 (204 s before phases 3e, 3f and 4b); phase 7 alone
+took 38.7 s with its builds. Well inside a 20-minute budget.
 """
 
 from __future__ import annotations
@@ -1510,6 +1524,256 @@ def phase_idle(dev):
     return idle
 
 
+# ---------------------------------------------------------------- phase 7
+
+# the role workloads at the 10,000-node scale of the reference's deployment
+# tool; parity at ROLES_PARITY_N peers
+ROLES_N = 10_000
+ROLES_PARITY_N = 384
+ROLES_HUB_SPOKES = 10_000
+
+
+def _leaf_bytes(obj):
+    from dst_libp2p_test_node_tpu_torch import interop
+
+    return {k: (v.dtype.str, v.shape, v.tobytes())
+            for k, v in interop.leaves_to_numpy(obj).items()}
+
+
+def _role_outputs(kind, sim, summary):
+    """Everything a role run leaves behind, as comparable bytes."""
+    from dst_libp2p_test_node_tpu_torch import interop
+
+    if kind == "connmanager":
+        return (_leaf_bytes(sim), summary.trace.tobytes(), summary.report())
+    out = [list(sim.lines), summary.report()]
+    if kind == "kad":
+        out += [[dataclasses.astuple(r) for r in sim.lookups],
+                _leaf_bytes(sim.state)]
+    elif kind == "servicedisco":
+        out += [sim.lookup_records, sim.adv_latencies,
+                _leaf_bytes(sim.kstate), _leaf_bytes(sim.store)]
+    else:
+        out += [[dataclasses.astuple(p) for p in sim.pings],
+                _leaf_bytes(sim.kstate),
+                {k: (v.dtype.str, v.tobytes()) for k, v in
+                 interop.state_to_numpy(sim.sim.state).items()},
+                [(r.msg_id, r.delays_ms.tobytes(), r.received.tobytes(),
+                  r.sends.tobytes(), r.copies_rx.tobytes())
+                 for r in sim.records()]]
+    return out
+
+
+def _role_run(kind, cfg, device):
+    from dst_libp2p_test_node_tpu_torch.ops.connmanager import (
+        run_connmanager)
+    from dst_libp2p_test_node_tpu_torch.runtime.kad_runtime import (
+        KadSimulator)
+    from dst_libp2p_test_node_tpu_torch.runtime.regression_runtime import (
+        RegressionSimulator)
+    from dst_libp2p_test_node_tpu_torch.runtime.sd_runtime import SDSimulator
+
+    if kind == "connmanager":
+        summary, state = run_connmanager(cfg, device=device)
+        return state, summary
+    sim = {"kad": KadSimulator, "servicedisco": SDSimulator,
+           "regression": RegressionSimulator}[kind](cfg, device=device)
+    return sim, sim.run()
+
+
+def _role_configs(n, spokes, duration_s=60.0):
+    """Each workload's config at n peers (connmanager: 4 hubs x spokes)."""
+    from dst_libp2p_test_node_tpu_torch.ops import connmanager as cm
+    from dst_libp2p_test_node_tpu_torch.runtime import (
+        kad_runtime, regression_runtime, sd_runtime)
+
+    half, quarter = spokes // 2, spokes // 4
+    return {
+        "kad": kad_runtime.KadConfig(
+            network_size=n, n_bootstrap=3, n_probe=min(100, n // 4),
+            probe_duration_s=duration_s),
+        "kad-extended": kad_runtime.KadConfig(
+            network_size=n, n_bootstrap=3, n_probe=min(100, n // 4),
+            probe_duration_s=duration_s, discovery="extended"),
+        "servicedisco": sd_runtime.SDConfig(
+            network_size=n, n_bootstrap=2, n_advertisers=n // 10,
+            n_discoverers=n // 10, services=["svc-a", "svc-b", "svc-c"],
+            duration_s=int(duration_s)),
+        "regression": regression_runtime.RegressionConfig(
+            network_size=n, n_bootstrap=1, connect_to=10,
+            discovery_rounds=3, msg_size=1000, messages=10,
+            delay_seconds=4.0, ping_rounds=2),
+        "connmanager": cm.ConnManagerConfig(),
+        "connmanager-4hub": cm.ConnManagerConfig(
+            params=cm.ConnManagerParams(n_hubs=4, n_peers=spokes),
+            n_none=half, n_aggressive=quarter,
+            n_before_grace=spokes - half - quarter, duration_s=120),
+    }
+
+
+def phase_roles_parity(dev):
+    """7(a): each role workload on CUDA and on the CPU at ROLES_PARITY_N
+    peers (the regression receiver-side too): every state leaf, record,
+    log line and summary byte-identical."""
+    from dst_libp2p_test_node_tpu_torch.ops import pull
+
+    cfgs = _role_configs(ROLES_PARITY_N, ROLES_PARITY_N, duration_s=20.0)
+    cfgs["kad-extended"].evict_max_fails = 3
+    cfgs["kad-extended"].evict_backoff_ms = 500.0
+    runs = [(name, cfg, False) for name, cfg in cfgs.items()]
+    runs.append(("regression", cfgs["regression"], True))
+    budget = pull._MAX_INTERMEDIATE_BYTES
+    for name, cfg, recv_side in runs:
+        kind = name.split("-")[0]
+        walls, outs = [], []
+        try:
+            if recv_side:
+                pull._MAX_INTERMEDIATE_BYTES = 1
+            for device in (dev, "cpu"):
+                t0 = time.time()
+                sim, summary = _role_run(kind, dataclasses.replace(cfg),
+                                         device)
+                walls.append(time.time() - t0)
+                outs.append(_role_outputs(kind, sim, summary))
+        finally:
+            pull._MAX_INTERMEDIATE_BYTES = budget
+        tag = name + (" receiver-side" if recv_side else "")
+        check(outs[0] == outs[1], f"roles {tag}: CUDA and CPU differ at "
+              f"{ROLES_PARITY_N} peers")
+        print(f"[roles] {tag} at {ROLES_PARITY_N} peers: CUDA = CPU "
+              f"bitwise (state, records, log lines, summary); "
+              f"{walls[0]:.3f} s on CUDA, {walls[1]:.3f} s on the CPU")
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t0
+
+
+def phase_roles(dev):
+    """7(b): the four workloads at full width; returns the regression
+    path's kernel launches."""
+    from dst_libp2p_test_node_tpu_torch.native import score_update as su
+    from dst_libp2p_test_node_tpu_torch.native import vmem_gather as vg
+    from dst_libp2p_test_node_tpu_torch.ops import disseminate as dis
+    from dst_libp2p_test_node_tpu_torch.ops.connmanager import (
+        run_connmanager)
+    from dst_libp2p_test_node_tpu_torch.runtime.kad_runtime import (
+        KadSimulator)
+    from dst_libp2p_test_node_tpu_torch.runtime.regression_runtime import (
+        RegressionSimulator)
+    from dst_libp2p_test_node_tpu_torch.runtime.sd_runtime import SDSimulator
+
+    cfgs = _role_configs(ROLES_N, ROLES_HUB_SPOKES)
+    for name in ("kad", "kad-extended"):
+        torch.cuda.reset_peak_memory_stats(dev)
+        sim, setup = _timed(lambda: KadSimulator(cfgs[name], device=dev))
+        _, boot = _timed(sim.boot)
+        _, warm = _timed(sim.warmup)
+        n_warm = len(sim.lookups)
+        _, probe = _timed(sim.probe)
+        summary = sim.summary()
+        n_look = len(sim.lookups)
+        peak = torch.cuda.max_memory_allocated(dev)
+        print(f"[roles] {name} at {ROLES_N} peers (3 bootstraps, "
+              f"{len(sim.probes)} probes, 60 s probe loop): set-up "
+              f"{setup:.3f} s, boot {boot:.3f} s, warm-up {warm:.3f} s "
+              f"({n_warm} lookups, {n_warm / warm:.0f} lookups/s), probe "
+              f"loop {probe:.3f} s ({n_look - n_warm} lookups); "
+              f"{n_look / (warm + probe):.0f} lookups/s over both; census "
+              f"mean {summary.census_mean:.1f}, lookup p50/p99 "
+              f"{summary.lookup_latency_ms_p50:.0f}/"
+              f"{summary.lookup_latency_ms_p99:.0f} ms, hops "
+              f"{summary.hops_mean:.2f}; peak memory "
+              f"{peak / 2**30:.2f} GiB")
+        check(summary.probe_lookups == len(sim.probes) * 12
+              and summary.warmup_lookups == 20 * len(sim.normals),
+              f"{name}: lookup counts {summary}")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    sim, setup = _timed(lambda: SDSimulator(cfgs["servicedisco"], device=dev))
+    summary, run = _timed(sim.run)
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"[roles] servicedisco at {ROLES_N} peers ({ROLES_N // 10} "
+          f"advertisers, {ROLES_N // 10} discoverers, 3 services, 60 s): "
+          f"set-up {setup:.3f} s, "
+          f"run {run:.3f} s ({summary.lookups} lookups, "
+          f"{summary.lookups_failed} failed, {len(sim.adv_latencies)} "
+          f"advertisements); unique providers mean "
+          f"{summary.unique_peers_mean:.1f} of {summary.expected_providers};"
+          f" lookup p50/p99 {summary.lookup_latency_ms_p50:.0f}/"
+          f"{summary.lookup_latency_ms_p99:.0f} ms; peak memory "
+          f"{peak / 2**30:.2f} GiB")
+    q = ROLES_N // 10
+    check(summary.lookups == 4 * 3 * q and len(sim.adv_latencies)
+          == 2 * 3 * q, f"servicedisco counts {summary}")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    sim, setup = _timed(lambda: RegressionSimulator(cfgs["regression"],
+                                                    device=dev))
+    _, disc = _timed(sim.discover)
+    reg, build = _timed(sim.build_sim)
+    torch.cuda.synchronize()
+    vg.launches = 0
+    su.launches = 0
+    dis.reset_engine_counts()
+    _, warm = _timed(reg.warmup)
+    cfg = cfgs["regression"]
+
+    def publishes():
+        for i in range(cfg.messages):
+            if i > 0:
+                reg.advance(cfg.delay_seconds * 1000.0)
+            reg.publish(cfg.n_bootstrap)
+
+    _, pubs = _timed(publishes)
+
+    def pings():
+        for _ in range(cfg.ping_rounds):
+            sim.ping_round()
+            reg.advance(45_000.0)
+
+    _, ping = _timed(pings)
+    launches = {"vmem_gather": vg.launches, "score_update": su.launches}
+    engines = {k: v for k, v in dis.engine_counts.items() if v}
+    summary = sim.summary()
+    peak = torch.cuda.max_memory_allocated(dev)
+    delays = np.concatenate([r.delays_ms[r.received] for r in reg.records])
+    print(f"[roles] regression at {ROLES_N} peers (1 bootstrap, connect_to "
+          f"10, 3 discovery waves, 10 x 1,000 B 4 s apart, 45 s warm-up, 2 "
+          f"ping rounds): set-up {setup:.3f} s, discovery {disc:.3f} s, "
+          f"graph and Simulator {build:.3f} s, warm-up {warm:.3f} s, "
+          f"publishes {pubs:.3f} s, pings {ping:.3f} s; coverage "
+          f"{summary.coverage:.4f}, p50 {np.percentile(delays, 50):.3f} ms, "
+          f"p99 {np.percentile(delays, 99):.3f} ms, mesh degree "
+          f"{summary.mesh_degree_mean:.2f}, {summary.ping_count} pings; "
+          f"engines {engines}; launches {launches}; peak memory "
+          f"{peak / 2**30:.2f} GiB")
+    check(all(r.converged for r in reg.records) and len(reg.records) == 10,
+          "regression: an unconverged fixpoint")
+    check(launches["score_update"] > 0,
+          "the regression path never launched score_update")
+
+    for name in ("connmanager", "connmanager-4hub"):
+        c = cfgs[name]
+        torch.cuda.reset_peak_memory_stats(dev)
+        (summary, _), wall = _timed(lambda: run_connmanager(c, device=dev))
+        peak = torch.cuda.max_memory_allocated(dev)
+        print(f"[roles] {name}: {c.params.n_hubs} hubs x "
+              f"{c.params.n_peers} peers ({c.n_none} none / "
+              f"{c.n_aggressive} aggressive / {c.n_before_grace} "
+              f"before-grace), {c.duration_s} s: {wall:.3f} s; "
+              f"{summary.report().splitlines()[1]}; dials {summary.dials}, "
+              f"trims {summary.trims}, cycles {summary.cycles}; peak memory "
+              f"{peak / 2**30:.3f} GiB")
+        check(summary.trace.shape == (c.duration_s, c.params.n_hubs),
+              f"{name}: trace shape {summary.trace.shape}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -1536,6 +1800,8 @@ def main() -> int:
         launches, cold = phase_main(dev)
         launches_warm = phase_warm_twin(dev, cold)
         phase_idle(dev)
+        phase_roles_parity(dev)
+        launches_roles = phase_roles(dev)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -1547,7 +1813,8 @@ def main() -> int:
                  config3=dict(launches=launches_c3[k]),
                  warm=dict(launches=launches_warm[k]),
                  batch=dict(launches=launches_batch[k]),
-                 resume=dict(launches=launches_resume[k]))
+                 resume=dict(launches=launches_resume[k]),
+                 roles=dict(launches=launches_roles[k]))
             for k, v in kernels.items()]
     print(json.dumps({"kernels": line}))
     print(f"[total] {time.time() - started:.1f} s of run time, builds "

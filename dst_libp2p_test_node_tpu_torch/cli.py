@@ -1,4 +1,5 @@
-"""Command line of the port: the reference's `run` experiment on one GPU.
+"""Command line of the port: the reference's `run` experiment and its role
+workloads (`kad`, `connmanager`, `regression`, `servicedisco`) on one GPU.
 
   python -m dst_libp2p_test_node_tpu_torch run <runs> <nodes> <message_size> \\
       <num_fragment> <num_publishers> <min_bandwidth> <max_bandwidth> \\
@@ -19,6 +20,11 @@ network_topology.gml and shadow.yaml, as the reference does (not under
 snapshots the run after every --checkpoint-every messages and after the
 last; --resume FILE continues such a snapshot on --device, with the same
 positionals and flags (runs must be 1 for both).
+
+The role commands take the reference's flags and env surface plus
+`--device`; their summaries and the files of --log, --trace and
+--latencies are the reference CLI's byte for byte, and a wall line of the
+port's own ends the output.
 """
 
 from __future__ import annotations
@@ -223,12 +229,199 @@ def cmd_run(argv: list[str]) -> int:
     return 0
 
 
+def _device_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", default=None,
+                   help="torch device (default cuda; cpu runs the plain "
+                   "versions of the kernels)")
+
+
+def _resolve(p: argparse.ArgumentParser, device):
+    from .device import resolve_device
+
+    try:
+        return resolve_device(device)
+    except RuntimeError as exc:
+        p.error(str(exc))
+
+
+def _wall_line(device, t0: float, extra: str = "") -> str:
+    if device.type == "cuda":
+        import torch
+
+        torch.cuda.synchronize(device)
+    return (f"[torch backend device={device}] wall={time.time() - t0:.2f}s"
+            + extra)
+
+
+def _write_lines(path: str, lines: list[str]) -> None:
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def cmd_kad(argv: list[str]) -> int:
+    """Role-based kad-dht workload (kad-dht/main.nim:15-72): bootstrap
+    anchors, RoleNormal warm-up and the RoleProbe lookup loop, batched."""
+    p = argparse.ArgumentParser(prog="kad")
+    p.add_argument("-n", "--nodes", type=int, default=None,
+                   help="defaults to PEERS env")
+    p.add_argument("--bootstraps", type=int, default=None)
+    p.add_argument("--probes", type=int, default=None)
+    p.add_argument("--discovery", choices=["kad-dht", "extended"],
+                   default=None)
+    p.add_argument("--duration-s", type=float, default=60.0)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--log", default=None, help="write node log lines here")
+    _device_arg(p)
+    a = p.parse_args(argv)
+
+    from .runtime.kad_runtime import KadSimulator, config_from_env
+
+    cfg = config_from_env()
+    if a.nodes is not None:
+        cfg.network_size = a.nodes
+    if a.bootstraps is not None:
+        cfg.n_bootstrap = a.bootstraps
+    if a.probes is not None:
+        cfg.n_probe = a.probes
+    if a.discovery is not None:
+        cfg.discovery = a.discovery
+    if a.seed is not None:
+        cfg.seed = a.seed
+    cfg.probe_duration_s = a.duration_s
+    cfg.validate()
+    device = _resolve(p, a.device)
+    t0 = time.time()
+    sim = KadSimulator(cfg, device=device)
+    summary = sim.run()
+    wall = _wall_line(device, t0, f" lookups={len(sim.lookups)}")
+    if a.log:
+        _write_lines(a.log, sim.lines)
+    print(summary.report())
+    print(wall)
+    return 0
+
+
+def cmd_connmanager(argv: list[str]) -> int:
+    """Hub-and-spoke connection-manager stress (connmanager/main.nim):
+    watermark trimming and reconnect strategies, driven by the WATERMARK_*
+    / RECONNECT env surface with flag overrides."""
+    p = argparse.ArgumentParser(prog="connmanager")
+    p.add_argument("--duration-s", type=int, default=None)
+    p.add_argument("--trace", default=None,
+                   help="write the per-tick hub connection counts (CSV)")
+    _device_arg(p)
+    a = p.parse_args(argv)
+
+    from .ops.connmanager import config_from_env, run_connmanager
+
+    cfg = config_from_env()
+    if a.duration_s is not None:
+        cfg.duration_s = a.duration_s
+    device = _resolve(p, a.device)
+    t0 = time.time()
+    summary, _ = run_connmanager(cfg, device=device)
+    wall = _wall_line(device, t0, f" ticks={len(summary.trace)}")
+    if a.trace:
+        np.savetxt(a.trace, summary.trace, fmt="%d", delimiter=",")
+    print(summary.report())
+    print(wall)
+    return 0
+
+
+def cmd_regression(argv: list[str]) -> int:
+    """Regression workload (regression/main.nim): GossipSub mesh formed via
+    kad-dht bootstrap, mesh ping probes and the standard latency output."""
+    p = argparse.ArgumentParser(prog="regression")
+    p.add_argument("-n", "--nodes", type=int, default=None)
+    p.add_argument("--messages", type=int, default=None)
+    p.add_argument("--msg-size", type=int, default=None)
+    p.add_argument("--log", default=None)
+    p.add_argument("--latencies", default=None,
+                   help="write awk-compatible latencies file here")
+    _device_arg(p)
+    a = p.parse_args(argv)
+
+    from .runtime.logemit import LatenciesWriter
+    from .runtime.regression_runtime import RegressionSimulator
+    from .runtime.regression_runtime import config_from_env as regression_cfg
+
+    cfg = regression_cfg()
+    if a.nodes is not None:
+        cfg.network_size = a.nodes
+    if a.messages is not None:
+        cfg.messages = a.messages
+    if a.msg_size is not None:
+        cfg.msg_size = a.msg_size
+    cfg.validate()
+    device = _resolve(p, a.device)
+    t0 = time.time()
+    sim = RegressionSimulator(cfg, device=device)
+    summary = sim.run()
+    wall = _wall_line(device, t0)
+    if a.log:
+        _write_lines(a.log, sim.lines)
+    if a.latencies:
+        w = LatenciesWriter()
+        for rec in sim.records():
+            w.add_message(rec.msg_id, rec.receivers, rec.delays_ms_int)
+        w.write(a.latencies)
+    print(summary.report())
+    print(wall)
+    return 0
+
+
+def cmd_servicedisco(argv: list[str]) -> int:
+    """Service-discovery workload (service-discovery/main.nim):
+    advertisers, discoverers and hybrids over the DHT, env-driven with flag
+    overrides."""
+    p = argparse.ArgumentParser(prog="servicedisco")
+    p.add_argument("-n", "--nodes", type=int, default=None)
+    p.add_argument("--duration-s", type=int, default=None)
+    p.add_argument("--services", default=None,
+                   help="comma-separated (ADVERTISE_SERVICES)")
+    p.add_argument("--log", default=None)
+    _device_arg(p)
+    a = p.parse_args(argv)
+
+    from .runtime.sd_runtime import SDSimulator, config_from_env
+
+    cfg = config_from_env()
+    if a.nodes is not None:
+        cfg.network_size = a.nodes
+    if a.duration_s is not None:
+        cfg.duration_s = a.duration_s
+    if a.services:
+        cfg.services = [s.strip() for s in a.services.split(",")
+                        if s.strip()]
+    cfg.validate()
+    device = _resolve(p, a.device)
+    t0 = time.time()
+    sim = SDSimulator(cfg, device=device)
+    summary = sim.run()
+    wall = _wall_line(device, t0)
+    if a.log:
+        _write_lines(a.log, sim.lines)
+    print(summary.report())
+    print(wall)
+    return 0
+
+
+COMMANDS = {
+    "run": cmd_run,
+    "kad": cmd_kad,
+    "connmanager": cmd_connmanager,
+    "regression": cmd_regression,
+    "servicedisco": cmd_servicedisco,
+}
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if not argv or argv[0] != "run":
-        print("usage: python -m dst_libp2p_test_node_tpu_torch run <14 "
-              "positionals> [--delivery-mode exact|bounded] [--device cpu] "
-              "...\n"
-              "only `run` is ported so far", file=sys.stderr)
+    if not argv or argv[0] not in COMMANDS:
+        print("usage: python -m dst_libp2p_test_node_tpu_torch "
+              "{run,kad,connmanager,regression,servicedisco} ... "
+              "[--device cpu]\n"
+              "  run <14 positionals> [--delivery-mode exact|bounded] ...",
+              file=sys.stderr)
         return 2
-    return cmd_run(argv[1:])
+    return COMMANDS[argv[0]](argv[1:])

@@ -5,10 +5,14 @@ array} dict, such as the reference SimState's leaves converted with
 np.asarray; `state_to_numpy` is the inverse. Leaf names and dtypes are the
 same on both sides; the PRNG key travels as a (2,) uint32 array and is held
 as int64 words in the port (prng.py). The tests use the pair to start both
-engines from one state and compare them leaf by leaf.
+engines from one state and compare them leaf by leaf. `leaves_to_numpy`
+and `dataclass_from_numpy` do the same for the role workloads' state
+(KadState, ConnState, AdvertStore) and results.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -50,3 +54,34 @@ def leaf_mismatches(want: dict, got: dict) -> list[str]:
                 or a.tobytes() != b.tobytes()):
             bad.append(k)
     return bad
+
+
+_WORD_LEAVES = ("key", "keys")
+
+
+def leaves_to_numpy(obj) -> dict:
+    """{field: numpy array} of a dataclass of arrays: one of the port's
+    (KadState, ConnState, AdvertStore, a lookup result) or the reference's
+    counterpart. PRNG keys and node keys come out as uint32 words on both
+    sides."""
+    out = {}
+    for f in dataclasses.fields(obj):
+        x = getattr(obj, f.name)
+        a = (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
+             else np.asarray(x))
+        if f.name in _WORD_LEAVES:
+            a = a.astype(np.uint32)
+        out[f.name] = a
+    return out
+
+
+def dataclass_from_numpy(cls, leaves: dict, device):
+    """The port's dataclass `cls` from {field: numpy array}, uint32 words
+    of keys held as int64."""
+    out = {}
+    for f in dataclasses.fields(cls):
+        a = np.asarray(leaves[f.name])
+        if f.name in _WORD_LEAVES:
+            a = a.astype(np.uint32).astype(np.int64)
+        out[f.name] = torch.from_numpy(np.array(a, order="C")).to(device)
+    return cls(**out)

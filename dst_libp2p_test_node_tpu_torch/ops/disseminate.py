@@ -68,8 +68,9 @@ Float arithmetic follows the reference's association order term by term,
 and every division by a constant divides by a device tensor: CUDA turns a
 division by a host scalar into a multiply by its reciprocal, which would
 move results by an ulp. Where XLA's CPU backend contracts a multiply-add
-into one FMA (the lossless mesh base), the port computes it in float64
-and rounds once (ops/xlamath.fma_f32).
+into one FMA (the lossless mesh base, where the multiply it contracts
+depends on the fixpoint), the port computes it in float64 and rounds once
+(ops/xlamath.fma_f32).
 """
 
 from __future__ import annotations
@@ -93,6 +94,12 @@ from .state import SimParams, SimState
 from .xlamath import exp2_int, fma_f32, log_f32
 
 INF = 3.4e38
+
+# the (side, mode, phase) cases whose unserialized fixpoint has XLA's CPU
+# backend contract the queue multiply of the lossless mesh base, not the
+# latency one (see disseminate's mesh_scale)
+_QUEUE_CONTRACTED = frozenset({("send", "exact", 2), ("recv", "bounded", 1),
+                               ("recv", "exact", 2)})
 
 # tcp loss model (the reference's constants): RTO = max(RTO_MIN_MS,
 # 1.5 * RTT), doubling per failure; a copy is abandoned after MAX_RETRIES
@@ -453,18 +460,26 @@ def disseminate(
     if retx_ms is not None:
         ld_mesh = [ld + retx_ms[f] for f, ld in enumerate(ld_mesh)]
         ld_ans = [ld + retx_ms[f] for f, ld in enumerate(ld_ans)]
-    # lossless, XLA's CPU backend contracts the mesh base `queue + lat_edge
-    # * ss_scale` into one FMA (it shows only at fractional latencies, where
-    # the product is inexact); with a stall the latency is a sum and the
-    # base rounds twice
+    # lossless, XLA's CPU backend contracts one of the two multiplies of the
+    # mesh base `slot * tx_ms + lat_edge * ss_scale` into an FMA (it shows
+    # only at fractional latencies, where lat_edge * ss_scale is inexact):
+    # "lat" is fma(lat_edge, ss_scale, queue), "queue" fma(slot, tx_ms,
+    # lat_edge * ss_scale). Which one is fixed per fused kernel, read off
+    # the reference's object code and held bitwise in tests/port: every
+    # fixpoint rounds "lat" except the unserialized one (_converge_dyn) in
+    # the cases of _QUEUE_CONTRACTED. With a stall the latency is a sum
+    # and the base rounds twice.
     mesh_scale = ([ss_scale[f] for f in range(fragments)]
                   if retx_ms is None else [None] * fragments)
 
-    def _mesh_term(queue, f: int):
+    def _mesh_term(rank, k_p, frag_idx, f: int, contract: str):
         """queue + fragment f's mesh delivery latency, rounded as XLA."""
+        slot = rank + 1.0 + frag_idx * k_p[:, None]
         if mesh_scale[f] is None:
-            return queue + ld_mesh[f]
-        return fma_f32(lat_edge, mesh_scale[f], queue)
+            return slot * tx_ms[:, None] + ld_mesh[f]
+        if contract == "queue":
+            return fma_f32(slot, tx_ms[:, None], ld_mesh[f])
+        return fma_f32(lat_edge, mesh_scale[f], slot * tx_ms[:, None])
 
     if with_gossip:
         if ans_tables is None:
@@ -622,7 +637,14 @@ def disseminate(
     recv_side = exceeds_budget(f32, conns.shape, fragments)
     exact = with_gossip and params.serialize_answers
 
-    def _recv_cst(rank, k_p, f, frag_idx, send_mask, gossip):
+    def _contraction(phase: int) -> str:
+        """The mesh base's FMA (see _mesh_term) in phase 1 or 2 of the
+        unserialized fixpoint."""
+        key = ("recv" if recv_side else "send",
+               "exact" if exact else "bounded", phase)
+        return "queue" if key in _QUEUE_CONTRACTED else "lat"
+
+    def _recv_cst(rank, k_p, f, frag_idx, send_mask, gossip, contract):
         """Receiver-side constants of one fixpoint (large N): gathered
         once, then each sweep is elementwise plus the vmem_gather of the
         (N,) times."""
@@ -632,14 +654,14 @@ def disseminate(
             hb_phase, uplink, rx_const, params.proc_delay_ms,
             params.heartbeat_ms, gossip, lat_deliver=ld_mesh[f],
             ld_gossip=ld_ans[f], packed=params.packed_state,
-            mesh_scale=mesh_scale[f],
+            mesh_scale=mesh_scale[f], contract=contract,
         )
 
-    def _mesh_base(rank, k_p, f, frag_idx, send_mask):
+    def _mesh_base(rank, k_p, f, frag_idx, send_mask, contract="lat"):
         """Sender-side mesh offset of each slot (queue position + deliver
         latency), INF where the slot does not send or its copy is lost."""
         return torch.where(_deliver(send_mask, f) & can_send[:, None],
-                           _mesh_term(_queue(rank, k_p, frag_idx), f), INF)
+                           _mesh_term(rank, k_p, frag_idx, f, contract), INF)
 
     def _mesh_cand(t, a_base):
         """Mesh offers of one sender-side sweep at the estimate t: (live,
@@ -648,18 +670,22 @@ def disseminate(
         start = torch.maximum(t + params.proc_delay_ms, uplink)
         return live, torch.where(live, start[:, None] + a_base, INF)
 
-    def _converge_dyn(rank, k_p, f, frag_idx, t_pub, send_mask, t_init=None):
-        """Unserialized fixpoint; returns (t, inc, converged) with `inc` the
-        deliver-only offer matrix of the last (no-change) sweep."""
+    def _converge_dyn(rank, k_p, f, frag_idx, t_pub, send_mask, phase,
+                      t_init=None):
+        """Unserialized fixpoint of phase 1 or 2; returns (t, inc,
+        converged) with `inc` the deliver-only offer matrix of the last
+        (no-change) sweep."""
         t0 = (torch.full((n,), INF, device=dev) if t_init is None
               else t_init.clone())
         t0[publisher] = t_pub
+        contract = _contraction(phase)
         if recv_side:
             return converge_recv(
-                t0, _recv_cst(rank, k_p, f, frag_idx, send_mask, with_gossip),
+                t0, _recv_cst(rank, k_p, f, frag_idx, send_mask, with_gossip,
+                              contract),
                 params.max_relax_iters)
         # below the budget: sender-major offers, row-gather pull per sweep
-        a_base = _mesh_base(rank, k_p, f, frag_idx, send_mask)
+        a_base = _mesh_base(rank, k_p, f, frag_idx, send_mask, contract)
         g_base = torch.where(
             _deliver(g_tgt, f) & can_send[:, None],
             2.0 * lat_edge + ld_ans[f] + tx_ms[:, None], INF)
@@ -692,7 +718,7 @@ def disseminate(
         t0 = torch.full((n,), INF, device=dev)
         t0[publisher] = t_pub
         if recv_side:
-            cst = _recv_cst(rank, k_p, f, frag_idx, send_mask, False)
+            cst = _recv_cst(rank, k_p, f, frag_idx, send_mask, False, "lat")
             return lambda g_floor: converge_recv(
                 t0, cst, params.max_relax_iters, g_floor=g_floor)[0]
         a_base = _mesh_base(rank, k_p, f, frag_idx, send_mask)
@@ -830,13 +856,13 @@ def disseminate(
                                t_pub + w + w[publisher] + params.heartbeat_ms,
                                INF)
             t1, inc1, ok1 = _converge_dyn(rank1, k1, f, frag_idx, t_pub,
-                                          tgt_f, t_init=seed)
+                                          tgt_f, 1, t_init=seed)
             supported = torch.maximum(inc1.amin(dim=-1), rx_const)
             bad = (((t1 < supported) & (t1 < INF) & ~is_pub).any()
                    | torch.tensor(not ok1, device=dev))
         else:
             t1, inc1, ok1 = _converge_dyn(rank1, k1, f, frag_idx, t_pub,
-                                          tgt_f)
+                                          tgt_f, 1)
             bad = torch.zeros((), dtype=torch.bool, device=dev)
         if exact:
             # the answer queues folded at both phase results ride in the
@@ -851,7 +877,7 @@ def disseminate(
             rank2, k2, send_mask = _phase2_masks_from_inc(
                 inc1p, t1, rank1, k1, tgt_f)
             t2, _, ok2 = _converge_dyn(rank2, k2, f, frag_idx, t_pub,
-                                       send_mask, t_init=t1)
+                                       send_mask, 2, t_init=t1)
             g2, req2, drain2, mixed2, _ = gossip_fold(t2, f)
             inc2 = _attribution(t2, rank2, k2, f, frag_idx, send_mask, g2,
                                 req2)
@@ -866,7 +892,7 @@ def disseminate(
                 inc1, t1, rank1, k1, tgt_f)
             # t1 is a guaranteed upper bound for phase 2
             t2, inc2, ok2 = _converge_dyn(rank2, k2, f, frag_idx, t_pub,
-                                          send_mask, t_init=t1)
+                                          send_mask, 2, t_init=t1)
             t_fin, inc_fin, ok = t2, inc2, ok1 and ok2
             rank_o, k_o, mask_o = rank2, k2, send_mask
         if with_gossip:

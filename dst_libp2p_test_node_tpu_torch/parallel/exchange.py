@@ -56,25 +56,31 @@ def build_recv_constants(
     conns, rev, lat_edge, tx_ms, rank, k_p, frag_idx, send_mask, can_send,
     g_tgt, g_off_s, hb_phase, uplink_free, rx_const, proc_ms: float,
     hb_ms: float, with_gossip: bool, lat_deliver=None, ld_gossip=None,
-    packed: bool = False, mesh_scale=None,
+    packed: bool = False, mesh_scale=None, contract: str = "lat",
 ) -> RecvConstants:
     """Gather every sender-side term of the offers through the reverse-slot
     map once (see the reference's build_recv_constants for each term).
     `mesh_scale` (lossless publishes): the mesh delivery latency is
-    lat_edge * mesh_scale, and XLA's CPU backend contracts the reference's
-    `queue + lat_edge * scale` into one FMA, which the port reproduces.
+    lat_edge * mesh_scale, and XLA's CPU backend contracts one multiply of
+    the reference's `queue + lat_edge * scale` into an FMA, which the port
+    reproduces: `contract` "lat" is fma(lat_edge, scale, queue), "queue"
+    fma(queue slot, tx_ms, lat_edge * scale) (ops/disseminate says which
+    fixpoint rounds which way).
     `packed`: store the relative cost tables as bfloat16 (round to
     nearest even, as XLA's convert; INF rounds up to inf)."""
     valid = (conns >= 0) & (rev >= 0)
-    queue = (rank + 1.0 + frag_idx * k_p[:, None]) * tx_ms[:, None]
+    slot = rank + 1.0 + frag_idx * k_p[:, None]
+    queue = slot * tx_ms[:, None]
     if lat_deliver is None:
         lat_deliver = lat_edge
     if ld_gossip is None:
         ld_gossip = lat_deliver
-    if mesh_scale is not None:
-        a_sender = fma_f32(lat_edge, mesh_scale, queue)
-    else:
+    if mesh_scale is None:
         a_sender = queue + lat_deliver
+    elif contract == "queue":
+        a_sender = fma_f32(slot, tx_ms[:, None], lat_deliver)
+    else:
+        a_sender = fma_f32(lat_edge, mesh_scale, queue)
     a_ms = torch.where(valid, _edge_gather(a_sender, conns, rev), INF)
     mesh_ok = valid & _edge_gather(send_mask & can_send[:, None], conns, rev)
     if with_gossip:

@@ -23,8 +23,10 @@ FORMAT_VERSION is 10; v5-v9 files load with the defaults of their absent
 leaves (an INF warm-start carry, an empty PX pool and zero repair
 counters, `answer_wait_max_ms` 0.0). The format carries no record's
 `converged` or `refine_passes`: a restored record has the defaults (True,
-0). Snapshots of a sharded run (`mesh=`, ROADMAP A13) and the DHT leaves
-(`kad_state=`, A10) belong to later slices and raise.
+0). `save_checkpoint(kad_state=)` adds a KadState's leaves as kad/*
+(written for offline audit; loading ignores them, as the reference's
+loader does). Snapshots of a sharded run (`mesh=`, ROADMAP A13) belong to
+a later slice and raise.
 """
 
 from __future__ import annotations
@@ -48,15 +50,11 @@ _TOPO_KEYS = ("latency_ms", "bw_up_mbit", "packet_loss", "stage_of_peer")
 _REPAIR_COUNTERS = ("starve_hb", "evictions", "px_grafts", "redials")
 
 
-def _refuse(mesh=None, kad_state=None) -> None:
+def _refuse(mesh=None) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "checkpoints of a sharded run are not ported yet: they come "
             "with the multi-GPU slice (ROADMAP A13)")
-    if kad_state is not None:
-        raise NotImplementedError(
-            "the DHT leaves (kad_state) are not ported yet: they come with "
-            "the roles slice (ROADMAP A10)")
 
 
 def _graph_hash(graph) -> str:
@@ -128,9 +126,10 @@ def save_checkpoint(sim, path: str, kad_state=None,
                     service_meta: dict | None = None) -> None:
     """Snapshot a Simulator or MultiTopicSimulator to `path` (.npz). The
     state comes off the device; a crash while writing leaves the previous
-    snapshot in place. `service_meta`: a strict-JSON sidecar, read only by
+    snapshot in place. `kad_state`: an ops.kad.KadState whose leaves ride
+    along as kad/* (the DHT of the run, for offline audit).
+    `service_meta`: a strict-JSON sidecar, read only by
     load_service_meta."""
-    _refuse(kad_state=kad_state)
     multitopic = hasattr(sim, "topic_index")
     meta = {
         "version": FORMAT_VERSION,
@@ -160,6 +159,9 @@ def save_checkpoint(sim, path: str, kad_state=None,
         arrays[f"state/{k}"] = v
     for k in _TOPO_KEYS:
         arrays[f"topo/{k}"] = np.asarray(getattr(sim.topology, k))
+    if kad_state is not None:
+        for k, v in interop.leaves_to_numpy(kad_state).items():
+            arrays[f"kad/{k}"] = v
     if service_meta is not None:
         arrays["service_json"] = np.frombuffer(
             json.dumps(service_meta, allow_nan=False).encode(),

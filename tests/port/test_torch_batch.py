@@ -7,13 +7,10 @@ warm-start carry and on the receiver-side path; against the reference's
 `publish_batch_scan` itself, column by column; a mixed-topic multi-topic
 batch; the mixed-fanout refusal.
 
-At fractional latencies the exact mode's one-fragment Simulator program
-differs from the reference's by one float32 ulp of the clock from its
-second same-t0 message on, batched or not (ROADMAP C3: which multiply
-XLA's CPU backend contracts into an FMA depends on the fused kernel).
-test_c3_one_fragment_fractional_exact pins that gap, and fails once it
-is gone; the bitwise fractional exact case runs with two fragments, whose
-program the port reproduces."""
+At fractional latencies which multiply of the mesh base XLA's CPU
+backend contracts into an FMA depends on the fused kernel (ROADMAP C3);
+test_c3_one_fragment_fractional_exact holds the one-fragment exact
+program, where it differs, bitwise."""
 
 import dataclasses
 
@@ -161,43 +158,46 @@ def test_publish_batch_scan_column_by_column():
 
 @pytest.mark.parametrize("how", ["batch", "sequential"])
 def test_c3_one_fragment_fractional_exact(how):
-    """ROADMAP C3, pinned: one fragment, fractional latencies, exact mode.
-    Message 1 is bitwise; from message 2 on a few delays and the
-    occupancy and warm-offset leaves differ from the reference's by at
-    most one float32 ulp of the clock (2^-10 ms at t ~ 11 s); every other
-    field and leaf is bitwise. When C3 is repaired the last assert fails:
-    then move this case into test_batch_matches_reference_bitwise."""
+    """One fragment, fractional latencies, exact mode: the program where
+    XLA's CPU backend contracts the queue multiply of phase 2's mesh base
+    (not the latency one), which from the second same-t0 message on moved
+    a few delays and the occupancy and warm-offset leaves by one float32
+    ulp of the clock. Records and every state leaf are bitwise, batched
+    and one publish() at a time."""
     j, t = pair(True, serialize_answers=True)
     pubs = [4, 9, 4]
     want = j.publish_batch(pubs, pad_to=4)
     got = (t.publish_batch(pubs) if how == "batch"
            else [t.publish(p) for p in pubs])
-    ulp = 2.0 ** -10
-    assert float(j.state.t_ms) < 16384.0
-    same_records(want[:1], got[:1])
-    gaps = []
-    for a, b in zip(want[1:], got[1:]):
-        for f in dataclasses.fields(a):
-            if f.name == "delays_ms":
-                continue
-            x, y = getattr(a, f.name), getattr(b, f.name)
-            assert (x.tobytes() == y.tobytes() if isinstance(x, np.ndarray)
-                    else x == y), f.name
-        ok = a.received
-        assert np.isinf(b.delays_ms[~ok]).all()
-        gaps.append(np.abs(a.delays_ms[ok] - b.delays_ms[ok]).max())
-    jl, tl = _leaves(j.state), interop.state_to_numpy(t.state)
-    for k, x in jl.items():
-        y = np.asarray(tl[k])
-        if x.dtype.kind == "f" and k != "t_ms":
-            assert x.dtype == y.dtype, k
-            d = x != y
-            gaps.append(np.abs(x[d].astype(np.float64) - y[d]).max()
-                        if d.any() else 0.0)
-        else:
-            assert x.dtype == y.dtype and x.tobytes() == y.tobytes(), k
-    assert max(gaps) <= ulp
-    assert max(gaps) > 0.0, "C3 no longer shows: make this case bitwise"
+    same_records(want, got)
+    same_state(j, t)
+    assert all(r.converged for r in got)
+
+
+@pytest.mark.parametrize("mode,fragments,budget", [
+    ("bounded", 3, "lowered"), ("exact", 1, "lowered"),
+    ("exact", 1, "default"), ("exact", 2, "default")])
+def test_fractional_mesh_base_contraction_per_fixpoint(mode, fragments,
+                                                       budget, monkeypatch):
+    # nine publishes at fractional latencies reach every fixpoint whose
+    # mesh base XLA contracts on one multiply or the other: sender- and
+    # receiver-side (the budget lowered), phase 1 and 2, bounded and exact
+    # (the prefix and serial engines included)
+    if budget == "lowered":
+        monkeypatch.setattr(jpull, "_MAX_INTERMEDIATE_BYTES", 1)
+        monkeypatch.setattr(tpull, "_MAX_INTERMEDIATE_BYTES", 1)
+        jdis.clear_cache()
+    try:
+        j, t = pair(True, fragments=fragments,
+                    serialize_answers=(mode == "exact"))
+        pubs = [4, 9, 4, 20, 20, 33, 4, 50, 9]
+        want = [j.publish(p) for p in pubs]
+        got = [t.publish(p) for p in pubs]
+    finally:
+        monkeypatch.undo()
+        jdis.clear_cache()
+    same_records(want, got)
+    same_state(j, t)
 
 
 def test_batch_across_a_warm_start_carry():

@@ -4,7 +4,8 @@ on the CPU: a port checkpoint resumes to the uninterrupted run's bytes; a
 checkpoint crosses between the packages in both directions (the files
 themselves are byte-identical array for array) and each resume reproduces
 the other's text; a v6 file loads with the defaults of its absent leaves;
-a graph mismatch raises; the multi-topic kind round-trips; the CLI's
+a graph mismatch raises; the DHT's kad/* leaves are written as the
+reference writes them; the multi-topic kind round-trips; the CLI's
 refusals; and the topology artifacts `run` writes beside the latencies
 (network_topology.gml, shadow.yaml) match the reference CLI's byte for
 byte."""
@@ -169,8 +170,38 @@ def test_graph_mismatch_and_later_slices_raise(tmp_path):
     assert tck.load_service_meta(path) == {}
     with pytest.raises(NotImplementedError, match="A13"):
         tck.load_checkpoint(path, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        tck.save_checkpoint(t, path, kad_state=object())
+
+
+def test_kad_leaves_cross_between_the_packages(tmp_path):
+    # save_checkpoint(kad_state=): the DHT's leaves ride along as kad/*,
+    # array for array the reference's; loading ignores them
+    import jax.numpy as jnp
+
+    from dst_libp2p_test_node_tpu.ops import kad as jkad
+    from dst_libp2p_test_node_tpu_torch.ops import kad as tkad
+
+    j = _first_message(jsim.Simulator(jsim.ExperimentConfig(
+        **_kw(TopoParams))))
+    t = _first_message(
+        tsim.Simulator(tsim.ExperimentConfig(**_kw()), device="cpu"))
+    jks = jkad.seed_bootstraps(jkad.init_kad_state(N, seed=3),
+                               jnp.arange(2, dtype=jnp.int32))
+    tks = tkad.seed_bootstraps(tkad.init_kad_state(N, seed=3, device="cpu"),
+                               torch.arange(2))
+    jpath, tpath = str(tmp_path / "jax.npz"), str(tmp_path / "port.npz")
+    jck.save_checkpoint(j, jpath, kad_state=jks)
+    tck.save_checkpoint(t, tpath, kad_state=tks)
+    want, got = _npz(jpath), _npz(tpath)
+    assert list(got) == list(want)
+    assert any(k.startswith("kad/") for k in got)
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        assert got[k].tobytes() == want[k].tobytes(), k
+    tres = tck.load_checkpoint(tpath, device="cpu")
+    tres.run()
+    jres = jck.load_checkpoint(jpath)
+    jres.run()
+    assert _text(tres) == _text(jres)
 
 
 def test_multitopic_kind_round_trips(tmp_path):

@@ -1,8 +1,10 @@
 """The port imports torch and never jax, flax or anything of the JAX
 package: every module of dst_libp2p_test_node_tpu_torch (ops.mix,
-runtime.multitopic, runtime.checkpoint and runtime.native_logemit
-named), and chip_smoke.py, import in a fresh
-interpreter where `import jax` and `import flax` fail."""
+runtime.multitopic, runtime.checkpoint, runtime.native_logemit and the
+role workloads' ops.kad, ops.connmanager, ops.servicedisco,
+runtime.kad_runtime, runtime.sd_runtime and runtime.regression_runtime
+named), and chip_smoke.py, import in a fresh interpreter where
+`import jax` and `import flax` fail."""
 
 import os
 import subprocess
@@ -29,7 +31,9 @@ bad = sorted(m for m in sys.modules
              or m.startswith(("jax.", "jaxlib.", "flax.")))
 print(len(names), "modules;", "leaked:", bad)
 for name in ("ops.mix", "runtime.multitopic", "runtime.checkpoint",
-             "runtime.native_logemit"):
+             "runtime.native_logemit", "ops.kad", "ops.connmanager",
+             "ops.servicedisco", "runtime.kad_runtime", "runtime.sd_runtime",
+             "runtime.regression_runtime"):
     assert port.__name__ + "." + name in names, name
 sys.exit(1 if bad else 0)
 """

@@ -50,3 +50,13 @@ def test_nested_splits_follow_the_reference_schedule():
     want = np.asarray(jax.random.uniform(kj, (33, 9)))
     got = prng.uniform(kt, (33, 9)).numpy()
     assert np.array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("q", [1, 3, 100, 9897])
+def test_random_bits_matches_jax_at_q_by_4(q):
+    # the kad lookup targets: jax.random.bits(key, (q, 4), uint32)
+    key = jax.random.split(jax.random.PRNGKey(21), 2)[1]
+    want = np.asarray(jax.random.bits(key, (q, 4), dtype=jax.numpy.uint32))
+    got = prng.random_bits(torch.from_numpy(_key_np(key)), (q, 4)).numpy()
+    assert got.shape == (q, 4) and got.min() >= 0 and got.max() < 2**32
+    assert np.array_equal(got.astype(np.uint32), want)

@@ -6,6 +6,7 @@ budget and with the budget lowered so the receiver-side fixpoint runs."""
 import dataclasses
 import io
 
+import numpy as np
 import pytest
 import torch
 
@@ -107,9 +108,11 @@ def test_cli_refuses_what_is_not_ported(capsys, tmp_path, monkeypatch):
     assert (tmp_path / "latencies1").read_text().count("\n") == 50
 
 
-def test_what_is_not_ported_raises():
-    # the multi-topic Simulator and its batched publish are ported;
-    # checkpoints of a sharded run and the DHT leaves are later slices
+def test_what_is_not_ported_raises(tmp_path):
+    # the multi-topic Simulator, its batched publish and the DHT leaves of
+    # a checkpoint are ported; checkpoints of a sharded run are a later
+    # slice
+    from dst_libp2p_test_node_tpu_torch.ops.kad import init_kad_state
     from dst_libp2p_test_node_tpu_torch.runtime.checkpoint import (
         load_checkpoint, save_checkpoint)
     from dst_libp2p_test_node_tpu_torch.runtime.multitopic import (
@@ -124,8 +127,10 @@ def test_what_is_not_ported_raises():
     assert rec.received.sum() > 0
     with pytest.raises(NotImplementedError, match="A13"):
         load_checkpoint("unused.npz", mesh=object())
-    with pytest.raises(NotImplementedError, match="A10"):
-        save_checkpoint(sim, "unused.npz", kad_state=object())
+    path = str(tmp_path / "ck.npz")
+    save_checkpoint(sim, path, kad_state=init_kad_state(40, device="cpu"))
+    with np.load(path) as z:
+        assert z["kad/rtable"].shape == (40, 24, 16)
 
 
 def test_experiment_config_fields_match_the_reference():
