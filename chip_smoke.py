@@ -10,16 +10,18 @@ not printed):
                process per source, all at once); prints the card's name
                and power limit as nvidia-smi reports them.
   2. kernels - each kernel against its plain-torch version on the card, at
-               the shapes of both main paths (config 4's 100k x 40 and the
-               1M x 40 run) and at ragged shapes with -1 pads: vmem_gather
+               the shapes of the main paths (config 4's 100k x 40, the
+               service's 670k x 40 and the 1M x 40 run) and at ragged
+               shapes with -1 pads: vmem_gather
                bitwise at 999x37 (a stream not a multiple of 4), 3x999x37
                and 3x31x7 with a per-row and a shared t (batch rows that
                start mid-vector, straddle tiles, or are shorter than one),
-               1x1, 0 rows, 100k x 40 and 1M x 40 plain, batched and
-               shared-t; score_update's decayed counters bitwise and its
-               score within rtol 1e-5 / atol 1e-6 at 1000x37, 100k x 40
-               and 1M x 40. Times each (CUDA events) at both main-path
-               shapes beside its plain version, a library yardstick and
+               1x1, 0 rows, 100k x 40, 670k x 40 and 1M x 40 plain,
+               batched and shared-t; score_update's decayed counters
+               bitwise and its score within rtol 1e-5 / atol 1e-6 at
+               1000x37, 100k x 40, 670k x 40 and 1M x 40. Times each (CUDA
+               events) at the three main-path shapes beside its plain
+               version, a library yardstick and
                its bound; for vmem_gather at 1M x 40 also the same call on
                src sorted ascending (sequential reads of t) and one whole
                relaxation sweep (exchange._inc_from plus the row min) on
@@ -73,7 +75,11 @@ not printed):
                default tcp model and GOSSIPSUB_SLOW_PEER_PENALTY_WEIGHT=-1
                set for that run only: fails on an unconverged fixpoint or
                a kernel of the path that never launched; prints p50/p99
-               beside 3b's lossless run.
+               beside 3b's lossless run, the receipts later than 3b's
+               maximum, the tcp draws at u = 0 and the copies at j = 6
+               (ROADMAP C2). Then (c2) the same run with every j = 6 copy
+               unstalled: fails if a receipt later than 3b's maximum is
+               left.
   3e. membership parity - CUDA vs CPU at 2048 peers, byte-identical
                outputs and equal engine counts: (a) 75% subscribed through
                set_subscribed, an unsubscribed publisher, 3 messages within
@@ -132,18 +138,47 @@ not printed):
                lookup or advertisement count, an unconverged regression
                fixpoint or a score_update that never launched.
 
+  8. service - the resident node service (ROADMAP A12): (a)
+               run_service_load (the ETH2 load generator) at 64 peers x 7
+               topics over HTTP, batched, killed at tick 6 and restarted
+               from its checkpoint, on CUDA and on the CPU, then sequential
+               on CUDA: one records sha for all three, bit_identical on
+               both devices. (b) the ETH2 mainnet mix (blocks 18,000 B,
+               aggregates 3,000 B, sync 1,200 B, 64 attestation subnets of
+               600 B: 67 topics) at 10,000 peers (670k rows x 40), connect_to
+               10, a 15 s warm-up, 12 ticks of 1 s with 8 requests against
+               batches of 4 and a queue of 16, over HTTP: batched and
+               killed at tick 6 (checkpoint every 2 rounds), then the same
+               schedule sequential. Prints set-up, warm-up, drive and
+               publish walls, requests/s, sojourn p50/p99, shed rate, depth,
+               dissemination by traffic class, the checkpoint's size and
+               save/load walls, launches (zeroed at the start of each run)
+               and peak memory; fails unless bit_identical, batched sha =
+               sequential sha, the queue bound held, 0 < shed rate < 1 and
+               both kernels launched. (c) `python -m
+               dst_libp2p_test_node_tpu_torch serve` as a process at config
+               4's width (PEERS=100000, FRAGMENTS=4, --warmup-s 60,
+               --checkpoint, ports 0): /health and /ready, `inject` of 3 x
+               15,000 B in one burst (3 x 200), the dst_testnode_*,
+               libp2p_* and dst_service_* families on /metrics, SIGTERM to
+               exit 0 with the final checkpoint, then `serve --resume`
+               answering /health and one more inject; prints process start
+               to /ready and request to dispatch.
+
 Then one JSON line with every kernel's numbers: at 1M x 40 with
 `launches` from phase 4's config-5 run, under `exact` at 100k x 40 with
 `launches` from phase 3b's config-4 run, under `lossy` the same 100k x 40
 numbers with `launches` from phase 3d, and the launches of phase 3f
 (`config3`), 4b (`warm`), 6(a)'s unpadded batch (`batch`), 6(b)'s
-resumed run (`resume`) and 7(b)'s regression run (`roles`). Then the total run time, and last the line
+resumed run (`resume`), 7(b)'s regression run (`roles`), and under
+`service` the 670k x 40 numbers with `launches` from 8(b)'s batched run
+(and its sequential run's). Then the total run time, and last the line
 {"ok": true, "device": {...}}. Without CUDA it exits 1 and prints no
 result; run alone, without the package beside it, it exits 2.
 
-Machine time: 245.6 and 267.3 s of command time on one H100 in two
-runs before phase 6 (204 s before phases 3e, 3f and 4b); phase 7 alone
-took 38.7 s with its builds. Well inside a 20-minute budget.
+Machine time: 472.8 s of run time on one H100 with every phase, builds
+included (PERF.md); phase 8 took 202.8-216.0 s of it. Inside half of a
+20-minute budget.
 """
 
 from __future__ import annotations
@@ -200,6 +235,22 @@ EXACT_WARMUP_S = 60.0
 LOSSY_ARGS = list(EXACT_ARGS)
 LOSSY_ARGS[10] = "0.01"
 LOSSY_ENV = {"GOSSIPSUB_SLOW_PEER_PENALTY_WEIGHT": "-1"}
+# phase 8(b): the ETH2 mainnet topic mix (3 + 64 attestation subnets = 67
+# topics) at the vacp2p/10ksim scale, stacked as 670,000 virtual peers
+SVC_N = 10_000
+SVC_SUBNETS = 64
+SVC_ROWS = SVC_N * (3 + SVC_SUBNETS)
+SVC_LOAD = dict(n_peers=SVC_N, subnets=SVC_SUBNETS, connect_to=10,
+                warmup_s=15.0, seed=0, ticks=12, per_tick=8, tick_ms=1000.0,
+                msg_scale=1.0, max_queue_depth=16, max_batch=4,
+                via_http=True)
+# phase 8(a): the same load generator at 64 peers, CUDA against the CPU
+SVC_PARITY = dict(n_peers=64, subnets=4, connect_to=6, warmup_s=10.0,
+                  seed=0, ticks=12, per_tick=4, tick_ms=150.0,
+                  max_queue_depth=8, max_batch=2, via_http=True)
+# phase 8(c): `serve` at BASELINE config 4's width
+SERVE_ENV = {"PEERS": str(EXACT_N), "FRAGMENTS": "4"}
+SERVE_FLAGS = ["--warmup-s", "60"]
 
 
 class SmokeFailure(RuntimeError):
@@ -363,7 +414,7 @@ def phase_kernels(dev):
 
     # -- vmem_gather: bitwise, plain / batched / shared-t batched -------------
     shapes = ((999, 37), (31, 7), (1, 1), (0, 40), (EXACT_N, 40),
-              (FULL_N, 40))
+              (SVC_ROWS, 40), (FULL_N, 40))
     held = {}
     for n, c in shapes:
         t, src = _gather_inputs(max(n, 1), c, gen, dev)
@@ -391,6 +442,7 @@ def phase_kernels(dev):
                     library_ms=lib)
 
     at_exact = time_gather(*held[EXACT_N])
+    at_svc = time_gather(*held[SVC_ROWS])
     t, src = held[FULL_N]
     at_full = time_gather(t, src)
     src_sorted = src.flatten().sort().values.view_as(src).contiguous()
@@ -403,11 +455,13 @@ def phase_kernels(dev):
         replaces="dst_libp2p_test_node_tpu/native/vmem_gather.py:87",
         max_abs_err=0.0, **at_full, shape=[FULL_N, 40],
         exact=dict(at_exact, shape=[EXACT_N, 40]),
+        service=dict(at_svc, shape=[SVC_ROWS, 40]),
         sorted_src_ms=sorted_ms, sweep_ms=sweep_ms)
     print(f"[kernels] vmem_gather bitwise at "
           + ", ".join(f"{n}x{c}" for n, c in shapes)
           + " (plain; batched and shared t where n > 1)")
-    for (n, c), at in (((EXACT_N, 40), at_exact), ((FULL_N, 40), at_full)):
+    for (n, c), at in (((EXACT_N, 40), at_exact), ((SVC_ROWS, 40), at_svc),
+                       ((FULL_N, 40), at_full)):
         print(f"[kernels] vmem_gather at {n}x{c}: {at['ms']:.4f} ms vs plain "
               f"{at['plain_ms']:.4f} ms, t[src.clamp_min(0)] "
               f"{at['library_ms']:.4f} ms, bound {at['bound_ms']:.4f} ms "
@@ -420,7 +474,7 @@ def phase_kernels(dev):
 
     # -- score_update: counters bitwise, score rtol 1e-5 / atol 1e-6 --------
     err = 0.0
-    shapes = ((1000, 37), (EXACT_N, 40), (FULL_N, 40))
+    shapes = ((1000, 37), (EXACT_N, 40), (SVC_ROWS, 40), (FULL_N, 40))
     timed = {}
     for n, c in shapes:
         params = SimParams(n=n, capacity=c, slow_weight=-10.0)
@@ -449,7 +503,8 @@ def phase_kernels(dev):
         source="dst_libp2p_test_node_tpu_torch/native/csrc/score_update.cu",
         replaces="dst_libp2p_test_node_tpu/native/score_update.py:90",
         max_abs_err=err, **timed[FULL_N], shape=[FULL_N, 40],
-        exact=dict(timed[EXACT_N], shape=[EXACT_N, 40]))
+        exact=dict(timed[EXACT_N], shape=[EXACT_N, 40]),
+        service=dict(timed[SVC_ROWS], shape=[SVC_ROWS, 40]))
     print(f"[kernels] score_update counters bitwise, score max |err| {err:g} "
           f"at " + ", ".join(f"{n}x{c}" for n, c in shapes))
     for n, at in timed.items():
@@ -576,13 +631,76 @@ def phase_exact_parity(dev):
               f"{passes}, vmem_gather launches {gathers}")
 
 
-def phase_config4(dev, tag, args, env=None, lossless=None):
+class TcpDraws:
+    """Stands in for ops.disseminate.loss_draws during one run (ROADMAP
+    C2): returns what it returns and counts the run's tcp draws at u = 0
+    (over every (fragment, slot) draw) and its copies at retry count
+    j = 6 (on lossy edges); with `force_j6` every j = 6 copy arrives
+    without its stall (63 RTOs), as a j = 0 copy would."""
+
+    def __init__(self, force_j6=False):
+        self.force_j6 = force_j6
+        self.u0 = 0
+        self.j6 = 0
+        self.j_hist = None
+
+    def __enter__(self):
+        from dst_libp2p_test_node_tpu_torch.ops import disseminate as dis
+
+        self._orig = dis.loss_draws
+        dis.loss_draws = self._draws
+        return self
+
+    def __exit__(self, *exc):
+        from dst_libp2p_test_node_tpu_torch.ops import disseminate as dis
+
+        dis.loss_draws = self._orig
+
+    def _draws(self, k_loss, loss_edge, lat_edge, fragments, loss_mode):
+        from dst_libp2p_test_node_tpu_torch import prng
+        from dst_libp2p_test_node_tpu_torch.ops.xlamath import log_f32
+
+        survive, retx = self._orig(k_loss, loss_edge, lat_edge, fragments,
+                                   loss_mode)
+        if loss_mode != "tcp":
+            return survive, retx
+        u = prng.uniform(k_loss, (fragments, *loss_edge.shape))
+        lossy = (loss_edge > 0.0).expand_as(u)
+        p = torch.clamp(loss_edge, 1e-9, 1.0 - 1e-9)
+        j = torch.floor(log_f32(torch.clamp_min(u, 1e-12)) / log_f32(p))
+        j = torch.clamp(torch.where(lossy, j, 0.0), 0.0, 7.0)
+        six = lossy & (j == 6.0)
+        self.u0 += int((u == 0.0).sum())
+        self.j6 += int(six.sum())
+        hist = torch.bincount(j[lossy].long(), minlength=8).cpu()
+        self.j_hist = hist if self.j_hist is None else self.j_hist + hist
+        if self.force_j6:
+            retx = torch.where(six, torch.zeros_like(retx), retx)
+        return survive, retx
+
+
+def _late_peers(path, limit):
+    """Receipts in a latencies file later than `limit` ms, and the
+    per-message maxima."""
+    late, maxima = 0, {}
+    with open(path) as f:
+        for line in f:
+            head, ms = line.rsplit(" milliseconds: ", 1)
+            msg, d = head.rsplit(":", 1)[1], int(ms)
+            maxima[msg] = max(maxima.get(msg, d), d)
+            late += d > limit
+    return late, list(maxima.values())
+
+
+def phase_config4(dev, tag, args, env=None, lossless=None, tcp=None):
     """BASELINE config 4 through `run` in the default (exact) delivery
     mode with the run.sh positionals `args` and the environment `env` set
     for that run only; counts zeroed just before and read just after.
     Fails on an unconverged fixpoint or a kernel of the path that never
     launched. Returns (launches, stats); with `lossless` (phase 3b's
-    stats) it prints p50/p99 beside it."""
+    stats) it prints p50/p99 beside it, and the receipts later than its
+    maximum; with `tcp` (a TcpDraws) the run's u = 0 draws and j = 6
+    copies."""
     from dst_libp2p_test_node_tpu_torch import cli
     from dst_libp2p_test_node_tpu_torch.native import score_update as su
     from dst_libp2p_test_node_tpu_torch.native import vmem_gather as vg
@@ -606,7 +724,8 @@ def phase_config4(dev, tag, args, env=None, lossless=None):
         su.launches = 0
         dis.reset_engine_counts()
         t0 = time.time()
-        rc = cli.main(argv)
+        with (tcp or contextlib.nullcontext()):
+            rc = cli.main(argv)
         wall_total = time.time() - t0
         launches = {"vmem_gather": vg.launches, "score_update": su.launches}
         engines = dict(dis.engine_counts)
@@ -622,10 +741,21 @@ def phase_config4(dev, tag, args, env=None, lossless=None):
         stats = json.load(f)
     check(stats["delivery_mode"] == "exact",
           f"{tag} run took {stats['delivery_mode']} delivery mode")
-    beside = ("" if lossless is None else
-              f" (lossless phase 3b: p50 {lossless['p50_ms']:.3f} ms, p99 "
-              f"{lossless['p99_ms']:.3f} ms, coverage "
-              f"{lossless['coverage'] / EXACT_N})")
+    beside = ""
+    if lossless is not None:
+        late, maxima = _late_peers(prefix + "latencies1",
+                                   lossless["max_latency_ms"])
+        stats["late_receipts"], stats["maxima"] = late, maxima
+        beside = (f" (lossless phase 3b: p50 {lossless['p50_ms']:.3f} ms, "
+                  f"p99 {lossless['p99_ms']:.3f} ms, coverage "
+                  f"{lossless['coverage'] / EXACT_N}, max "
+                  f"{lossless['max_latency_ms']} ms); per-message maxima "
+                  f"{maxima} ms, {late} receipts later than the lossless max")
+    if tcp is not None:
+        stats["u0"], stats["j6"] = tcp.u0, tcp.j6
+        beside += (f"; tcp draws at u = 0: {tcp.u0}, copies at j = 6: "
+                   f"{tcp.j6}{' (forced to no stall)' if tcp.force_j6 else ''}"
+                   f", lossy-edge draws by j 0-7: {tcp.j_hist.tolist()}")
     print(f"[{tag}] config 4: wall {stats['wall_s']:.3f} s (simulation), "
           f"{wall_total:.3f} s with outputs; peer-rounds/s "
           f"{stats['peer_rounds_per_sec']:.1f}; coverage "
@@ -640,6 +770,26 @@ def phase_config4(dev, tag, args, env=None, lossless=None):
     for name, count in launches.items():
         check(count > 0, f"the {tag} path never launched {name}")
     return launches, stats
+
+
+def phase_c2(dev, lossless, lossy):
+    """ROADMAP C2: phase 3d again with every j = 6 copy forced to arrive
+    without its stall. The receipts later than the lossless maximum that
+    remain are the ones no j = 6 copy explains."""
+    forced = TcpDraws(force_j6=True)
+    _, stats = phase_config4(dev, "c2", LOSSY_ARGS, LOSSY_ENV, lossless,
+                             forced)
+    check(forced.j6 == lossy["j6"] and forced.u0 == lossy["u0"],
+          "the forced rerun drew other u = 0 / j = 6 counts than 3d")
+    check(stats["late_receipts"] == 0,
+          f"{stats['late_receipts']} receipts later than the lossless max "
+          f"that no j = 6 copy explains (ROADMAP C2)")
+    print(f"[c2] 3d: {lossy['u0']} tcp draws at u = 0, {lossy['j6']} "
+          f"copies at j = 6, {lossy['late_receipts']} receipts later than "
+          f"the lossless max {lossless['max_latency_ms']} ms (maxima "
+          f"{lossy['maxima']}); with those copies unstalled: "
+          f"{stats['late_receipts']} (maxima {stats['maxima']})")
+    return stats
 
 
 def phase_exact_idle(dev):
@@ -1774,6 +1924,267 @@ def phase_roles(dev):
     return launches
 
 
+# ---------------------------------------------------------------- phase 8
+
+def _load(dev, tag, kill, **kw):
+    """One run_service_load with the schedule `kw`, killed at tick 6 and
+    warm-restarted from its checkpoint when `kill`."""
+    from dst_libp2p_test_node_tpu_torch.runtime.traffic import (
+        run_service_load)
+
+    os.makedirs(SCRATCH, exist_ok=True)
+    ck = os.path.join(SCRATCH, f"{tag}_svc.npz")
+    extra = (dict(kill_at_tick=6, checkpoint_path=ck, checkpoint_every=2)
+             if kill else {})
+    out = run_service_load(**kw, **extra, device=dev)
+    json.dumps(out, allow_nan=False)          # the report is strict JSON
+    return out
+
+
+def phase_service_parity(dev):
+    """8(a): run_service_load at 64 peers over HTTP, batched and killed at
+    tick 6, on the card and on the CPU: the same records sha, both
+    lineages bit-identical, and a sequential run's sha the same."""
+    t0 = time.time()
+    gpu = _load(dev, "svc_gpu", True, **SVC_PARITY)
+    cpu = _load(torch.device("cpu"), "svc_cpu", True, **SVC_PARITY)
+    seq = _load(dev, "svc_seq", False, **SVC_PARITY,
+                dispatch_mode="sequential")
+    for name, r in (("CUDA", gpu), ("CPU", cpu)):
+        check(r["kill"]["bit_identical"],
+              f"8(a) {name}: the restarted lineage's records differ")
+    check(gpu["records_sha"] == cpu["records_sha"],
+          "8(a): CUDA and CPU records differ")
+    check(seq["records_sha"] == gpu["records_sha"],
+          "8(a): sequential dispatch gave other records than batched")
+    print(f"[service] 8(a) {SVC_PARITY['n_peers']} peers x "
+          f"{gpu['config']['topics']} topics, HTTP, batched, killed at tick "
+          f"6 and restarted at tick {gpu['kill']['resume_tick']}: records "
+          f"sha {gpu['records_sha'][:16]} on CUDA = CPU = sequential; "
+          f"bit_identical on both; {gpu['dispatched']} dispatched, shed "
+          f"rate {gpu['shed_rate']:.4f} ({time.time() - t0:.1f} s)")
+
+
+def _service_line(tag, r, launches, peak):
+    w = r["walls"]
+    lin = w["lineages"]
+    ref = lin.get("reference") or lin["run"]
+    rps = ref["dispatched"] / ref["drive_s"]
+    classes = "; ".join(
+        f"{k} {v['messages']} msgs p50 {v['p50_ms']:.3f} p99 "
+        f"{v['p99_ms']:.3f} ms coverage {v['coverage']:.6f}"
+        for k, v in sorted(r["classes"].items()))
+    walls = "; ".join(
+        (f"{k}: set-up {v['build_s']:.3f} s, warm-up {v['warmup_s']:.3f} s, "
+         if "build_s" in v else f"{k}: ")
+        + f"drive {v['drive_s']:.3f} s, of it publishing {v['publish_s']:.3f}"
+        f" s for {v['dispatched']} publishes"
+        for k, v in lin.items())
+    ck = ""
+    if "checkpoint_bytes" in w:
+        ck = (f"; checkpoint {w['checkpoint_bytes'] / 2**20:.1f} MiB, saves "
+              f"{', '.join(f'{x:.3f}' for x in w['checkpoint_save_s'])} s, "
+              f"load {w['checkpoint_load_s']:.3f} s")
+    print(f"[service] 8(b) {tag}: {walls}{ck}")
+    print(f"[service] 8(b) {tag}: {rps:.3f} requests/s (uninterrupted "
+          f"lineage, {ref['dispatched']} publishes / {ref['drive_s']:.3f} s "
+          f"of drive), requests_per_s {r['requests_per_s']}; sojourn p50 "
+          f"{r['p50_ms']:.1f} ms, p99 {r['p99_ms']:.1f} ms; shed rate "
+          f"{r['shed_rate']:.4f} ({r['rejected']} of {r['offered']} "
+          f"rejected, {r['shed_deadline']} past deadline); max depth "
+          f"{r['max_depth_seen']} of {SVC_LOAD['max_queue_depth']}; "
+          f"{r['device_dispatches']} device dispatches; launches {launches}; "
+          f"peak memory {peak / 2**30:.2f} GiB")
+    print(f"[service] 8(b) {tag}: dissemination by class: {classes}")
+    return rps
+
+
+def phase_service(dev):
+    """8(b): the ETH2 mainnet topic mix (67 topics) at 10,000 peers (670k
+    stacked rows x 40 slots) through run_service_load over HTTP, 12 ticks
+    of 1 s at 2x overload, batched and killed at tick 6, then the same
+    schedule sequential. Counts zeroed at the start of each run."""
+    from dst_libp2p_test_node_tpu_torch.native import score_update as su
+    from dst_libp2p_test_node_tpu_torch.native import vmem_gather as vg
+
+    out = {}
+    for tag, kill, mode in (("batched", True, "batched"),
+                            ("sequential", False, "sequential")):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        vg.launches = 0
+        su.launches = 0
+        t0 = time.time()
+        r = _load(dev, f"svc_{tag}", kill, **SVC_LOAD, dispatch_mode=mode)
+        wall = time.time() - t0
+        launches = {"vmem_gather": vg.launches, "score_update": su.launches}
+        peak = torch.cuda.max_memory_allocated(dev)
+        check(r["config"]["topics"] == 3 + SVC_SUBNETS,
+              f"8(b) ran {r['config']['topics']} topics")
+        check(r["queue_bound_held"], f"8(b) {tag}: the queue bound broke")
+        check(0.0 < r["shed_rate"] < 1.0,
+              f"8(b) {tag}: shed rate {r['shed_rate']} not in (0, 1)")
+        for name, count in launches.items():
+            check(count > 0, f"8(b) {tag} never launched {name}")
+        rps = _service_line(f"{tag} ({wall:.1f} s)", r, launches, peak)
+        out[tag] = dict(report=r, launches=launches, rps=rps, wall=wall)
+    b = out["batched"]["report"]
+    check(b["kill"]["bit_identical"],
+          "8(b): the restarted lineage's records differ")
+    check(out["sequential"]["report"]["records_sha"] == b["records_sha"],
+          "8(b): sequential dispatch gave other records than batched")
+    print(f"[service] 8(b) bit_identical across the kill (resumed at tick "
+          f"{b['kill']['resume_tick']}); batched sha = sequential sha "
+          f"{b['records_sha'][:16]}")
+    return out
+
+
+def _http(port, path, data=None, timeout=30):
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data)
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return resp.status, resp.read().decode()
+
+
+def _start_serve(args, log, env):
+    """`python -m dst_libp2p_test_node_tpu_torch serve` with its output in
+    `log`; waits for the line with its ports, then for /ready. Returns
+    (process, control port, metrics port, startup s)."""
+    import re
+
+    t0 = time.time()
+    with open(log, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "dst_libp2p_test_node_tpu_torch", "serve",
+             "--control-port", "0", "--metrics-port", "0", *args],
+            cwd=ROOT, env=env, stdout=out, stderr=subprocess.STDOUT)
+    ports = None
+    while time.time() - t0 < 300:
+        if proc.poll() is not None:
+            break
+        with open(log) as f:
+            m = re.search(r"serving control :(\d+) metrics :(\d+)", f.read())
+        if m:
+            ports = int(m.group(1)), int(m.group(2))
+            break
+        time.sleep(0.2)
+    if ports is None:
+        proc.kill()
+        with open(log) as f:
+            tail = f.read()[-2000:]
+        raise SmokeFailure(f"serve did not come up: {tail}")
+    check(_http(ports[0], "/ready") == (200, "ok"), "/ready did not say ok")
+    return proc, ports[0], ports[1], time.time() - t0
+
+
+def _inject(port, messages, burst):
+    """The `inject` command in this process; (stdout, rc, wall s)."""
+    from dst_libp2p_test_node_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["inject", f"127.0.0.1:{port}", "-s", "15000", "-m",
+                       str(messages), "-d", "0", "--burst", str(burst)])
+    return buf.getvalue(), rc, time.time() - t0
+
+
+def _dispatched(port, want, timeout=120):
+    """Seconds until GET /service counts `want` dispatched requests, and
+    the status once that pump round has ended (its dispatch estimate
+    updated)."""
+    t0 = time.time()
+    seen = None
+    while time.time() - t0 < timeout:
+        status = json.loads(_http(port, "/service")[1])
+        if seen is None and status["counters"]["dispatched"] >= want:
+            seen = time.time() - t0, status["pump_rounds"]
+        if seen is not None and status["pump_rounds"] > seen[1]:
+            return seen[0], status
+        time.sleep(0.05)
+    raise SmokeFailure(f"the service dispatched fewer than {want} in "
+                       f"{timeout} s")
+
+
+def _stop_serve(proc, what):
+    import signal
+
+    proc.send_signal(signal.SIGTERM)
+    try:
+        rc = proc.wait(timeout=180)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise SmokeFailure(f"{what}: SIGTERM did not end serve")
+    check(rc == 0, f"{what}: serve exited {rc} after SIGTERM")
+
+
+def phase_serve(dev):
+    """8(c): the `serve` process at config 4's width (100,000 peers, 4
+    fragments, a 60 s warm-up) with a checkpoint: /health and /ready,
+    `inject` of 3 x 15,000 B in one burst, the three families on /metrics,
+    SIGTERM (drain, final checkpoint, exit 0), then `serve --resume` from
+    that checkpoint answers /health and one more inject."""
+    os.makedirs(SCRATCH, exist_ok=True)
+    ck = os.path.join(SCRATCH, "serve_ck.npz")
+    env = dict(os.environ, **SERVE_ENV)
+    procs = []
+    try:
+        proc, cport, mport, up_s = _start_serve(
+            [*SERVE_FLAGS, "--checkpoint", ck],
+            os.path.join(SCRATCH, "serve1.log"), env)
+        procs.append(proc)
+        check(_http(cport, "/health") == (200, "ok"), "/health != ok")
+        text, rc, inj_s = _inject(cport, 3, 3)
+        check(rc == 0 and "published ok=3 failed=0" in text,
+              f"inject: {text}")
+        disp_s, status = _dispatched(cport, 3)
+        metrics = _http(mport, "/metrics")[1]
+        for fam in ("dst_testnode_", "libp2p_", "dst_service_"):
+            check(f"\n{fam}" in metrics, f"/metrics has no {fam}* family")
+        _stop_serve(proc, "serve")
+        check(os.path.exists(ck), "serve left no final checkpoint")
+        print(f"[serve] 8(c) PEERS={EXACT_N} FRAGMENTS=4 serve --warmup-s 60 "
+              f"--checkpoint: process start to /ready {up_s:.3f} s; inject "
+              f"3 x 15,000 B --burst 3: 3 replies of 200 in {inj_s:.3f} s, "
+              f"all dispatched {disp_s:.3f} s later "
+              f"({status['counters']['device_dispatches']} device "
+              f"dispatches, est. {status['est_dispatch_ms']} ms a request); "
+              f"/metrics carries dst_testnode_*, libp2p_*, dst_service_*; "
+              f"SIGTERM: exit 0, checkpoint "
+              f"{os.path.getsize(ck) / 2**20:.1f} MiB")
+        proc, cport, mport, up_s = _start_serve(
+            [*SERVE_FLAGS, "--checkpoint", ck, "--resume"],
+            os.path.join(SCRATCH, "serve2.log"), env)
+        procs.append(proc)
+        check(_http(cport, "/health") == (200, "ok"), "resumed /health")
+        text, rc, inj_s = _inject(cport, 1, 1)
+        check(rc == 0 and "published ok=1 failed=0" in text,
+              f"resumed inject: {text}")
+        disp_s, status = _dispatched(cport, 4)
+        check(status["counters"]["restarts"] == 1,
+              f"resumed service counts {status['counters']['restarts']} "
+              f"restarts")
+        _stop_serve(proc, "resumed serve")
+        print(f"[serve] 8(c) serve --resume: process start to /ready "
+              f"{up_s:.3f} s; one more inject: 200 in {inj_s:.3f} s, "
+              f"dispatched {disp_s:.3f} s later; restarts 1; SIGTERM exit 0")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def phase_8(dev):
+    t0 = time.time()
+    phase_service_parity(dev)
+    out = phase_service(dev)
+    phase_serve(dev)
+    print(f"[service] phase 8 took {time.time() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -1783,7 +2194,7 @@ def main() -> int:
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     try:
-        phase_build()
+        card = phase_build()
         kernels = phase_kernels(dev)
         phase_parity(dev)
         phase_exact_parity(dev)
@@ -1793,8 +2204,9 @@ def main() -> int:
         launches_resume = phase_resume(dev)
         phase_resume_parity(dev)
         phase_lossy_parity(dev)
-        launches_lossy, _ = phase_config4(dev, "lossy", LOSSY_ARGS,
-                                          LOSSY_ENV, lossless)
+        launches_lossy, lossy = phase_config4(
+            dev, "lossy", LOSSY_ARGS, LOSSY_ENV, lossless, TcpDraws())
+        phase_c2(dev, lossless, lossy)
         phase_membership_parity(dev)
         launches_c3 = phase_config3(dev)
         launches, cold = phase_main(dev)
@@ -1802,6 +2214,7 @@ def main() -> int:
         phase_idle(dev)
         phase_roles_parity(dev)
         launches_roles = phase_roles(dev)
+        service = phase_8(dev)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -1814,8 +2227,14 @@ def main() -> int:
                  warm=dict(launches=launches_warm[k]),
                  batch=dict(launches=launches_batch[k]),
                  resume=dict(launches=launches_resume[k]),
-                 roles=dict(launches=launches_roles[k]))
+                 roles=dict(launches=launches_roles[k]),
+                 service=dict(
+                     v["service"],
+                     launches=service["batched"]["launches"][k],
+                     sequential_launches=(
+                         service["sequential"]["launches"][k])))
             for k, v in kernels.items()]
+    print(card)      # again, near the end: the first lines scroll away
     print(json.dumps({"kernels": line}))
     print(f"[total] {time.time() - started:.1f} s of run time, builds "
           f"included")

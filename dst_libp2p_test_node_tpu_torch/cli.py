@@ -1,5 +1,7 @@
-"""Command line of the port: the reference's `run` experiment and its role
-workloads (`kad`, `connmanager`, `regression`, `servicedisco`) on one GPU.
+"""Command line of the port: the reference's `run` experiment, its role
+workloads (`kad`, `connmanager`, `regression`, `servicedisco`), the
+resident node service (`serve`, driven by `inject`) and the `topogen` and
+`summarize` tools, on one GPU.
 
   python -m dst_libp2p_test_node_tpu_torch run <runs> <nodes> <message_size> \\
       <num_fragment> <num_publishers> <min_bandwidth> <max_bandwidth> \\
@@ -25,18 +27,34 @@ The role commands take the reference's flags and env surface plus
 `--device`; their summaries and the files of --log, --trace and
 --latencies are the reference CLI's byte for byte, and a wall line of the
 port's own ends the output.
+
+  python -m dst_libp2p_test_node_tpu_torch serve [--device cpu] \
+      [--control-port P] [--metrics-port P] [--checkpoint F [--resume]] ...
+  python -m dst_libp2p_test_node_tpu_torch inject host:port ... -s SIZE \
+      -m MESSAGES -d DELAY_S [--burst K] [--peer-selection id|rotation]
+
+`serve` hosts the whole simulated network (the PEERS / CONNECTTO /
+FRAGMENTS / MUXER / GOSSIPSUB_* env surface; TOPICS=a,b,... for several
+topics) and answers the reference node's HTTP surface: POST /publish and
+GET /health, /ready, /service, /telemetry on the control port (8645), GET
+/metrics on the metrics port (8008); port 0 picks a free port. SIGTERM
+drains, flushes the final --checkpoint and exits 0; --resume restarts from
+that checkpoint. `topogen` writes network_topology.gml and shadow.yaml
+(the reference topogen's flags, or run.sh's 13 positionals); `summarize`
+prints the awk summary of a latencies file.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
 import numpy as np
 
-from .config.env import gossipsub_params_from_env
+from .config.env import env_float, env_str, gossipsub_params_from_env
 from .config.topology import Topology, TopoParams
 
 # run.sh positional order (run.sh:23-38)
@@ -46,6 +64,48 @@ RUN_SH_PARAMS = [
     "anchor_stages", "packet_loss", "publisher_id", "publisher_rotation",
     "inter_message_delay_ms",
 ]
+# the 13 positionals run.sh hands to topogen (run.sh:49-50), in its order
+TOPOGEN_POSITIONALS = [
+    "nodes", "min_bandwidth", "max_bandwidth", "min_latency", "max_latency",
+    "anchor_stages", "packet_loss", "msg_size", "num_frag", "num_publishers",
+    "publisher_id", "publisher_rotation", "inter_message_delay_ms",
+]
+
+
+def _topo_flags(p: argparse.ArgumentParser) -> None:
+    """The reference topogen's flag surface (topogen.py:13-36)."""
+    p.add_argument("-n", "--network-size", type=int, default=100)
+    p.add_argument("-bl", "--min-bandwidth", type=int, default=50)
+    p.add_argument("-bh", "--max-bandwidth", type=int, default=50)
+    p.add_argument("-ll", "--min-latency", type=int, default=100)
+    p.add_argument("-lh", "--max-latency", type=int, default=100)
+    p.add_argument("-st", "--anchor-stages", type=int, default=1)
+    p.add_argument("-l", "--packet-loss", type=float, default=0.0)
+    p.add_argument("-s", "--msg-size-bytes", type=int, default=1500)
+    p.add_argument("-f", "--num-frags", type=int, choices=range(1, 10),
+                   default=1)
+    p.add_argument("-m", "--messages", type=int, default=10)
+    p.add_argument("-d", "--delay-seconds", type=float, default=0.1)
+    p.add_argument(
+        "-mx", "--muxer", choices=["mplex", "yamux", "quic"], default="yamux"
+    )
+
+
+def _params_from_flags(a) -> TopoParams:
+    return TopoParams(
+        network_size=a.network_size,
+        min_bandwidth=a.min_bandwidth,
+        max_bandwidth=a.max_bandwidth,
+        min_latency=a.min_latency,
+        max_latency=a.max_latency,
+        anchor_stages=a.anchor_stages,
+        packet_loss=a.packet_loss,
+        msg_size_bytes=a.msg_size_bytes,
+        num_frags=a.num_frags,
+        messages=a.messages,
+        delay_seconds=a.delay_seconds,
+        muxer=a.muxer,
+    )
 
 
 def _topo_from_fields(m: dict, muxer: str = "yamux") -> TopoParams:
@@ -406,12 +466,226 @@ def cmd_servicedisco(argv: list[str]) -> int:
     return 0
 
 
+def cmd_topogen(argv: list[str]) -> int:
+    """network_topology.gml + shadow.yaml from the reference topogen's
+    flags or run.sh's 13 positionals (the reference's two halves are out
+    of sync, run.sh:49-50; both are accepted)."""
+    if argv and not argv[0].startswith("-"):
+        if len(argv) != 13:
+            print(
+                f"topogen: expected 13 positional args "
+                f"({' '.join(TOPOGEN_POSITIONALS)}) or flag form, got "
+                f"{len(argv)}",
+                file=sys.stderr,
+            )
+            return 2
+        topo = _topo_from_fields(dict(zip(TOPOGEN_POSITIONALS, argv)))
+    else:
+        p = argparse.ArgumentParser(prog="topogen")
+        _topo_flags(p)
+        topo = _params_from_flags(p.parse_args(argv))
+    t = Topology.build(topo)
+    t.write_gml()
+    t.write_shadow_yaml()
+    print(f"wrote network_topology.gml + shadow.yaml ({topo.network_size} "
+          f"peers, {topo.anchor_stages} stages)")
+    return 0
+
+
+def cmd_summarize(argv: list[str]) -> int:
+    p = argparse.ArgumentParser(prog="summarize")
+    p.add_argument("path")
+    p.add_argument("--large", action="store_true")
+    a = p.parse_args(argv)
+    from .runtime.summarize import report, summarize_file
+
+    print(report(summarize_file(a.path, large=a.large), large=a.large),
+          end="")
+    return 0
+
+
+def cmd_serve(argv: list[str]) -> int:
+    """Run as a long-lived node service (the reference's steady-state node:
+    HTTP /publish + /health + /ready on :8645, Prometheus on :8008),
+    hosting the whole simulated network on the device and exposing the
+    env-selected peer's view (getPeerDetails, env.nim:13-36)."""
+    p = argparse.ArgumentParser(prog="serve")
+    p.add_argument("--control-port", type=int, default=None)
+    p.add_argument("--metrics-port", type=int, default=None)
+    p.add_argument("--time-scale", type=float, default=1.0,
+                   help="simulated seconds advanced per wall second")
+    p.add_argument("--tick-s", type=float, default=1.0)
+    p.add_argument("--duration-s", type=float, default=None)
+    p.add_argument("--warmup-s", type=float, default=15.0,
+                   help="heartbeats run before serving (mesh stabilization, "
+                   "main.nim:466-477)")
+    p.add_argument("--store-metrics-dir", default=None)
+    p.add_argument("--queue-depth", type=int, default=1024,
+                   help="bounded admission queue; overflow answers 429")
+    p.add_argument("--device-ms-budget", type=float, default=0.0,
+                   help="reject once est. queued device ms exceeds this")
+    p.add_argument("--deadline-ms", type=float, default=0.0,
+                   help="default per-request sim-time deadline (0 = none)")
+    p.add_argument("--max-batch", type=int, default=64,
+                   help="requests per service round (tenant round-robin)")
+    p.add_argument("--dispatch-mode", default="batched",
+                   choices=("batched", "sequential"),
+                   help="batched = one publish_batch per same-shape group "
+                   "of the round; sequential = one publish per request")
+    p.add_argument("--dispatch-timeout-s", type=float, default=0.0)
+    p.add_argument("--max-retries", type=int, default=1)
+    p.add_argument("--retry-backoff-s", type=float, default=0.05)
+    p.add_argument("--inject-failures", type=int, default=0,
+                   help="force the first K dispatch attempts to fail (CI)")
+    p.add_argument("--checkpoint", default=None,
+                   help="service checkpoint path (periodic + final flush)")
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="flush every K service rounds (0 = final only)")
+    p.add_argument("--drain-deadline-s", type=float, default=5.0)
+    p.add_argument("--resume", action="store_true",
+                   help="warm-restart from --checkpoint if it exists")
+    _device_arg(p)
+    a = p.parse_args(argv)
+
+    from .config.env import (
+        HTTP_CONTROL_PORT,
+        PROMETHEUS_PORT,
+        get_peer_details,
+    )
+    from .runtime.node_service import ServiceConfig, serve_forever
+    from .runtime.simulator import ExperimentConfig, Simulator
+
+    node = get_peer_details()
+    node.validate()  # reject unknown muxer / connect_to >= peers at startup
+    svc_cfg = ServiceConfig(
+        max_queue_depth=a.queue_depth,
+        device_ms_budget=a.device_ms_budget,
+        default_deadline_ms=a.deadline_ms,
+        max_batch=a.max_batch,
+        dispatch_mode=a.dispatch_mode,
+        dispatch_timeout_s=a.dispatch_timeout_s,
+        max_retries=a.max_retries,
+        retry_backoff_s=a.retry_backoff_s,
+        inject_failures=a.inject_failures,
+        checkpoint_path=a.checkpoint,
+        checkpoint_every=a.checkpoint_every,
+        drain_deadline_s=a.drain_deadline_s,
+    )
+    svc_cfg.validate()
+    if a.resume and not a.checkpoint:
+        p.error("--resume requires --checkpoint")
+    device = _resolve(p, a.device)
+    store_dir = a.store_metrics_dir
+    if store_dir is None and node.in_shadow:
+        store_dir = "."  # in-Shadow persistence default (env.nim:58-73)
+    control = (a.control_port if a.control_port is not None
+               else HTTP_CONTROL_PORT)
+    metrics = (a.metrics_port if a.metrics_port is not None
+               else PROMETHEUS_PORT)
+    serve = dict(time_scale=a.time_scale, tick_s=a.tick_s,
+                 duration_s=a.duration_s, store_metrics_dir=store_dir,
+                 out=sys.stdout, service=svc_cfg, device=device)
+    if a.resume and os.path.exists(a.checkpoint):
+        # warm restart: the checkpoint carries sim + service state, so no
+        # simulator is built or warmed here
+        print(f"node service warm-restarting from {a.checkpoint}, "
+              f"control :{control} metrics :{metrics} device {device}",
+              flush=True)
+        serve_forever(None, node, control_port=control,
+                      metrics_port=metrics, resume_from=a.checkpoint,
+                      **serve)
+        return 0
+    topo = TopoParams(
+        network_size=node.network_size,
+        muxer=node.muxer,
+        num_frags=node.fragments,
+    )
+    topics = tuple(
+        s.strip() for s in env_str("TOPICS", "").split(",") if s.strip())
+    if len(topics) == 1:
+        node.topic = topics[0]  # single custom topic, single-topic engine
+    if len(topics) > 1:
+        # multi-topic node: /publish routes by topic name (BASELINE config
+        # 3 surface); SUBSCRIBE_FRACTION < 1 subscribes each peer per topic
+        if node.uses_mix or node.mounts_mix:
+            p.error("mix routing (USESMIX/MOUNTSMIX) is single-topic only; "
+                    "drop TOPICS or the mix surface")
+        from .runtime.multitopic import MultiTopicConfig, MultiTopicSimulator
+
+        sim = MultiTopicSimulator(MultiTopicConfig(
+            topo=topo,
+            topics=topics,
+            connect_to=node.connect_to,
+            gossipsub=node.gossipsub,
+            warmup_s=a.warmup_s,
+            subscribe_fraction=env_float("SUBSCRIBE_FRACTION", 1.0),
+            max_connections=node.max_connections,
+            self_trigger=node.self_trigger,
+        ), device=device)
+    else:
+        sim = Simulator(ExperimentConfig(
+            topo=topo,
+            connect_to=node.connect_to,
+            gossipsub=node.gossipsub,
+            warmup_s=a.warmup_s,
+            self_trigger=node.self_trigger,
+            max_connections=node.max_connections,
+            uses_mix=node.uses_mix,
+            num_mix=node.num_mix,
+            mix_d=node.mix_d,
+        ), device=device)
+    sim.warmup()
+    print(
+        f"node service up: {node.network_size} peers simulated, node view "
+        f"peer {node.my_id}, control :{control} metrics :{metrics} "
+        f"device {device}", flush=True)
+    serve_forever(sim, node, control_port=control, metrics_port=metrics,
+                  **serve)
+    return 0
+
+
+def cmd_inject(argv: list[str]) -> int:
+    """Publisher controller against running `serve` nodes: the
+    traffic_sync surface (-s size, -m messages, -d delay,
+    --peer-selection id|rotation)."""
+    p = argparse.ArgumentParser(prog="inject")
+    p.add_argument("targets", nargs="+",
+                   help="node control endpoints (host[:port] or URL)")
+    p.add_argument("-s", "--msg-size", type=int, default=1500)
+    p.add_argument("-m", "--messages", type=int, default=10)
+    p.add_argument("-d", "--delay-s", type=float, default=1.0)
+    p.add_argument("--topic", default="test")
+    p.add_argument("--peer-selection", choices=["id", "rotation"],
+                   default="id")
+    p.add_argument("--publisher-id", type=int, default=0)
+    p.add_argument("--burst", type=int, default=1,
+                   help="messages posted back-to-back before each delay: "
+                   "gives a batched-dispatch service multi-request rounds")
+    a = p.parse_args(argv)
+
+    from .runtime.publisher import inject
+
+    res = inject(
+        a.targets, a.msg_size, a.messages, a.delay_s, topic=a.topic,
+        peer_selection=a.peer_selection, publisher_id=a.publisher_id,
+        burst=a.burst,
+    )
+    for r in res.replies:
+        print(json.dumps(r, allow_nan=False))
+    print(f"published ok={res.ok} failed={res.failed}")
+    return 0 if res.failed == 0 else 1
+
+
 COMMANDS = {
     "run": cmd_run,
     "kad": cmd_kad,
     "connmanager": cmd_connmanager,
     "regression": cmd_regression,
     "servicedisco": cmd_servicedisco,
+    "serve": cmd_serve,
+    "inject": cmd_inject,
+    "topogen": cmd_topogen,
+    "summarize": cmd_summarize,
 }
 
 
@@ -419,8 +693,7 @@ def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not argv or argv[0] not in COMMANDS:
         print("usage: python -m dst_libp2p_test_node_tpu_torch "
-              "{run,kad,connmanager,regression,servicedisco} ... "
-              "[--device cpu]\n"
+              "{" + ",".join(COMMANDS) + "} ... [--device cpu]\n"
               "  run <14 positionals> [--delivery-mode exact|bounded] ...",
               file=sys.stderr)
         return 2

@@ -289,15 +289,18 @@ class MultiTopicSimulator:
     # --------------------------------------------------------------- metrics
 
     def mesh_sizes(self) -> dict:
-        """Per-topic mean mesh degree over subscribed and alive peers."""
-        out = {}
-        mesh = self.states.mesh_mask.cpu().numpy()        # (T, N, C)
-        alive = self.states.alive.cpu().numpy()           # (T, N)
-        for ti, name in enumerate(self.cfg.topics):
-            member = self.subscribed_np[ti] & alive[ti]
-            deg = mesh[ti].sum(axis=-1)[member]
-            out[name] = float(deg.mean()) if deg.size else 0.0
-        return out
+        """Per-topic mean mesh degree over subscribed and alive peers.
+        The degrees are summed on the device and only (T, 2) integers
+        move to the host; the integer sum and count give numpy's mean of
+        the degrees exactly (float64 sums of integers below 2^53)."""
+        member = (torch.as_tensor(self.subscribed_np, device=self.device)
+                  & self.states.alive)                     # (T, N)
+        deg = self.states.mesh_mask.sum(dim=-1)            # (T, N) int64
+        tot_cnt = torch.stack([torch.where(member, deg, 0).sum(dim=-1),
+                               member.sum(dim=-1)], dim=1).cpu().numpy()
+        return {name: (float(np.float64(tot) / np.float64(cnt)) if cnt
+                       else 0.0)
+                for name, (tot, cnt) in zip(self.cfg.topics, tot_cnt)}
 
     def topic_health(self) -> dict:
         """The Go tracer's classifier: 'no' with no mesh peers, 'low' under

@@ -1,10 +1,12 @@
 """The port imports torch and never jax, flax or anything of the JAX
 package: every module of dst_libp2p_test_node_tpu_torch (ops.mix,
-runtime.multitopic, runtime.checkpoint, runtime.native_logemit and the
+runtime.multitopic, runtime.checkpoint, runtime.native_logemit, the
 role workloads' ops.kad, ops.connmanager, ops.servicedisco,
-runtime.kad_runtime, runtime.sd_runtime and runtime.regression_runtime
-named), and chip_smoke.py, import in a fresh interpreter where
-`import jax` and `import flax` fail."""
+runtime.kad_runtime, runtime.sd_runtime and runtime.regression_runtime,
+and the service's runtime.metrics, runtime.supervise,
+runtime.node_service, runtime.publisher and runtime.traffic named), and
+chip_smoke.py, import in a fresh interpreter where `import jax` and
+`import flax` fail."""
 
 import os
 import subprocess
@@ -33,7 +35,9 @@ print(len(names), "modules;", "leaked:", bad)
 for name in ("ops.mix", "runtime.multitopic", "runtime.checkpoint",
              "runtime.native_logemit", "ops.kad", "ops.connmanager",
              "ops.servicedisco", "runtime.kad_runtime", "runtime.sd_runtime",
-             "runtime.regression_runtime"):
+             "runtime.regression_runtime", "runtime.metrics",
+             "runtime.supervise", "runtime.node_service",
+             "runtime.publisher", "runtime.traffic"):
     assert port.__name__ + "." + name in names, name
 sys.exit(1 if bad else 0)
 """
