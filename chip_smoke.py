@@ -164,21 +164,49 @@ not printed):
                exit 0 with the final checkpoint, then `serve --resume`
                answering /health and one more inject; prints process start
                to /ready and request to dispatch.
+  9. campaign - the adversarial campaign (runtime/campaign.py):
+               (a) every static scenario's run_campaign at 128 peers
+               (fractions 0 and 0.2, seeds 0 and 1, flight recorder and
+               trial checkpoints on), and graft flood and eclipse again
+               with a recovery window (evict + px + redial), on the card
+               and on the CPU: TrialResult fields, checkpoint states and
+               obs sidecars bitwise; for the two recovery cases also the
+               windows, rebind_graph and one censored publish leaf by
+               leaf. (b) BASELINE config 6 as bench_configs.config_6
+               defines it (2,048 peers), then the `attack` CLI as a
+               process at its width and grid with --json and
+               --metrics-out, its JSON equal to an in-process run_campaign
+               of the same config; prints wall_s, trials_per_s and the
+               worst attacked coverage, p50, p99 and hb_to_graylist
+               against hb_budget. (c) a campaign on config 4's network
+               (100,000 peers x 4 fragments of 15,000 B, exact, 60 s
+               warm-up): sybil_graft_flood at fractions 0 and 0.1, seeds 0
+               and 1, 20 attack and 10 recovery heartbeats (evict + px +
+               redial: rebind_graph at 100k), recorder and checkpoints on;
+               counts zeroed just before and read just after, both kernels
+               must launch; per trial the walls by phase and the
+               resilience metrics, peak memory, then the host syncs of one
+               attack and one recovery window (profiled); a second run on
+               the same directory resumes every attacked trial to the same
+               result. (d) the service's recorder at 8(b)'s 10,000 peers
+               (one topic): record_telemetry, one tick, /telemetry armed
+               with curves and /metrics with the dst_sim_round_* series.
 
 Then one JSON line with every kernel's numbers: at 1M x 40 with
 `launches` from phase 4's config-5 run, under `exact` at 100k x 40 with
 `launches` from phase 3b's config-4 run, under `lossy` the same 100k x 40
 numbers with `launches` from phase 3d, and the launches of phase 3f
 (`config3`), 4b (`warm`), 6(a)'s unpadded batch (`batch`), 6(b)'s
-resumed run (`resume`), 7(b)'s regression run (`roles`), and under
+resumed run (`resume`), 7(b)'s regression run (`roles`), 9(c)'s first
+campaign (`campaign`), and under
 `service` the 670k x 40 numbers with `launches` from 8(b)'s batched run
 (and its sequential run's). Then the total run time, and last the line
 {"ok": true, "device": {...}}. Without CUDA it exits 1 and prints no
 result; run alone, without the package beside it, it exits 2.
 
-Machine time: 472.8 s of run time on one H100 with every phase, builds
-included (PERF.md); phase 8 took 202.8-216.0 s of it. Inside half of a
-20-minute budget.
+Machine time: 591.8 s of run time on one H100 with every phase, builds
+included (PERF.md); phase 8 took 208.1 s of it and phase 9 114.1 s.
+Inside half of a 20-minute budget.
 """
 
 from __future__ import annotations
@@ -187,6 +215,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -2185,6 +2214,418 @@ def phase_8(dev):
     return out
 
 
+# ---------------------------------------------------------------- phase 9
+
+CAMP_PARITY_N = 128
+# BASELINE config 6 (bench_configs.config_6): the reference's campaign row
+CAMP6_N = 2048
+# 9(c): a campaign on config 4's network (bench_configs.config_4 through
+# _run_simple: 100k peers, 4 fragments of 15,000 B, 3 messages 2 s apart,
+# a 60 s warm-up; the campaign path has no churn knob)
+CAMP_FULL_N = EXACT_N
+
+
+def _campaign_cfg(n, scenario, fractions, seeds, attack_hb, warmup_s,
+                  msg_size=2000, frags=1, recovery=0, ckpt=None,
+                  anchor_stages=5, telemetry=True):
+    from dst_libp2p_test_node_tpu_torch.config.topology import TopoParams
+    from dst_libp2p_test_node_tpu_torch.ops.repair import RepairParams
+    from dst_libp2p_test_node_tpu_torch.ops.telemetry import (
+        TelemetryParams)
+    from dst_libp2p_test_node_tpu_torch.runtime import campaign as camp
+    from dst_libp2p_test_node_tpu_torch.runtime.simulator import (
+        ExperimentConfig)
+
+    repair = (RepairParams(evict=True, px=True, redial=True) if recovery
+              else RepairParams())
+    return camp.CampaignConfig(
+        scenario=scenario, fractions=fractions, seeds=seeds,
+        experiment=ExperimentConfig(
+            topo=TopoParams(
+                network_size=n, anchor_stages=anchor_stages,
+                min_bandwidth=50, max_bandwidth=150, min_latency=40,
+                max_latency=130, msg_size_bytes=msg_size, num_frags=frags,
+                messages=3, delay_seconds=2.0),
+            connect_to=10, warmup_s=warmup_s, seed=0,
+            gossipsub=camp.attack_gossipsub(
+                flood_publish=scenario != "eclipse_publisher")),
+        attack_heartbeats=attack_hb, recovery_heartbeats=recovery,
+        repair=repair, telemetry=TelemetryParams(record=telemetry),
+        checkpoint_dir=ckpt)
+
+
+def _campaign_fields(res):
+    from dst_libp2p_test_node_tpu_torch import interop
+
+    return interop.result_fields(res, walls=False)
+
+
+def _same_npz_dirs(what, a, b):
+    names = sorted(os.listdir(a))
+    check(names == sorted(os.listdir(b)) and names,
+          f"{what}: checkpoint files differ: {names}")
+    for name in names:
+        with np.load(os.path.join(a, name)) as za, \
+                np.load(os.path.join(b, name)) as zb:
+            check(za.files == zb.files, f"{what}: {name} keys differ")
+            for k in za.files:
+                check(za[k].dtype == zb[k].dtype
+                      and za[k].tobytes() == zb[k].tobytes(),
+                      f"{what}: {name}[{k}] differs")
+
+
+def _windows_both(dev, cfg):
+    """One warm Simulator per device; the attack window, the recovery
+    window, rebind_graph and one censored publish on each: states, graphs,
+    curves and records bitwise."""
+    from dst_libp2p_test_node_tpu_torch import interop
+    from dst_libp2p_test_node_tpu_torch.ops import adversary as adv_ops
+    from dst_libp2p_test_node_tpu_torch.ops.repair import (
+        run_recovery_heartbeats)
+    from dst_libp2p_test_node_tpu_torch.runtime.simulator import Simulator
+
+    adv = cfg.adversary_params()
+    out = []
+    for d in (dev, torch.device("cpu")):
+        sim = Simulator(cfg.experiment, device=d)
+        sim.warmup()
+        att_np = adv_ops.attacker_cohort(
+            sim.params.n, 0.2, 0, conns=sim.graph.conns, publisher=4,
+            eclipse=adv.eclipse)
+        att = torch.as_tensor(att_np, device=d)
+        a = sim.arrays
+        if adv.eclipse:
+            sim.state = adv_ops.eclipse_setup(sim.state, a["conns"], att, 4)
+        st, obs1 = adv_ops.run_attacked_heartbeats(
+            sim.state, a["conns"], a["rev"], a["out_mask"], att, sim.params,
+            adv, cfg.attack_heartbeats, telemetry=cfg.telemetry)
+        (st, cn, rv, om), obs2 = run_recovery_heartbeats(
+            st, a["conns"], a["rev"], a["out_mask"], att,
+            cfg.repair.apply(sim.params), cfg.recovery_heartbeats,
+            publisher=4, telemetry=cfg.telemetry)
+        sim.state = st
+        sim.rebind_graph(cn, rv, om)
+        rec = sim.publish(4, censor_edge=adv_ops.censor_mask(att, cn))
+        out.append(dict(
+            state=interop.state_to_numpy(sim.state),
+            graph={k: v.cpu().numpy() for k, v in sim.arrays.items()},
+            obs={**{f"attack/{k}": v for k, v in
+                    interop.obs_to_numpy(obs1).items()},
+                 **{f"recovery/{k}": v for k, v in
+                    interop.obs_to_numpy(obs2).items()}},
+            record={k: getattr(rec, k) for k in ("delays_ms", "received",
+                                                  "sends", "copies_rx")}))
+    g, c = out
+    for part in ("state", "graph", "obs", "record"):
+        bad = [k for k in c[part]
+               if not np.array_equal(c[part][k], g[part][k])
+               or c[part][k].dtype != g[part][k].dtype
+               or c[part][k].tobytes() != g[part][k].tobytes()]
+        check(not bad, f"9(a) {cfg.scenario} windows: {part} {bad} differ")
+    return int(g["state"]["redials"].sum()), int(g["state"]["evictions"]
+                                                   .sum())
+
+
+def phase_campaign_parity(dev):
+    """9(a): every static scenario's campaign (128 peers, fractions 0 and
+    0.2, seeds 0 and 1, flight recorder and trial checkpoints on) on the
+    card and on the CPU: TrialResult fields, checkpoint states and obs
+    sidecars bitwise; graft flood and eclipse again with a recovery window
+    (evict + px + redial), and their windows, rebind and one censored
+    publish compared leaf by leaf."""
+    from dst_libp2p_test_node_tpu_torch.ops.adversary import SCENARIOS
+    from dst_libp2p_test_node_tpu_torch.runtime.campaign import run_campaign
+
+    t0 = time.time()
+    cases = [(s, 0) for s in SCENARIOS] + [("sybil_graft_flood", 8),
+                                           ("eclipse_publisher", 8)]
+    summary = []
+    for scenario, recovery in cases:
+        res = []
+        for i, d in enumerate((dev, torch.device("cpu"))):
+            ck = os.path.join(SCRATCH, f"camp9a_{scenario}_{recovery}_{i}")
+            shutil.rmtree(ck, ignore_errors=True)
+            cfg = _campaign_cfg(CAMP_PARITY_N, scenario, (0.0, 0.2), (0, 1),
+                                6, 5.0, recovery=recovery, ckpt=ck,
+                                anchor_stages=3)
+            res.append((run_campaign(cfg, device=d), ck))
+        (rg, ckg), (rc, ckc) = res
+        check(_campaign_fields(rg) == _campaign_fields(rc),
+              f"9(a) {scenario} (recovery {recovery}): TrialResults differ")
+        _same_npz_dirs(f"9(a) {scenario}", ckg, ckc)
+        att = [t for t in rg.trials if t.fraction > 0]
+        tag = f"{scenario}{'+recovery' if recovery else ''}"
+        if recovery:
+            redials, evictions = _windows_both(dev, cfg)
+            check(redials > 0, f"9(a) {tag}: no dial committed")
+            tag += f" (windows: {redials} redials, {evictions} evictions)"
+        summary.append(f"{tag}: coverage "
+                       f"{min(t.honest_coverage for t in att):.4f}")
+    print(f"[campaign] 9(a) {len(cases)} campaigns at {CAMP_PARITY_N} peers "
+          f"x 2 fractions x 2 seeds: CUDA = CPU in every TrialResult field, "
+          f"checkpoint state and obs curve ({time.time() - t0:.1f} s); "
+          + "; ".join(summary))
+
+
+def _trial_line(t):
+    return (f"f={t['fraction']:g} s={t['seed']}: coverage "
+            f"{t['honest_coverage']:.4f}, p50 {t['latency_p50_ms']} ms, p99 "
+            f"{t['latency_p99_ms']} ms, hb_to_graylist {t['hb_to_graylist']}"
+            f" (budget {t['hb_budget']}), mesh_recovery_hb "
+            f"{t['mesh_recovery_hb']}, recovery_time_ms "
+            f"{t['recovery_time_ms']}, evictions "
+            f"{t['mesh_evictions_total']}, px_grafts {t['px_grafts_total']}"
+            f", redials {t['redials_total']}, attacker_score "
+            f"{t['attacker_score_final']:.3f}")
+
+
+def _worst(d):
+    att = [t for t in d["trials"] if t["fraction"] > 0]
+    return (f"worst attacked coverage "
+            f"{min(t['honest_coverage'] for t in att):.4f}, p50 "
+            f"{max(t['latency_p50_ms'] or math.inf for t in att)} ms, p99 "
+            f"{max(t['latency_p99_ms'] or math.inf for t in att)} ms, "
+            f"hb_to_graylist {[t['hb_to_graylist'] for t in att]} against "
+            f"hb_budget {d['hb_budget']}")
+
+
+def _strip_walls(d):
+    d = dict(d, trials=[{k: v for k, v in t.items() if k != "wall_s"}
+                        for t in d["trials"]])
+    d.pop("wall_s")
+    d.pop("trials_per_s")
+    return d
+
+
+def phase_config6(dev):
+    """9(b): BASELINE config 6 as bench_configs.config_6 defines it (2048
+    peers, 2,000 B, connect_to 10, 30 s warm-up, attack_gossipsub(),
+    sybil_graft_flood, fractions 0 and 0.1, seeds 0 and 1, 20 attack
+    heartbeats) through run_campaign; then the `attack` CLI in a process
+    at that width and grid (the CLI's topology: 3 anchor stages, 50 Mbps,
+    100 ms) with --json and --metrics-out, its JSON equal to an in-process
+    run_campaign of the same config."""
+    from dst_libp2p_test_node_tpu_torch.runtime.campaign import (
+        CampaignConfig, run_campaign)
+
+    t0 = time.time()
+    base = _campaign_cfg(CAMP6_N, "sybil_graft_flood", (0.0, 0.1), (0, 1),
+                         20, 30.0, telemetry=False)
+    cfg6 = CampaignConfig(scenario="sybil_graft_flood",
+                          fractions=(0.0, 0.1), seeds=(0, 1),
+                          experiment=base.experiment, attack_heartbeats=20)
+    res = run_campaign(cfg6, device=dev)
+    d6 = res.to_dict()
+    print(f"[campaign] 9(b) config 6 ({CAMP6_N} peers): wall_s "
+          f"{res.wall_s:.3f}, trials_per_s {res.trials_per_s:.4f}; "
+          f"{_worst(d6)}")
+    for t in d6["trials"]:
+        print(f"[campaign] 9(b)   {_trial_line(t)}")
+    check(all(t["hb_to_graylist"] > 0 for t in d6["trials"]
+              if t["fraction"] > 0), "9(b): the graylist never engaged")
+    js, prom = (os.path.join(SCRATCH, f"camp6.{x}") for x in ("json",
+                                                              "prom"))
+    argv = ["attack", "-n", str(CAMP6_N), "--msg-size", "2000",
+            "--connect-to", "10", "--warmup-s", "30", "--fractions", "0,0.1",
+            "--seeds", "0,1", "--attack-heartbeats", "20", "--messages", "3",
+            "--delay-s", "2", "--json", js, "--metrics-out", prom]
+    tc = time.time()
+    proc = subprocess.run([sys.executable, "-m",
+                           "dst_libp2p_test_node_tpu_torch", *argv],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    cli_s = time.time() - tc
+    check(proc.returncode == 0, f"attack CLI exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    with open(js) as f:
+        d_cli = json.load(f)
+    with open(prom) as f:
+        text = f.read()
+    from dst_libp2p_test_node_tpu_torch.config.topology import TopoParams
+    from dst_libp2p_test_node_tpu_torch.runtime.campaign import (
+        attack_gossipsub)
+    from dst_libp2p_test_node_tpu_torch.runtime.simulator import (
+        ExperimentConfig)
+
+    cli_cfg = CampaignConfig(
+        scenario="sybil_graft_flood", fractions=(0.0, 0.1), seeds=(0, 1),
+        experiment=ExperimentConfig(
+            topo=TopoParams(network_size=CAMP6_N, anchor_stages=3,
+                            msg_size_bytes=2000, messages=3,
+                            delay_seconds=2.0),
+            connect_to=10, gossipsub=attack_gossipsub(), publisher_id=4,
+            warmup_s=30.0, seed=0),
+        attack_heartbeats=20)
+    d_in = run_campaign(cli_cfg, device=dev).to_dict()
+    check(_strip_walls(d_cli) == _strip_walls(d_in),
+          "9(b): the attack CLI's JSON differs from run_campaign's")
+    check("dst_testnode_attack_honest_coverage{" in text,
+          "9(b): --metrics-out has no attack series")
+    print(f"[campaign] 9(b) attack CLI ({CAMP6_N} peers, a process): exit "
+          f"0 in {cli_s:.1f} s, JSON = in-process run_campaign outside the "
+          f"walls (CLI wall_s {d_cli['wall_s']:.3f}, trials_per_s "
+          f"{d_cli['trials_per_s']:.4f}); {_worst(d_cli)}; metrics "
+          f"{len(text.splitlines())} lines ({time.time() - t0:.1f} s)")
+
+
+def _window_syncs(dev, cfg):
+    """Host syncs (aten::_local_scalar_dense) of one attack window and one
+    recovery window at the campaign's shape, under the CPU profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dst_libp2p_test_node_tpu_torch.ops import adversary as adv_ops
+    from dst_libp2p_test_node_tpu_torch.ops.repair import (
+        run_recovery_heartbeats)
+    from dst_libp2p_test_node_tpu_torch.runtime.simulator import Simulator
+
+    sim = Simulator(cfg.experiment, device=dev)
+    sim.warmup()
+    att = torch.as_tensor(adv_ops.attacker_cohort(
+        sim.params.n, 0.1, 0, publisher=4), device=dev)
+    a = sim.arrays
+    out = {}
+    st = sim.state
+    for name in ("attack", "recovery"):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            t0 = time.time()
+            if name == "attack":
+                st, _ = adv_ops.run_attacked_heartbeats(
+                    st, a["conns"], a["rev"], a["out_mask"], att, sim.params,
+                    cfg.adversary_params(), cfg.attack_heartbeats,
+                    telemetry=cfg.telemetry)
+            else:
+                run_recovery_heartbeats(
+                    st, a["conns"], a["rev"], a["out_mask"], att,
+                    cfg.repair.apply(sim.params), cfg.recovery_heartbeats,
+                    publisher=4, telemetry=cfg.telemetry)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        syncs = sum(e.count for e in prof.key_averages()
+                    if e.key == "aten::_local_scalar_dense")
+        out[name] = (syncs, wall)
+    return out
+
+
+def phase_campaign_full(dev):
+    """9(c): a campaign on config 4's network, 100,000 peers x 4 fragments
+    of 15,000 B (exact mode, no churn): sybil_graft_flood,
+    attack_gossipsub(), fractions 0 and 0.1, seeds 0 and 1, 20 attack
+    heartbeats, then 10 recovery heartbeats (evict + px + redial, so
+    rebind_graph runs at 100k), flight recorder and checkpoints on. Counts
+    zeroed just before and read just after. A second run_campaign on the
+    same directory resumes every attacked trial and gives the same result
+    outside the walls. Returns the first run's launches."""
+    from dst_libp2p_test_node_tpu_torch.native import score_update as su
+    from dst_libp2p_test_node_tpu_torch.native import vmem_gather as vg
+    from dst_libp2p_test_node_tpu_torch.runtime.campaign import run_campaign
+
+    ck = os.path.join(SCRATCH, "camp9c")
+    shutil.rmtree(ck, ignore_errors=True)
+    cfg = _campaign_cfg(CAMP_FULL_N, "sybil_graft_flood", (0.0, 0.1),
+                        (0, 1), 20, EXACT_WARMUP_S, msg_size=15000, frags=4,
+                        recovery=10, ckpt=ck)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    vg.launches = 0
+    su.launches = 0
+    res = run_campaign(cfg, device=dev)
+    torch.cuda.synchronize()
+    launches = {"vmem_gather": vg.launches, "score_update": su.launches}
+    peak = torch.cuda.max_memory_allocated(dev)
+    d = res.to_dict()
+    print(f"[campaign] 9(c) {CAMP_FULL_N} peers x 4 fragments, "
+          f"sybil_graft_flood, fractions 0/0.1 x seeds 0/1, 20 attack + 10 "
+          f"recovery heartbeats, telemetry and checkpoints on: wall_s "
+          f"{res.wall_s:.3f}, trials_per_s {res.trials_per_s:.4f}; "
+          f"launches {launches}; peak memory {peak / 2**30:.2f} GiB; "
+          f"{_worst(d)}")
+    for t, w in zip(d["trials"], res.phase_walls):
+        walls = ", ".join(f"{k} {v:.3f} s" for k, v in w.items()
+                          if k not in ("fraction", "seed", "resumed"))
+        print(f"[campaign] 9(c)   {_trial_line(t)}; walls: {walls}")
+    for name, count in launches.items():
+        check(count > 0, f"9(c): the campaign never launched {name}")
+    att = [t for t in res.trials if t.fraction > 0]
+    check(all(t.redials_total > 0 for t in att), "9(c): no dial committed")
+    for t in res.trials:
+        check(math.isfinite(t.honest_coverage) and t.honest_coverage > 0,
+              f"9(c): trial {t.fraction}/{t.seed} delivered nothing")
+    t1 = time.time()
+    again = run_campaign(cfg, device=dev)
+    resumed = [w for w in again.phase_walls if w["fraction"] > 0]
+    check(resumed and all(w["resumed"] for w in resumed),
+          "9(c): the second run did not resume every attacked trial")
+    check(_campaign_fields(again) == _campaign_fields(res),
+          "9(c): the resumed campaign differs from the first run")
+    print(f"[campaign] 9(c) resumed from {len(os.listdir(ck))} checkpoint "
+          f"files: same CampaignResult outside the walls "
+          f"({time.time() - t1:.1f} s, wall_s {again.wall_s:.3f})")
+    syncs = _window_syncs(dev, cfg)
+    print(f"[campaign] 9(c) host syncs: attack window "
+          f"{syncs['attack'][0]} in {cfg.attack_heartbeats} heartbeats "
+          f"({syncs['attack'][1]:.3f} s profiled), recovery window "
+          f"{syncs['recovery'][0]} in {cfg.recovery_heartbeats} "
+          f"({syncs['recovery'][1]:.3f} s profiled)")
+    return launches
+
+
+def phase_service_telemetry(dev):
+    """9(d): the service's flight recorder at phase 8(b)'s width (10,000
+    peers, connect_to 10, one topic: the reference records single-topic
+    simulators only): record_telemetry, one pump tick, then GET /telemetry
+    and /metrics over HTTP."""
+    from dst_libp2p_test_node_tpu_torch.config.env import NodeConfig
+    from dst_libp2p_test_node_tpu_torch.config.topology import TopoParams
+    from dst_libp2p_test_node_tpu_torch.ops.telemetry import (
+        TelemetryParams)
+    from dst_libp2p_test_node_tpu_torch.runtime import node_service as ns
+    from dst_libp2p_test_node_tpu_torch.runtime.simulator import (
+        ExperimentConfig, Simulator)
+
+    t0 = time.time()
+    sim = Simulator(ExperimentConfig(
+        topo=TopoParams(network_size=SVC_N, msg_size_bytes=1500),
+        connect_to=10, warmup_s=10.0), device=dev)
+    sim.warmup()
+    svc = ns.NodeService(sim, NodeConfig(my_id=2, network_size=SVC_N,
+                                         connect_to=10),
+                         control_port=0, metrics_port=0,
+                         service=ns.ServiceConfig())
+    sim.record_telemetry(TelemetryParams(record=True))
+    svc.pump(advance_ms=1000.0)
+    svc.start()
+    try:
+        body = json.loads(_http(svc.control_port, "/telemetry")[1])
+        metrics = _http(svc.metrics_port, "/metrics")[1]
+    finally:
+        svc.stop()
+    curves = body["curves"]
+    check(body["armed"] is True, "9(d): /telemetry is not armed")
+    check(curves and all(len(v) == 1 for v in curves.values())
+          and set(curves) >= {"tel_mesh_coverage", "tel_score_q"},
+          f"9(d): /telemetry curves {sorted(curves)}")
+    check("dst_sim_round_mesh_coverage{" in metrics,
+          "9(d): /metrics has no dst_sim_round_* series")
+    print(f"[campaign] 9(d) service at {SVC_N} peers, recorder armed, one "
+          f"tick: /telemetry armed {body['armed']}, {len(curves)} tel_* "
+          f"curves of {body['heartbeats']} heartbeat (mesh coverage "
+          f"{curves['tel_mesh_coverage'][0]:.4f}, score quantiles "
+          f"{curves['tel_score_q'][0]}); /metrics carries dst_sim_round_* "
+          f"({time.time() - t0:.1f} s)")
+
+
+def phase_9(dev):
+    t0 = time.time()
+    os.makedirs(SCRATCH, exist_ok=True)
+    phase_campaign_parity(dev)
+    phase_config6(dev)
+    launches = phase_campaign_full(dev)
+    phase_service_telemetry(dev)
+    print(f"[campaign] phase 9 took {time.time() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -2215,6 +2656,7 @@ def main() -> int:
         phase_roles_parity(dev)
         launches_roles = phase_roles(dev)
         service = phase_8(dev)
+        launches_campaign = phase_9(dev)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -2228,6 +2670,7 @@ def main() -> int:
                  batch=dict(launches=launches_batch[k]),
                  resume=dict(launches=launches_resume[k]),
                  roles=dict(launches=launches_roles[k]),
+                 campaign=dict(launches=launches_campaign[k]),
                  service=dict(
                      v["service"],
                      launches=service["batched"]["launches"][k],

@@ -1,7 +1,7 @@
 """Command line of the port: the reference's `run` experiment, its role
 workloads (`kad`, `connmanager`, `regression`, `servicedisco`), the
-resident node service (`serve`, driven by `inject`) and the `topogen` and
-`summarize` tools, on one GPU.
+resident node service (`serve`, driven by `inject`), the adversarial
+campaign (`attack`) and the `topogen` and `summarize` tools, on one GPU.
 
   python -m dst_libp2p_test_node_tpu_torch run <runs> <nodes> <message_size> \\
       <num_fragment> <num_publishers> <min_bandwidth> <max_bandwidth> \\
@@ -42,6 +42,17 @@ drains, flushes the final --checkpoint and exits 0; --resume restarts from
 that checkpoint. `topogen` writes network_topology.gml and shadow.yaml
 (the reference topogen's flags, or run.sh's 13 positionals); `summarize`
 prints the awk summary of a latencies file.
+
+  python -m dst_libp2p_test_node_tpu_torch attack --scenario S -n PEERS \
+      --fractions 0,0.1 --seeds 0,1 [--recovery-heartbeats R --evict --px \
+      --redial] [--json F] [--metrics-out F] [--device cpu]
+
+`attack` runs one scenario over a fraction x seed grid and prints the
+reference's campaign report; --json writes the result as strict JSON and
+--metrics-out the dst_testnode_attack_* Prometheus text, both the
+reference CLI's bytes apart from wall times. The flags of later slices
+(--adaptive and its knobs, the fault windows, the --dht-* adversary,
+--mesh, --trial-groups) exit with an error naming their slice.
 """
 
 from __future__ import annotations
@@ -676,6 +687,263 @@ def cmd_inject(argv: list[str]) -> int:
     return 0 if res.failed == 0 else 1
 
 
+def validate_attack_flags(
+        scenario: str,
+        *,
+        mimic_margin: float | None = None,
+        rotation_period_hb: int | None = None,
+        dht_attack: bool = False,
+        dht_heal_hb: int = -1,
+        adaptive: bool = False,
+        throttle_margin: float | None = None,
+        px_poison_per_hb: int | None = None,
+) -> None:
+    """The reference's checks of `attack` scenario / flag combinations,
+    made before any topology is built (ValueError names the flag)."""
+    from .ops.adversary import ADAPTIVE_SCENARIOS
+
+    if mimic_margin is not None and scenario != "slow_peer_mimicry":
+        raise ValueError(
+            f"--mimic-margin tunes the slow_peer_mimicry score setpoint; "
+            f"scenario {scenario!r} never reads it — drop the flag or use "
+            "--scenario slow_peer_mimicry")
+    if rotation_period_hb is not None and scenario != "identity_rotation":
+        raise ValueError(
+            f"--rotation-period-hb sets the identity_rotation scrub cadence; "
+            f"scenario {scenario!r} never reads it — drop the flag or use "
+            "--scenario identity_rotation")
+    if dht_attack and scenario == "cold_boot_join":
+        raise ValueError(
+            "--dht-eclipse/--dht-poison/--dht-cluster poison discovery "
+            "state built during the attack window, but cold_boot_join "
+            "replays the join race on a fresh topology with no pre-attack "
+            "DHT to poison — drop the --dht-* flags or pick a scenario "
+            "with an established mesh")
+    if dht_heal_hb >= 0 and not dht_attack:
+        raise ValueError(
+            "--dht-heal-hb schedules the recovery round a DHT attack heals "
+            "at, but no DHT attack is armed — add one of --dht-eclipse/"
+            "--dht-poison/--dht-cluster")
+    if adaptive and scenario not in ADAPTIVE_SCENARIOS:
+        raise ValueError(
+            f"--adaptive composes with the graft-flood family "
+            f"{ADAPTIVE_SCENARIOS}, not scenario {scenario!r}: the spam "
+            "scenarios have no backoff/mesh loop to adapt to, mimicry is "
+            "already an adaptive policy, and rotation's identity scrubs "
+            "erase the controller's own estimate")
+    if throttle_margin is not None and not adaptive:
+        raise ValueError("--throttle-margin tunes the adaptive duty cycle; "
+                         "it needs --adaptive")
+    if px_poison_per_hb is not None and not adaptive:
+        raise ValueError("--px-poison-per-hb tunes the adaptive PX poison "
+                         "rate; it needs --adaptive")
+
+
+# the attack flags of later slices: set, each exits with an error naming
+# the slice (never silently ignored)
+_LATER_ATTACK_FLAGS = (
+    ("adaptive", "--adaptive", "next campaign"),
+    ("throttle_margin", "--throttle-margin", "next campaign"),
+    ("px_poison_per_hb", "--px-poison-per-hb", "next campaign"),
+    ("crash_frac", "--crash-frac", "next campaign (faults)"),
+    ("crash_window", "--crash-window", "next campaign (faults)"),
+    ("partition_frac", "--partition-frac", "next campaign (faults)"),
+    ("partition_window", "--partition-window", "next campaign (faults)"),
+    ("spike_frac", "--spike-frac", "next campaign (faults)"),
+    ("spike_window", "--spike-window", "next campaign (faults)"),
+    ("spike_ms", "--spike-ms", "next campaign (faults)"),
+    ("dht_eclipse", "--dht-eclipse", "next campaign (DHT adversary)"),
+    ("dht_poison", "--dht-poison", "next campaign (DHT adversary)"),
+    ("dht_cluster", "--dht-cluster", "next campaign (DHT adversary)"),
+    ("dht_heal_hb", "--dht-heal-hb", "next campaign (DHT adversary)"),
+    ("dht_poison_per_peer", "--dht-poison-per-peer",
+     "next campaign (DHT adversary)"),
+    ("dht_cluster_prefix_bits", "--dht-cluster-prefix-bits",
+     "next campaign (DHT adversary)"),
+    ("dht_evict_max_fails", "--dht-evict-max-fails",
+     "next campaign (DHT adversary)"),
+    ("dht_evict_backoff_ms", "--dht-evict-backoff-ms",
+     "next campaign (DHT adversary)"),
+    ("mesh", "--mesh", "multi-GPU (A13)"),
+    ("trial_groups", "--trial-groups", "multi-GPU (A13)"),
+)
+
+
+def cmd_attack(argv: list[str]) -> int:
+    """Adversarial campaign driver: one scenario, a fraction x seed grid,
+    the resilience report and optional JSON / Prometheus artifacts."""
+    from .ops.adversary import SCENARIOS
+
+    p = argparse.ArgumentParser(prog="attack")
+    p.add_argument("--scenario", choices=SCENARIOS,
+                   default="sybil_graft_flood")
+    p.add_argument("-n", "--peers", type=int, default=256)
+    p.add_argument("--fractions", default="0,0.1,0.2",
+                   help="comma-separated attacker fractions in [0, 1); "
+                   "include 0 for the in-sweep benign baseline")
+    p.add_argument("--seeds", default="0",
+                   help="comma-separated trial seeds (the Monte-Carlo axis)")
+    p.add_argument("--messages", type=int, default=3)
+    p.add_argument("--msg-size", type=int, default=2000)
+    p.add_argument("--delay-s", type=float, default=1.0,
+                   help="inter-message delay in the publish schedule")
+    p.add_argument("--warmup-s", type=float, default=30.0)
+    p.add_argument("--attack-heartbeats", type=int, default=20,
+                   help="attacked mesh-maintenance rounds before publishing")
+    p.add_argument("--connect-to", type=int, default=10)
+    p.add_argument("--seed", type=int, default=0,
+                   help="campaign seed: builds the shared connection graph")
+    p.add_argument("--publisher-id", type=int, default=4)
+    p.add_argument("--violation-penalty", type=float, default=1.0)
+    p.add_argument("--mimic-margin", type=float, default=None,
+                   help="slow_peer_mimicry only: pin the attacker score at "
+                   "this fraction of the graylist threshold (0 < m < 1)")
+    p.add_argument("--rotation-period-hb", type=int, default=None,
+                   help="identity_rotation only: heartbeats between "
+                   "identity scrubs (>= 2)")
+    p.add_argument("--no-vmap", action="store_true",
+                   help="run same-fraction trials one cell per seed")
+    p.add_argument("--warm-start", action="store_true",
+                   help="cross-publish warm-started fixpoints")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="snapshot each trial's post-window state here")
+    p.add_argument("--recovery-heartbeats", type=int, default=0,
+                   help="post-attack repair rounds before the publish "
+                   "schedule (0 = no recovery window)")
+    p.add_argument("--evict", action="store_true",
+                   help="arm score-based mesh eviction in the recovery "
+                   "window's heartbeats")
+    p.add_argument("--eviction-threshold", type=float, default=-50.0,
+                   help="PRUNE mesh members scoring below this (<= 0)")
+    p.add_argument("--px", action="store_true",
+                   help="peer exchange on PRUNE")
+    p.add_argument("--px-count", type=int, default=6,
+                   help="candidate ids carried per PRUNE")
+    p.add_argument("--redial", action="store_true",
+                   help="starved peers dial new connections")
+    p.add_argument("--redial-patience", type=int, default=3)
+    p.add_argument("--trial-timeout-s", type=float, default=0.0,
+                   help="wall-clock ceiling per trial batch attempt "
+                   "(0 = no timeout)")
+    p.add_argument("--max-retries", type=int, default=2,
+                   help="retry budget per trial cell before quarantine")
+    p.add_argument("--retry-backoff-s", type=float, default=0.5,
+                   help="base of the exponential retry backoff")
+    p.add_argument("--inject-failures", type=int, default=0,
+                   help="force the first N trial attempts to fail")
+    p.add_argument("--json", default=None,
+                   help="write the campaign result as strict JSON here")
+    p.add_argument("--metrics-out", default=None,
+                   help="write Prometheus text exposition of the "
+                   "dst_testnode_attack_* series here")
+    # the reference's flags of later slices (an error names the slice)
+    later = p.add_argument_group("later slices")
+    later.add_argument("--adaptive", action="store_true")
+    later.add_argument("--throttle-margin", type=float, default=None)
+    later.add_argument("--px-poison-per-hb", type=int, default=None)
+    later.add_argument("--mesh", action="store_true")
+    later.add_argument("--trial-groups", type=int, default=None)
+    for flag in ("--crash-frac", "--partition-frac", "--spike-frac",
+                 "--spike-ms", "--dht-poison-per-peer",
+                 "--dht-cluster-prefix-bits", "--dht-evict-max-fails",
+                 "--dht-evict-backoff-ms", "--dht-heal-hb"):
+        later.add_argument(flag, default=None)
+    for flag in ("--crash-window", "--partition-window", "--spike-window"):
+        later.add_argument(flag, default=None, metavar="A:B")
+    for flag in ("--dht-eclipse", "--dht-poison", "--dht-cluster"):
+        later.add_argument(flag, action="store_true")
+    _device_arg(p)
+    a = p.parse_args(argv)
+
+    try:
+        validate_attack_flags(
+            a.scenario,
+            mimic_margin=a.mimic_margin,
+            rotation_period_hb=a.rotation_period_hb,
+            dht_attack=(a.dht_eclipse or a.dht_poison or a.dht_cluster),
+            dht_heal_hb=(int(a.dht_heal_hb) if a.dht_heal_hb is not None
+                         else -1),
+            adaptive=a.adaptive,
+            throttle_margin=a.throttle_margin,
+            px_poison_per_hb=a.px_poison_per_hb,
+        )
+    except ValueError as e:
+        p.error(str(e))
+    for dest, flag, slice_name in _LATER_ATTACK_FLAGS:
+        if getattr(a, dest) not in (None, False):
+            p.error(f"{flag} is not ported yet: it comes with the "
+                    f"{slice_name} slice (ROADMAP A)")
+    device = _resolve(p, a.device)
+
+    from .ops.adversary import AdversaryParams
+    from .ops.repair import RepairParams
+    from .runtime.campaign import (
+        CampaignConfig, SupervisorConfig, attack_gossipsub, run_campaign)
+    from .runtime.simulator import ExperimentConfig
+    from .runtime.summarize import report_campaign
+
+    fractions = tuple(float(s) for s in a.fractions.split(",") if s.strip())
+    seeds = tuple(int(s) for s in a.seeds.split(",") if s.strip())
+    adv_kw: dict = {}
+    if a.mimic_margin is not None:
+        adv_kw["mimic_margin"] = a.mimic_margin
+    if a.rotation_period_hb is not None:
+        adv_kw["rotation_period_hb"] = a.rotation_period_hb
+    # eclipse needs a mesh-bound publish to have anything to eclipse
+    gs = attack_gossipsub(flood_publish=(a.scenario != "eclipse_publisher"))
+    cfg = CampaignConfig(
+        scenario=a.scenario,
+        fractions=fractions,
+        seeds=seeds,
+        experiment=ExperimentConfig(
+            topo=TopoParams(
+                network_size=a.peers, anchor_stages=3,
+                msg_size_bytes=a.msg_size, messages=a.messages,
+                delay_seconds=a.delay_s),
+            connect_to=a.connect_to,
+            gossipsub=gs,
+            publisher_id=a.publisher_id,
+            warmup_s=a.warmup_s,
+            seed=a.seed,
+            warm_start=a.warm_start,
+        ),
+        adversary=AdversaryParams(
+            scenario=a.scenario, violation_penalty=a.violation_penalty,
+            **adv_kw),
+        attack_heartbeats=a.attack_heartbeats,
+        vmap_trials=not a.no_vmap,
+        checkpoint_dir=a.checkpoint_dir,
+        recovery_heartbeats=a.recovery_heartbeats,
+        repair=RepairParams(
+            evict=a.evict, eviction_threshold=a.eviction_threshold,
+            px=a.px, px_count=a.px_count,
+            redial=a.redial, redial_patience=a.redial_patience),
+        supervisor=SupervisorConfig(
+            trial_timeout_s=a.trial_timeout_s,
+            max_retries=a.max_retries,
+            retry_backoff_s=a.retry_backoff_s,
+            inject_failures=a.inject_failures),
+    )
+    t0 = time.time()
+    res = run_campaign(cfg, device=device)
+    d = res.to_dict()
+    print(report_campaign(d), end="")
+    if a.json:
+        with open(a.json, "w") as f:
+            # strict JSON: non-finite metrics are already nulled by to_dict
+            json.dump(d, f, indent=2, allow_nan=False)
+    if a.metrics_out:
+        from .runtime.metrics import CampaignMetrics
+
+        m = CampaignMetrics()
+        m.fill_from_campaign(d)
+        with open(a.metrics_out, "w") as f:
+            f.write(m.render())
+    print(_wall_line(device, t0, f" trials={len(res.trials)} "
+                     f"trials/s={res.trials_per_s:.3f}"))
+    return 0
+
+
 COMMANDS = {
     "run": cmd_run,
     "kad": cmd_kad,
@@ -684,6 +952,7 @@ COMMANDS = {
     "servicedisco": cmd_servicedisco,
     "serve": cmd_serve,
     "inject": cmd_inject,
+    "attack": cmd_attack,
     "topogen": cmd_topogen,
     "summarize": cmd_summarize,
 }

@@ -7,7 +7,9 @@ same on both sides; the PRNG key travels as a (2,) uint32 array and is held
 as int64 words in the port (prng.py). The tests use the pair to start both
 engines from one state and compare them leaf by leaf. `leaves_to_numpy`
 and `dataclass_from_numpy` do the same for the role workloads' state
-(KadState, ConnState, AdvertStore) and results.
+(KadState, ConnState, AdvertStore) and results. `obs_to_numpy` /
+`obs_from_numpy` carry a window's observable curves, and `result_fields` /
+`campaign_from_fields` a campaign's TrialResult and CampaignResult.
 """
 
 from __future__ import annotations
@@ -85,3 +87,44 @@ def dataclass_from_numpy(cls, leaves: dict, device):
             a = a.astype(np.uint32).astype(np.int64)
         out[f.name] = torch.from_numpy(np.array(a, order="C")).to(device)
     return cls(**out)
+
+
+def obs_to_numpy(obs: dict) -> dict:
+    """{key: numpy array} of a window's obs dict (tensors of the port or
+    arrays of the reference)."""
+    return {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                else np.asarray(v)) for k, v in obs.items()}
+
+
+def obs_from_numpy(obs: dict, device) -> dict:
+    return {k: torch.from_numpy(np.array(v, order="C")).to(device)
+            for k, v in obs.items()}
+
+
+_WALL_FIELDS = ("wall_s", "trials_per_s")
+
+
+def result_fields(obj, walls: bool = True) -> dict:
+    """{field: value} of a TrialResult or CampaignResult of either package,
+    trials as a list of such dicts; `walls=False` drops the wall-clock
+    fields, which no two runs share."""
+    if isinstance(obj, (list, tuple)):
+        return [result_fields(x, walls) for x in obj]
+    out = {}
+    for f in dataclasses.fields(obj):
+        if f.name == "phase_walls" or (not walls and f.name in _WALL_FIELDS):
+            continue
+        v = getattr(obj, f.name)
+        if f.name == "trials":
+            v = result_fields(v, walls)
+        out[f.name] = v
+    return out
+
+
+def campaign_from_fields(fields: dict):
+    """The port's CampaignResult from result_fields of either package."""
+    from .runtime.campaign import CampaignResult, TrialResult
+
+    d = dict(fields)
+    d["trials"] = [TrialResult(**t) for t in d["trials"]]
+    return CampaignResult(**d)

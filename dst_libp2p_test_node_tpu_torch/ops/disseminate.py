@@ -61,7 +61,9 @@ message's arrival offsets; a certificate checks the seed, and if any
 fragment fails it the whole message reruns cold (one host decision per
 message, counted in `engine_counts`), so the result equals a cold start.
 
-A peer-sharded mesh, `return_plan` and `censor_edge` raise
+`censor_edge` (ops/adversary.censor_mask) is an adversarial per-edge
+drop mask folded into `survive` like the graylist gate: delivery only,
+and not counted in `lost_tx`. A peer-sharded mesh and `return_plan` raise
 NotImplementedError naming the slice that brings them (ROADMAP A).
 
 Float arithmetic follows the reference's association order term by term,
@@ -271,15 +273,13 @@ def _next_heartbeat(t, phase, hb_ms: float):
     return (torch.floor(_div(t - phase, hb_ms)) + 1.0) * hb_ms + phase
 
 
-def _check_slice(*, mesh, return_plan, censor_edge, loss_mode):
+def _check_slice(*, mesh, return_plan, loss_mode):
     if loss_mode not in ("message", "tcp"):
         raise ValueError(f"unknown loss_mode {loss_mode!r}")
     if mesh is not None:
         raise _later("a peer-sharded mesh", "multi-GPU")
     if return_plan:
         raise _later("return_plan (the DES cross-check seam)", "tooling")
-    if censor_edge is not None:
-        raise _later("censor_edge (adversarial drops)", "campaign-stack")
 
 
 def disseminate(
@@ -310,8 +310,7 @@ def disseminate(
     """Propagate one message through the mesh; returns (DisseminationResult,
     new_state). The signature is the reference's; the arguments outside
     this slice raise NotImplementedError."""
-    _check_slice(mesh=mesh, return_plan=return_plan,
-                 censor_edge=censor_edge, loss_mode=loss_mode)
+    _check_slice(mesh=mesh, return_plan=return_plan, loss_mode=loss_mode)
     n, c = conns.shape
     dev = conns.device
     f32 = torch.float32
@@ -366,6 +365,11 @@ def disseminate(
     survive_loss = survive
     if thresholds_can_bind:
         survive = gray_ok if survive is None else survive & gray_ok
+    if censor_edge is not None:
+        # an in-mesh censor silently withholds the copy: delivery only,
+        # like the graylist, and not a network loss
+        survive = (~censor_edge if survive is None
+                   else survive & ~censor_edge)
     is_pub = torch.arange(n, device=dev) == publisher
 
     if with_fanout:

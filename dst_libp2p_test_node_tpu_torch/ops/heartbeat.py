@@ -4,7 +4,10 @@ One call of `heartbeat_step` is one heartbeat: mesh rebalance (graft when
 |mesh| < D_low up to D, prune when |mesh| > D_high down to D keeping the
 D_score best-scored and at least D_out outbound members), PRUNE backoff,
 optional churn and opportunistic grafting, fanout expiry, and the decay
-protocol. Reciprocity (GRAFT/PRUNE) is one reverse-slot pull (ops/pull.py).
+protocol, and the opt-in mesh-repair branches (`params.evict`: score
+eviction, counted as a PRUNE in both ledgers; `params.px`: PX capture on
+PRUNE into `px_pool`, acted on by ops/repair.py). Reciprocity
+(GRAFT/PRUNE) is one reverse-slot pull (ops/pull.py).
 
 The reference's `lax.cond`s become Python `if`s on a device predicate
 (`bool(t.any())`, one device-to-host sync each); `lax.scan` becomes a
@@ -24,7 +27,7 @@ import torch
 from .. import prng
 from ..native.score_update import score_update
 from .pull import neighbor_pull_bool, reciprocal_pull_bool
-from .state import SimParams, SimState
+from .state import PX_POOL_WIDTH, SimParams, SimState
 
 BIG = 1e30
 
@@ -46,13 +49,6 @@ def _churny(params: SimParams) -> bool:
     return params.churn_down_per_hb > 0.0 or params.churn_up_per_hb > 0.0
 
 
-def _check_slice(params: SimParams) -> None:
-    if params.evict or params.px or params.redial:
-        raise NotImplementedError(
-            "mesh repair (evict / px / redial) is not ported yet: it comes "
-            "with the campaign-stack slice (ROADMAP A)")
-
-
 def heartbeat_step(
     state: SimState,
     conns: torch.Tensor,
@@ -69,7 +65,6 @@ def heartbeat_step(
     `decay_scales` the deferred-decay (fmd_scale, slow_scale) pair, and
     `deg_in` the carried (N,) mesh degree (requires valid_pre, churn off);
     with `deg_in` the step returns (state, deg_out)."""
-    _check_slice(params)
     if deg_in is not None and (valid_pre is None or _churny(params)):
         raise ValueError("deg_in requires valid_pre and churn off "
                          "(run_heartbeats' churn-free scan protocol)")
@@ -167,6 +162,34 @@ def heartbeat_step(
         mesh = mesh & ~pruned_by_peer
         prune_tx_inc = pruned.sum(dim=-1, dtype=torch.int32)
         prune_rx_inc = pruned_by_peer.sum(dim=-1, dtype=torch.int32)
+    got_pruned = None              # the PRUNEs received, for PX capture
+    if params.px:
+        got_pruned = (pruned_by_peer if prune_fired
+                      else torch.zeros_like(mesh))
+
+    # -- score eviction (mesh repair, params.evict): PRUNE members scoring
+    # below the floor, with backoff on both sides ----------------------------
+    ev_tx_inc = ev_rx_inc = zeros_n
+    evict_fired = False
+    if params.evict:
+        ev_cand = mesh & (get_scores() < params.eviction_threshold)
+        evict_fired = bool(ev_cand.any())
+        if evict_fired:
+            ev_rx = reciprocal_pull_bool(ev_cand, conns, rev)
+            backoff = torch.where(ev_cand | ev_rx,
+                                  t + params.prune_backoff_ms, backoff)
+            mesh = mesh & ~ev_cand & ~ev_rx
+            ev_tx_inc = ev_cand.sum(dim=-1, dtype=torch.int32)
+            ev_rx_inc = ev_rx.sum(dim=-1, dtype=torch.int32)
+            if params.px:
+                got_pruned = got_pruned | ev_rx
+
+    # -- PX on PRUNE (mesh repair, params.px): every prunee stores the
+    # pruner's best-scored valid neighbors (no PRNG: slot-index tiebreak) ---
+    px_pool = state.px_pool
+    if params.px and bool(got_pruned.any()):
+        px_pool = _px_capture(state.px_pool, got_pruned, valid, conns,
+                              get_scores(), params)
 
     # -- opportunistic grafting (v1.1, main.nim:292) --------------------------
     og_tx_inc = og_rx_inc = zeros_n
@@ -212,15 +235,45 @@ def heartbeat_step(
         key=key,
         grafts=state.grafts + graft_tx_inc + og_tx_inc,
         grafts_rx=state.grafts_rx + graft_rx_inc + og_rx_inc,
-        prunes=state.prunes + prune_tx_inc,
-        prunes_rx=state.prunes_rx + prune_rx_inc,
+        # an eviction is a PRUNE control message: counted in both ledgers
+        prunes=state.prunes + prune_tx_inc + ev_tx_inc,
+        prunes_rx=state.prunes_rx + prune_rx_inc + ev_rx_inc,
+        evictions=state.evictions + ev_tx_inc,
+        px_pool=px_pool,
     )
     if deg_in is None:
         return new_state
     # carried degree: re-reduce only when a branch touched the mesh
-    if graft_fired or prune_fired or og_fired:
+    if graft_fired or prune_fired or og_fired or evict_fired:
         return new_state, mesh.sum(dim=-1, dtype=torch.int32)
     return new_state, deg_in
+
+
+def _px_capture(pool, got_pruned, valid, conns, scores, params):
+    """The prunee's px_pool after this round's PRUNEs: each pruner
+    advertises its first px_count valid neighbors scoring >= 0 (best score
+    first, slot index breaking ties); a prunee reads the advert off its
+    lowest pruning slot and drops its own id from it."""
+    n, c = conns.shape
+    dev = conns.device
+    elig = valid & (scores >= 0.0)
+    prio = (torch.where(elig, -scores, BIG)
+            + 1e-4 * torch.arange(c, dtype=torch.float32, device=dev))
+    w = min(PX_POOL_WIDTH, c)
+    order = torch.argsort(prio, dim=-1, stable=True)[:, :w]
+    take_ok = (torch.gather(elig, 1, order)
+               & (torch.arange(w, device=dev) < params.px_count))
+    cand = torch.where(take_ok, torch.gather(conns, 1, order), -1)
+    if w < PX_POOL_WIDTH:
+        cand = torch.nn.functional.pad(cand, (0, PX_POOL_WIDTH - w),
+                                       value=-1)
+    got = got_pruned.any(dim=-1)
+    i0 = torch.argmax(got_pruned.to(torch.uint8), dim=-1)
+    pruner = torch.gather(conns, 1, i0[:, None])[:, 0]
+    advert = cand[pruner.clamp_min(0).long()]
+    me = torch.arange(n, dtype=advert.dtype, device=dev)
+    advert = torch.where(advert == me[:, None], -1, advert)
+    return torch.where(got[:, None], advert, pool)
 
 
 def run_heartbeats(
@@ -233,7 +286,6 @@ def run_heartbeats(
 ) -> SimState:
     """`steps` heartbeats with the deferred decay, materialized once at the
     end by the score_update kernel (on CUDA) or its plain version (CPU)."""
-    _check_slice(params)
     nbr_ok = valid_pre = None
     if not _churny(params):
         # alive/subscribed are invariant across the loop without churn:

@@ -1,0 +1,254 @@
+"""Mesh repair: score eviction, PX-on-PRUNE and re-dial recovery (the
+reference's ops/repair.py).
+
+Eviction and PX capture are heartbeat branches (ops/heartbeat.py,
+`params.evict` / `params.px`); `repair_round` here acts on the PX pool
+and re-dials starved peers, and `run_recovery_heartbeats` is the
+post-attack window of [heartbeat_step -> repair_round] rounds.
+
+A dial makes the connection graph dynamic, under the reference's contract:
+
+  * new edges only fill padding slots (conns == -1), and the reverse-slot
+    involution is extended in the same round (conns/rev/out_mask are
+    returned, never written in place);
+  * at most one dial per peer per round, and an acceptor takes one inbound
+    dial per round: the lowest dialer id wins (a scatter-min, which gives
+    the same bytes however the colliding writes are ordered) and a dialing
+    peer does not accept;
+  * a committed dial sets the whole warm-start carry to INF, and the host
+    re-derives every per-edge table before the next publish
+    (Simulator.rebind_graph).
+
+The static runner passes actor=~attacker: attackers do not run the
+controller. The DHT-backed and adaptive runners come with the next
+campaign slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import torch
+
+from .. import prng
+from .adversary import attack_observables
+from .heartbeat import heartbeat_step
+from .state import SimParams, SimState
+from .telemetry import stack_obs, telemetry_observables
+
+INF = 3.4e38
+
+
+@dataclass(frozen=True)
+class RepairParams:
+    """The repair knobs as a standalone config surface; `apply` folds them
+    into a SimParams. Defaults are all off."""
+
+    evict: bool = False
+    eviction_threshold: float = -50.0
+    px: bool = False
+    px_count: int = 6
+    redial: bool = False
+    redial_patience: int = 3
+
+    @property
+    def enabled(self) -> bool:
+        return self.evict or self.px or self.redial
+
+    def validate(self) -> None:
+        if self.eviction_threshold > 0:
+            raise ValueError("eviction_threshold must be <= 0")
+        if self.px_count < 1:
+            raise ValueError("px_count must be >= 1")
+        if self.redial_patience < 1:
+            raise ValueError("redial_patience must be >= 1")
+
+    def apply(self, params: SimParams) -> SimParams:
+        out = dataclasses.replace(
+            params,
+            evict=self.evict,
+            eviction_threshold=self.eviction_threshold,
+            px=self.px,
+            px_count=self.px_count,
+            redial=self.redial,
+            redial_patience=self.redial_patience,
+        )
+        out.validate()
+        return out
+
+
+def _row_take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """a[i, idx[i]] for every row i."""
+    return torch.gather(a, 1, idx[:, None].long())[:, 0]
+
+
+def repair_round(state: SimState, conns, rev, out_mask, params: SimParams,
+                 actor=None):
+    """One round of the repair controller, after heartbeat_step. Returns
+    (state, conns, rev, out_mask). `actor`: the (N,) peers that run the
+    controller (default all live ones); every live peer accepts dials.
+
+    Per acting peer, at most one action: graft the first live PX
+    candidate it is already connected to (both sides' backoff and score
+    permitting), or dial an unconnected candidate (PX first, else a
+    uniform random peer once starved for redial_patience rounds) into a
+    free slot on each side, grafting the fresh edge."""
+    n, c = conns.shape
+    dev = conns.device
+    i32 = torch.int32
+    me = torch.arange(n, dtype=i32, device=dev)
+    iota_c = torch.arange(c, dtype=i32, device=dev)
+    t = state.t_ms
+    alive_sub = state.alive & state.subscribed
+    act = alive_sub if actor is None else (actor & alive_sub)
+    deg = state.mesh_mask.sum(dim=-1, dtype=i32)
+
+    starve = state.starve_hb
+    if params.redial:
+        starve = torch.where(act & (deg < params.d_low), state.starve_hb + 1,
+                             0)
+
+    key, k_dial = prng.split(state.key)
+
+    pool = state.px_pool
+    cand_ok = ((pool >= 0) & (pool != me[:, None])
+               & alive_sub[pool.clamp_min(0).long()])
+    has_cand = cand_ok.any(dim=-1)
+    k0 = torch.argmax(cand_ok.to(torch.uint8), dim=-1)
+    cand = _row_take(pool, k0)
+
+    # the ambient known-peer table: one uniform draw over [0, n) \ {me}
+    r = prng.randint(k_dial, (n,), 0, n - 1)
+    r = torch.where(r >= me, r + 1, r)
+
+    px_want = torch.zeros((n,), dtype=torch.bool, device=dev)
+    redial_want = torch.zeros((n,), dtype=torch.bool, device=dev)
+    if params.px:
+        px_want = act & (deg < params.d) & has_cand
+    if params.redial:
+        redial_want = act & (starve >= params.redial_patience)
+    use_px = px_want | (redial_want & has_cand)
+    use_rand = redial_want & ~has_cand & alive_sub[r.long()]
+    want = use_px | use_rand
+    tgt = torch.where(use_px, cand, torch.where(use_rand, r, -1))
+    tgt_c = tgt.clamp_min(0).long()
+
+    new = dict(starve_hb=starve, key=key)
+    if bool(want.any()):
+        hit = (conns == tgt_c[:, None]) & want[:, None]
+        connected = hit.any(dim=-1)
+        slot_a = torch.argmax(hit.to(torch.uint8), dim=-1)
+
+        # path A: the candidate is already connected -> plain GRAFT
+        sc = state.score(params)
+        j_a = _row_take(rev, slot_a).long()
+        my_ok = ((_row_take(state.backoff_until, slot_a) <= t)
+                 & (_row_take(sc, slot_a) >= 0.0)
+                 & ~_row_take(state.mesh_mask, slot_a))
+        graft_a = (want & connected & my_ok
+                   & (state.backoff_until[tgt_c, j_a] <= t)
+                   & (sc[tgt_c, j_a] >= 0.0))
+        mesh = state.mesh_mask | (graft_a[:, None]
+                                  & (iota_c[None, :] == slot_a[:, None]))
+        # the counterpart's side: distinct grafting rows own distinct
+        # (tgt, j) slots through the involution, so the writes never
+        # collide
+        mesh[tgt_c[graft_a], j_a[graft_a]] = True
+
+        # path B: unconnected -> dial into a free padding slot
+        free = conns < 0
+        has_free = free.any(dim=-1)
+        free_slot = torch.argmax(free.to(torch.uint8), dim=-1).to(i32)
+        dial_try = want & ~connected & has_free
+        # a dialer never accepts in the same round
+        attempt = (dial_try & has_free[tgt_c] & alive_sub[tgt_c]
+                   & ~dial_try[tgt_c])
+        # one inbound dial per acceptor: lowest dialer id wins
+        winner = torch.full((n,), n, dtype=i32, device=dev).scatter_reduce(
+            0, torch.where(attempt, tgt_c, 0),
+            torch.where(attempt, me, n), reduce="amin")
+        committed = attempt & (winner[tgt_c] == me)
+        accepted = winner < n
+        dialer = torch.where(accepted, winner, 0).long()
+
+        my_hot = committed[:, None] & (iota_c[None, :] == free_slot[:, None])
+        acc_hot = accepted[:, None] & (iota_c[None, :] == free_slot[:, None])
+        j_t = free_slot[tgt_c]
+        i_d = free_slot[dialer]
+        conns2 = torch.where(my_hot, tgt_c[:, None].to(conns.dtype), conns)
+        conns2 = torch.where(acc_hot, dialer[:, None].to(conns.dtype),
+                             conns2)
+        rev2 = torch.where(my_hot, j_t[:, None].to(rev.dtype), rev)
+        rev2 = torch.where(acc_hot, i_d[:, None].to(rev.dtype), rev2)
+        out2 = out_mask | my_hot
+
+        # a fresh edge: scrub per-edge state and graft both sides
+        hot = my_hot | acc_hot
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        mesh = mesh | hot
+        new.update(
+            mesh_mask=mesh,
+            backoff_until=torch.where(hot, zero, state.backoff_until),
+            fmd=torch.where(hot, zero, state.fmd),
+            slow_penalty=torch.where(hot, zero, state.slow_penalty),
+        )
+        new["warm_offset_ms"] = torch.where(
+            committed.any(), torch.full_like(state.warm_offset_ms, INF),
+            state.warm_offset_ms)
+
+        one_a = graft_a.to(i32)
+        new["grafts"] = state.grafts + (graft_a | committed).to(i32)
+        grafts_rx = state.grafts_rx.index_add(
+            0, torch.where(graft_a, tgt_c, 0), one_a)
+        new["grafts_rx"] = grafts_rx + accepted.to(i32)
+        new["px_grafts"] = state.px_grafts + (
+            graft_a | (committed & use_px)).to(i32)
+        new["redials"] = state.redials + committed.to(i32)
+
+        # consume the examined pool entry (success or fail)
+        pw = pool.shape[1]
+        new["px_pool"] = torch.where(
+            use_px[:, None]
+            & (torch.arange(pw, device=dev)[None, :] == k0[:, None]),
+            -1, pool)
+        conns, rev, out_mask = conns2, rev2, out2
+    return state.replace(**new), conns, rev, out_mask
+
+
+def run_recovery_heartbeats(state: SimState, conns, rev, out_mask,
+                            attacker, params: SimParams, steps: int,
+                            publisher: int = 0, telemetry=None):
+    """The post-attack recovery window: `steps` rounds of [heartbeat_step
+    (evict / px armed) -> repair_round] with the connection graph carried
+    from round to round (nothing hoisted). Returns ((state, conns, rev,
+    out_mask), obs) with obs leaves shaped (steps,): the attack
+    observables, the publisher's honest mesh degree and the round's
+    evictions, PX grafts and re-dials."""
+    if telemetry is not None and not telemetry.enabled:
+        telemetry = None
+    f32 = torch.float32
+    rounds = []
+    for _ in range(steps):
+        ev0 = state.evictions.sum(dtype=torch.int64)
+        px0 = state.px_grafts.sum(dtype=torch.int64)
+        rd0 = state.redials.sum(dtype=torch.int64)
+        state = heartbeat_step(state, conns, rev, out_mask, params)
+        state, conns, rev, out_mask = repair_round(
+            state, conns, rev, out_mask, params, actor=~attacker)
+        obs = attack_observables(state, conns, rev, attacker, params)
+        nbr = conns[publisher]
+        att_n = (nbr >= 0) & attacker[nbr.clamp_min(0).long()]
+        obs["pub_honest_degree"] = (
+            state.mesh_mask[publisher] & (nbr >= 0) & ~att_n
+        ).sum(dtype=torch.int64).to(f32)
+        obs["evictions"] = (state.evictions.sum(dtype=torch.int64)
+                            - ev0).to(f32)
+        obs["px_grafts"] = (state.px_grafts.sum(dtype=torch.int64)
+                            - px0).to(f32)
+        obs["redials"] = (state.redials.sum(dtype=torch.int64) - rd0).to(f32)
+        if telemetry is not None:
+            obs.update(telemetry_observables(
+                state, conns, rev, params, telemetry, contract_score="first"))
+        rounds.append(obs)
+    return (state, conns, rev, out_mask), stack_obs(rounds)

@@ -103,3 +103,89 @@ def exp2_int(j: torch.Tensor) -> torch.Tensor:
     table = torch.tensor([2.0 ** k for k in range(8)], dtype=torch.float32,
                          device=j.device)
     return table[torch.nan_to_num(j, nan=0.0).clamp(0.0, 7.0).long()]
+
+
+# -- full float32 sums in XLA's CPU order -----------------------------------
+#
+# XLA's CPU backend rewrites a reduction over a dimension longer than 32 into
+# reduce-windows of 32 per reduced dimension (the input padded with zeros,
+# the smaller half of the pad in front), repeated until no dimension exceeds
+# 32, then one plain reduce. A window whose loop carries a pad test is
+# summed in row-major order; the last reduce of a (k, 2) array is
+# vectorized by LLVM (its reassociating adds) in a pattern that depends on
+# k, read off the reference's object code for every k <= 32 (_PAIR_LANES).
+# `sum_f32` reproduces this bit for bit for 1-D sums and for (N, C) sums
+# with C > 32 and N <= 1024 (the sums the adversary and flight-recorder
+# observables take); elsewhere it keeps the same order, which XLA may
+# reassociate (windows without a pad test are vectorized too). Every step
+# is an elementwise add, so CPU and CUDA give the same bytes.
+_WINDOW = 32
+# the final reduce of a (k, 2) array: lanes over rows (row r in lane
+# r % lanes, adding its two columns in order; the lanes then sum in halves,
+# leftover rows after them in order); 1 = row-major order, 0 = the two row
+# sums added (k = 2)
+_PAIR_LANES = {2: 0, 4: 4, 8: 8, **{k: 8 for k in range(16, 20)},
+               **{k: 4 for k in range(20, 24)},
+               **{k: 8 for k in range(24, 33)}}
+
+
+def _seq_sum(vals) -> torch.Tensor:
+    acc = torch.zeros((), dtype=torch.float32, device=vals[0].device)
+    for v in vals:
+        acc = acc + v
+    return acc
+
+
+def _final_sum(x: torch.Tensor) -> torch.Tensor:
+    if x.dim() == 2 and x.shape[1] == 2:
+        k = x.shape[0]
+        lanes = _PAIR_LANES.get(k, 1)
+        if lanes == 0:
+            return (x[0, 0] + x[0, 1]) + (x[1, 0] + x[1, 1])
+        if lanes > 1:
+            m = (k // lanes) * lanes
+            acc = torch.zeros((lanes,), dtype=torch.float32, device=x.device)
+            for r0 in range(0, m, lanes):
+                acc = acc + x[r0:r0 + lanes, 0]
+                acc = acc + x[r0:r0 + lanes, 1]
+            while acc.shape[0] > 1:
+                h = acc.shape[0] // 2
+                acc = acc[:h] + acc[h:]
+            tail = [x[r, j] for r in range(m, k) for j in range(2)]
+            return _seq_sum([acc[0]] + tail) if tail else acc[0]
+    flat = x.reshape(-1)
+    return _seq_sum([flat[i] for i in range(flat.shape[0])])
+
+
+def sum_f32(x: torch.Tensor) -> torch.Tensor:
+    """jnp.sum of a float32 array (all axes) under jit on XLA's CPU
+    backend, as a 0-d float32 tensor (see the order above)."""
+    x = x.to(torch.float32)
+    if x.dim() == 0:
+        return x
+    if x.dim() > 2:
+        raise ValueError("sum_f32 takes 1-D or 2-D arrays")
+    while any(d > _WINDOW for d in x.shape):
+        ws = [min(d, _WINDOW) for d in x.shape]
+        pad = []
+        for d, w in zip(reversed(x.shape), reversed(ws)):
+            tot = (-d) % w
+            pad += [tot // 2, tot - tot // 2]
+        xp = torch.nn.functional.pad(x, pad)
+        out = None
+        if x.dim() == 1:
+            for o in range(ws[0]):
+                sl = xp[o::ws[0]]
+                out = sl if out is None else out + sl
+        else:
+            rows = xp.reshape(xp.shape[0] // ws[0], ws[0], -1)
+            for o0 in range(ws[0]):
+                row = rows[:, o0].reshape(rows.shape[0],
+                                          xp.shape[1] // ws[1], ws[1])
+                for o1 in range(ws[1]):
+                    sl = row[:, :, o1]
+                    out = sl if out is None else out + sl
+        # the window's accumulator starts at the init value 0.0 (only the
+        # sign of an all-zero window could tell)
+        x = out + 0.0
+    return _final_sum(x)

@@ -81,3 +81,17 @@ def uniform(key: torch.Tensor, shape) -> torch.Tensor:
     bits = random_bits(key, shape)
     mant = ((bits >> 9) | 0x3F800000).to(torch.int32)
     return mant.view(torch.float32) - 1.0
+
+
+def randint(key: torch.Tensor, shape, minval: int, maxval: int):
+    """jax.random.randint(key, shape, minval, maxval, dtype=int32) for
+    0 <= minval < maxval < 2^31, as int32: two 32-bit draws folded into
+    [0, span) by jax's multiplier rule, in uint32 arithmetic."""
+    span = max(int(maxval) - int(minval), 1)
+    k1, k2 = split(key)
+    hi, lo = random_bits(k1, shape), random_bits(k2, shape)
+    mult = (2 ** 16) % span
+    mult = ((mult * mult) & MASK) % span
+    off = (((hi % span) * mult) & MASK) + (lo % span)
+    off = (off & MASK) % span
+    return (int(minval) + off).to(torch.int32)

@@ -1,0 +1,736 @@
+"""Monte-Carlo adversarial campaigns on one device (the reference's
+runtime/campaign.py, single-device path).
+
+`run_campaign` sweeps attacker fraction x seed over one built network and
+reports resilience metrics per trial. A trial:
+
+  setup     the attacker cohort is drawn on the host
+            (ops/adversary.attacker_cohort); the trial's PRNG and state are
+            re-seeded from the trial seed, the connection graph is shared
+  warmup    benign mesh stabilization (cold_boot_join: inside the window)
+  window    `attack_heartbeats` rounds of [heartbeat_step ->
+            adversary_round]; same-fraction seeds run as a loop of
+            single-trial windows, which equal the reference's one
+            vmapped scan over the stacked trials bitwise
+  recovery  optional `recovery_heartbeats` rounds of [heartbeat_step
+            (evict / px armed) -> repair_round], after the trial
+            checkpoint; a dialed graph is rebound (Simulator.rebind_graph)
+            for the publish schedule and the epoch graph restored after
+  publish   the injection schedule with the censor mask, and the
+            P3-analog censorship penalty after each publish
+
+A fraction-0.0 trial takes exactly the benign Simulator path, so its
+outputs are the bytes of a plain Simulator on the same seed.
+`checkpoint_dir` snapshots each trial after its window (the reference's
+file format plus an `.obs.npz` sidecar of its curves), and a later sweep
+resumes every trial it finds there.
+
+Peer meshes, trial meshes and the DCN engine (ROADMAP A13), fault
+schedules, the adaptive attacker and the DHT adversary (the next campaign
+slice) and the conformance certificate (A14) raise NotImplementedError
+naming their slice.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..config.env import GossipSubParams
+from ..ops.adversary import (
+    ADAPTIVE_SLICE,
+    AdversaryParams,
+    attacker_cohort,
+    censor_mask,
+    censorship_penalty_update,
+    eclipse_setup,
+    heartbeats_to_graylist,
+    run_attacked_heartbeats,
+)
+from ..ops.repair import RepairParams, run_recovery_heartbeats
+from ..ops.telemetry import TelemetryParams
+from .simulator import ExperimentConfig, MessageRecord, Simulator
+from .summarize import sanitize_nonfinite
+from .supervise import _call_with_timeout, _FailureInjector
+
+GRAYLIST_ENGAGED_FRAC = 0.95
+
+
+def _later(what: str, slice_name: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet: it comes with the {slice_name} slice "
+        "(ROADMAP A)")
+
+
+def attack_gossipsub(**overrides) -> GossipSubParams:
+    """GossipSub params with the score defense armed (the reference's
+    weights: an engagement budget of about 7 accrual rounds)."""
+    base = dict(
+        slow_peer_penalty_weight=-10.0,
+        slow_peer_penalty_decay=0.9,
+        gossip_threshold=-10.0,
+        publish_threshold=-20.0,
+        graylist_threshold=-50.0,
+    )
+    base.update(overrides)
+    return GossipSubParams(**base)
+
+
+@dataclass(frozen=True)
+class FaultParams:
+    """The reference's fault schedule fields (ops/faults.py). Armed, a
+    campaign raises: fault windows come with the next campaign slice."""
+
+    crash_frac: float = 0.0
+    crash_window: tuple[int, int] = (0, 0)
+    partition_frac: float = 0.0
+    partition_window: tuple[int, int] = (0, 0)
+    spike_frac: float = 0.0
+    spike_window: tuple[int, int] = (0, 0)
+    spike_ms: float = 0.0
+
+    @property
+    def enabled(self) -> bool:
+        crash = self.crash_frac > 0.0 and (self.crash_window[1]
+                                           > self.crash_window[0])
+        part = self.partition_frac > 0.0 and (self.partition_window[1]
+                                              > self.partition_window[0])
+        spike = (self.spike_frac > 0.0 and self.spike_ms > 0.0
+                 and self.spike_window[1] > self.spike_window[0])
+        return crash or part or spike
+
+    def validate(self) -> None:
+        if self.enabled:
+            raise _later("fault injection (crash / partition / spike)",
+                         ADAPTIVE_SLICE)
+
+
+@dataclass(frozen=True)
+class DhtAdversaryParams:
+    """The reference's DHT adversary switches (ops/dht_adversary.py).
+    Armed, a campaign raises: the DHT adversary comes with the next
+    campaign slice."""
+
+    discovery: bool = False
+    lookup_eclipse: bool = False
+    rtable_poison: bool = False
+    sybil_cluster: bool = False
+    poison_per_peer: int = 8
+    cluster_prefix_bits: int = 16
+    heal_hb: int = -1
+    evict_max_fails: int = 1
+    evict_backoff_ms: float = 0.0
+
+    @property
+    def enabled(self) -> bool:
+        return (self.discovery or self.lookup_eclipse or self.rtable_poison
+                or self.sybil_cluster)
+
+    def validate(self) -> None:
+        if self.enabled:
+            raise _later("the DHT adversary", ADAPTIVE_SLICE)
+
+
+@dataclass(frozen=True)
+class SupervisorConfig:
+    """Host-side trial supervision: timeout, bounded retry with
+    exponential backoff (retry k sleeps retry_backoff_s * 2**(k-1)),
+    quarantine; `inject_failures` makes the first K attempts raise."""
+
+    trial_timeout_s: float = 0.0
+    max_retries: int = 2
+    retry_backoff_s: float = 0.5
+    inject_failures: int = 0
+
+    def validate(self) -> None:
+        if self.trial_timeout_s < 0.0:
+            raise ValueError("trial_timeout_s must be >= 0 (0 disables)")
+        if self.max_retries < 0:
+            raise ValueError("max_retries must be >= 0")
+        if self.retry_backoff_s < 0.0:
+            raise ValueError("retry_backoff_s must be >= 0")
+        if self.inject_failures < 0:
+            raise ValueError("inject_failures must be >= 0")
+
+
+def _supervise(sup: SupervisorConfig, injector: _FailureInjector, run,
+               on_fail=None, sleep=time.sleep, device=None):
+    """(result | None, retries used, last error | None) of one cell."""
+    last_err = None
+    for attempt in range(sup.max_retries + 1):
+        if attempt > 0:
+            sleep(sup.retry_backoff_s * (2 ** (attempt - 1)))
+        try:
+            injector.maybe_fail()
+            return (_call_with_timeout(run, sup.trial_timeout_s, device),
+                    attempt, None)
+        except Exception as e:  # noqa: BLE001 — the supervisor is the handler
+            last_err = e
+            if on_fail is not None:
+                on_fail()
+    return None, sup.max_retries, last_err
+
+
+@dataclass
+class CampaignConfig:
+    scenario: str = "sybil_graft_flood"
+    fractions: tuple = (0.0, 0.1, 0.2)
+    seeds: tuple = (0,)
+    experiment: ExperimentConfig = field(
+        default_factory=lambda: ExperimentConfig(gossipsub=attack_gossipsub()))
+    adversary: AdversaryParams | None = None
+    attack_heartbeats: int = 20
+    mesh_recovery_share: float = 0.05
+    recovery_heartbeats: int = 0
+    repair: RepairParams = field(default_factory=RepairParams)
+    vmap_trials: bool = True
+    checkpoint_dir: str | None = None
+    faults: FaultParams = field(default_factory=FaultParams)
+    supervisor: SupervisorConfig = field(default_factory=SupervisorConfig)
+    telemetry: TelemetryParams = field(default_factory=TelemetryParams)
+    dht: DhtAdversaryParams = field(default_factory=DhtAdversaryParams)
+    conformance: bool = False
+
+    def adversary_params(self) -> AdversaryParams:
+        return self.adversary or AdversaryParams(scenario=self.scenario)
+
+    def validate(self) -> None:
+        adv = self.adversary_params()
+        adv.validate()
+        if adv.scenario != self.scenario:
+            raise ValueError(
+                f"adversary.scenario {adv.scenario!r} != campaign scenario "
+                f"{self.scenario!r}")
+        if not self.fractions or not self.seeds:
+            raise ValueError("need at least one fraction and one seed")
+        for f in self.fractions:
+            if not (0.0 <= f < 1.0):
+                raise ValueError(f"attacker fraction {f} outside [0, 1)")
+        if self.attack_heartbeats < 1:
+            raise ValueError("attack_heartbeats must be >= 1")
+        if self.recovery_heartbeats < 0:
+            raise ValueError("recovery_heartbeats must be >= 0")
+        self.repair.validate()
+        self.faults.validate()
+        self.supervisor.validate()
+        self.telemetry.validate()
+        self.dht.validate()
+        if self.conformance:
+            raise _later("the conformance certificate", "tooling (A14)")
+        if adv.eclipse:
+            if self.experiment.gossipsub.flood_publish:
+                raise ValueError(
+                    "eclipse_publisher requires flood_publish=False "
+                    "(flood publish bypasses the eclipsed mesh)")
+            if self.experiment.publisher_rotation:
+                raise ValueError(
+                    "eclipse_publisher targets one publisher; disable "
+                    "publisher_rotation")
+
+
+@dataclass
+class TrialResult:
+    scenario: str
+    fraction: float
+    seed: int
+    attackers: int
+    honest_coverage: float
+    benign_coverage: float
+    latency_p50_ms: float
+    latency_p99_ms: float
+    benign_p50_ms: float
+    latency_inflation: float
+    hb_to_graylist: int
+    hb_budget: float
+    graylisted_frac_final: float
+    mesh_recovery_hb: int
+    attacker_mesh_share_final: float
+    attacker_score_final: float
+    wall_s: float
+    mesh_evictions_total: int = 0
+    px_grafts_total: int = 0
+    redials_total: int = 0
+    recovery_time_ms: float = -1.0
+    bytes_tx_total: float = -1.0
+    heal_time_ms: float = -1.0
+    post_churn_reconvergence_hb: int = -1
+    coverage_under_partition: float = -1.0
+    coverage90_hb: int = -1
+    score_cross_hb: int = -1
+    rtable_poison_frac: float = -1.0
+
+    def to_dict(self) -> dict:
+        return sanitize_nonfinite(dict(self.__dict__))
+
+
+@dataclass
+class CampaignResult:
+    scenario: str
+    network_size: int
+    trials: list[TrialResult]
+    hb_budget: float
+    wall_s: float
+    degraded: bool = False
+    quarantined_trials: list = field(default_factory=list)
+    retries_total: int = 0
+    conformance: dict | None = None
+    # per-trial wall split of this run (seconds by phase), for the smoke's
+    # report; not part of to_dict
+    phase_walls: list = field(default_factory=list, repr=False)
+
+    @property
+    def trials_per_s(self) -> float:
+        return len(self.trials) / max(self.wall_s, 1e-9)
+
+    def to_dict(self) -> dict:
+        return sanitize_nonfinite({
+            "scenario": self.scenario,
+            "network_size": self.network_size,
+            "hb_budget": self.hb_budget,
+            "wall_s": self.wall_s,
+            "trials_per_s": self.trials_per_s,
+            "degraded": self.degraded,
+            "retries_total": self.retries_total,
+            "quarantined_trials": list(self.quarantined_trials),
+            "conformance": self.conformance,
+            "trials": [t.to_dict() for t in self.trials],
+        })
+
+
+# --------------------------------------------------------------------- trials
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+
+
+def _sync(sim: Simulator) -> None:
+    if sim.device.type == "cuda":
+        torch.cuda.synchronize(sim.device)
+
+
+class _Walls:
+    """Wall seconds by phase for one cell (device work synchronized at
+    every boundary, so each phase is charged its own kernels)."""
+
+    def __init__(self, sim: Simulator):
+        self.sim = sim
+        self.t = {}
+
+    def add(self, phase: str, t0: float) -> float:
+        _sync(self.sim)
+        now = time.perf_counter()
+        self.t[phase] = self.t.get(phase, 0.0) + (now - t0)
+        return now
+
+
+def _reset_trial(sim: Simulator, seed: int) -> None:
+    """Rewind the shared Simulator onto a trial's seed (graph kept)."""
+    base = sim.cfg.seed
+    sim.cfg.seed = seed
+    try:
+        sim.reset()
+    finally:
+        sim.cfg.seed = base
+
+
+def _publish_schedule(sim: Simulator, censor=None, attacker=None,
+                      adv: AdversaryParams | None = None
+                      ) -> list[MessageRecord]:
+    """The experiment's injection schedule with the censor mask threaded
+    into every publish and the censorship penalty after each one."""
+    exp = sim.cfg
+    n = exp.topo.network_size
+    delay_ms = exp.topo.delay_seconds * 1000.0
+    pub = exp.publisher_id % n
+    a = sim.arrays
+    for i in range(exp.topo.messages):
+        if i > 0:
+            sim.advance(delay_ms)
+        rec = sim.publish(pub, censor_edge=censor)
+        if censor is not None:
+            received = torch.as_tensor(rec.received, device=sim.device)
+            sim.state = censorship_penalty_update(
+                sim.state, a["conns"], a["rev"], attacker, received,
+                sim.params, adv)
+        if exp.publisher_rotation:
+            pub = (pub + 1) % n
+    return sim.records
+
+
+def _delivery_metrics(records: list[MessageRecord], honest: np.ndarray):
+    """(coverage, p50_ms, p99_ms) over honest peers, pooled over the
+    schedule; inf latencies for an empty pool."""
+    if not records:
+        return 0.0, math.inf, math.inf
+    cov = float(np.mean([r.received[honest].mean() for r in records]))
+    pool = np.concatenate(
+        [r.delays_ms[honest & r.received] for r in records])
+    if pool.size == 0:
+        return cov, math.inf, math.inf
+    return (cov, float(np.percentile(pool, 50)),
+            float(np.percentile(pool, 99)))
+
+
+def _ensure_baseline(sim: Simulator, cache: dict, seed: int,
+                     walls: _Walls | None = None) -> dict:
+    """Benign metrics for `seed` (the fraction-0.0 path), at most once per
+    seed per campaign."""
+    if seed not in cache:
+        t0 = time.perf_counter()
+        _reset_trial(sim, seed)
+        sim.warmup()
+        if walls is not None:
+            t0 = walls.add("baseline_warmup", t0)
+        records = _publish_schedule(sim)
+        if walls is not None:
+            walls.add("baseline_publish", t0)
+        honest = np.ones(sim.params.n, dtype=bool)
+        cov, p50, p99 = _delivery_metrics(records, honest)
+        cache[seed] = {"coverage": cov, "p50": p50, "p99": p99}
+    return cache[seed]
+
+
+def _benign_trial(sim: Simulator, cfg: CampaignConfig, seed: int,
+                  cache: dict, budget: float, walls: list) -> TrialResult:
+    t0 = time.time()
+    w = _Walls(sim)
+    cache.pop(seed, None)  # force the run: the trial is the baseline
+    base = _ensure_baseline(sim, cache, seed, w)
+    walls.append({"fraction": 0.0, "seed": seed, **w.t})
+    return TrialResult(
+        scenario=cfg.scenario, fraction=0.0, seed=seed, attackers=0,
+        honest_coverage=base["coverage"], benign_coverage=base["coverage"],
+        latency_p50_ms=base["p50"], latency_p99_ms=base["p99"],
+        benign_p50_ms=base["p50"], latency_inflation=1.0,
+        hb_to_graylist=-1, hb_budget=budget,
+        graylisted_frac_final=0.0, mesh_recovery_hb=-1,
+        attacker_mesh_share_final=0.0, attacker_score_final=0.0,
+        wall_s=time.time() - t0,
+        bytes_tx_total=float(_host(sim.state.bytes_tx).sum()),
+    )
+
+
+def _first_round(curve: np.ndarray, pred) -> int:
+    """1-based index of the first round satisfying pred, -1 if none."""
+    hits = np.nonzero(pred(curve))[0]
+    return int(hits[0]) + 1 if hits.size else -1
+
+
+def _obs_metrics(obs: dict, share_floor: float):
+    gf = np.asarray(obs["graylisted_frac"], dtype=np.float64)
+    share = np.asarray(obs["attacker_mesh_share"], dtype=np.float64)
+    engaged = _first_round(gf, lambda c: c >= GRAYLIST_ENGAGED_FRAC)
+    peak = int(np.argmax(share))
+    if share.max() <= share_floor:
+        recovery = 1  # never meaningfully compromised
+    else:
+        after = share[peak:]
+        rel = _first_round(after, lambda c: c <= share_floor)
+        recovery = peak + rel if rel > 0 else -1
+    return engaged, float(gf[-1]), recovery, float(share[-1])
+
+
+def _obs_to_host(obs: dict) -> dict:
+    return {k: _host(v) for k, v in obs.items()}
+
+
+def _trial_ckpt(cfg: CampaignConfig, fraction: float, seed: int):
+    """(checkpoint, obs-sidecar) paths for one (fraction, seed) cell."""
+    base = os.path.join(cfg.checkpoint_dir,
+                        f"{cfg.scenario}_f{fraction:g}_s{seed}")
+    return base + ".npz", base + ".obs.npz"
+
+
+def _try_resume(sim: Simulator, cfg: CampaignConfig, fraction: float,
+                seed: int):
+    """(post-window state, window obs) from a prior run's trial
+    checkpoint and obs sidecar, or None. A snapshot of another format
+    version or another epoch graph is recomputed, never trusted."""
+    from .. import interop
+    from .checkpoint import FORMAT_VERSION, _graph_hash
+
+    ck, sc = _trial_ckpt(cfg, fraction, seed)
+    if not (os.path.exists(ck) and os.path.exists(sc)):
+        return None
+    try:
+        with np.load(ck) as z:
+            meta = json.loads(bytes(z["meta_json"]).decode())
+            if meta["version"] != FORMAT_VERSION:
+                return None
+            if meta.get("graph_sha256") != _graph_hash(sim.graph):
+                return None
+            sd = {k.split("/", 1)[1]: z[k]
+                  for k in z.files if k.startswith("state/")}
+        state = interop.state_from_numpy(sd, sim.device)
+        with np.load(sc) as zo:
+            obs = {k: np.asarray(zo[k]) for k in zo.files}
+    except Exception:
+        return None  # unreadable or truncated: recompute the trial
+    return state, obs
+
+
+def _save_trial(sim: Simulator, cfg: CampaignConfig, fraction: float,
+                seed: int, obs: dict) -> None:
+    from .checkpoint import save_checkpoint
+
+    os.makedirs(cfg.checkpoint_dir, exist_ok=True)
+    ck, sc = _trial_ckpt(cfg, fraction, seed)
+    save_checkpoint(sim, ck)
+    # the obs sidecar: the window's curves, which the state alone cannot
+    # give back to a resumed trial
+    tmp = sc + ".tmp"
+    with open(tmp, "wb") as fh:
+        np.savez_compressed(fh, **{k: np.asarray(v) for k, v in obs.items()})
+    os.replace(tmp, sc)
+
+
+def _attacked_trials(sim: Simulator, cfg: CampaignConfig, fraction: float,
+                     seeds: list[int], cache: dict, budget: float,
+                     walls: list) -> list[TrialResult]:
+    adv = cfg.adversary_params()
+    exp = cfg.experiment
+    n = sim.params.n
+    conns_np = np.asarray(sim.graph.conns)
+    pub = exp.publisher_id % n
+    hb_ms = sim.params.heartbeat_ms
+    warm_steps = int(exp.warmup_s * 1000.0 // hb_ms)
+    # cold boot joins mid-attack: the warm-up rounds run inside the window
+    steps = cfg.attack_heartbeats + (warm_steps if adv.cold_boot else 0)
+    # without PX or re-dial no dial can commit: the graph stays the epoch's
+    graph_static = not (cfg.repair.px or cfg.repair.redial)
+    tel = cfg.telemetry if cfg.telemetry.enabled else None
+    dev = sim.device
+
+    t0 = time.time()
+    cohorts: dict[int, tuple] = {}
+    state_by_seed: dict[int, object] = {}
+    obs_by_seed: dict[int, dict] = {}
+    wall_by_seed: dict[int, _Walls] = {s: _Walls(sim) for s in seeds}
+    resumed: set[int] = set()
+    for s in seeds:
+        att = attacker_cohort(n, fraction, seed=s, conns=conns_np,
+                              publisher=pub, eclipse=adv.eclipse)
+        cohorts[s] = (att, torch.as_tensor(att, device=dev))
+    if cfg.checkpoint_dir:
+        for s in seeds:
+            got = _try_resume(sim, cfg, fraction, s)
+            if got is not None:
+                state_by_seed[s], obs_by_seed[s] = got
+                resumed.add(s)
+    a = sim.arrays
+    for s in seeds:
+        if s in resumed:
+            continue
+        w = wall_by_seed[s]
+        tw = time.perf_counter()
+        _reset_trial(sim, s)
+        tw = w.add("setup", tw)
+        if not adv.cold_boot:
+            sim.warmup()
+        if adv.eclipse:
+            sim.state = eclipse_setup(sim.state, a["conns"], cohorts[s][1],
+                                      pub)
+        tw = w.add("warmup", tw)
+        st, obs = run_attacked_heartbeats(
+            sim.state, a["conns"], a["rev"], a["out_mask"], cohorts[s][1],
+            sim.params, adv, steps, telemetry=tel)
+        state_by_seed[s] = st
+        obs_by_seed[s] = _obs_to_host(obs)
+        w.add("attack_window", tw)
+
+    epoch_arrays = dict(sim.arrays)
+    out = []
+    for s in seeds:
+        w = wall_by_seed[s]
+        att, att_j = cohorts[s]
+        base = _ensure_baseline(sim, cache, s, w)
+        tw = time.perf_counter()
+        _reset_trial(sim, s)
+        sim.state = state_by_seed[s]
+        tw = w.add("setup", tw)
+        if cfg.checkpoint_dir and s not in resumed:
+            _save_trial(sim, cfg, fraction, s, obs_by_seed[s])
+            tw = w.add("checkpoint_save", tw)
+        obs_j = obs_by_seed[s]
+        recovery_time_ms = -1.0
+        if cfg.recovery_heartbeats > 0:
+            # after the checkpoint, which hashes the epoch graph
+            rparams = cfg.repair.apply(sim.params)
+            a = sim.arrays
+            (st2, cn2, rv2, om2), robs = run_recovery_heartbeats(
+                sim.state, a["conns"], a["rev"], a["out_mask"], att_j,
+                rparams, cfg.recovery_heartbeats, publisher=pub,
+                telemetry=tel)
+            robs = _obs_to_host(robs)
+            sim.state = st2
+            tw = w.add("recovery_window", tw)
+            if not graph_static:
+                sim.rebind_graph(cn2, rv2, om2)
+                tw = w.add("rebind_graph", tw)
+            # the shared observables concatenate over attack + recovery
+            obs_j = {k: (np.concatenate([np.asarray(obs_j[k]),
+                                         np.asarray(robs[k])])
+                         if k in robs else np.asarray(obs_j[k]))
+                     for k in obs_j}
+            rec_ok = ((robs["attacker_mesh_share"]
+                       <= cfg.mesh_recovery_share)
+                      & (robs["pub_honest_degree"] >= 1.0))
+            hit = np.nonzero(rec_ok)[0]
+            if hit.size:
+                recovery_time_ms = float((hit[0] + 1) * hb_ms)
+        censor = censor_mask(att_j, sim.arrays["conns"])
+        records = _publish_schedule(sim, censor=censor, attacker=att_j,
+                                    adv=adv)
+        tw = w.add("publish", tw)
+        honest = ~att
+        cov, p50, p99 = _delivery_metrics(records, honest)
+        engaged, gf_final, recovery, share_final = _obs_metrics(
+            obs_j, cfg.mesh_recovery_share)
+        cov90_hb = -1
+        score_cross_hb = -1
+        tel_cov = np.asarray(obs_j.get("tel_mesh_coverage", ()))
+        if tel_cov.size:
+            cov90_hb = _first_round(tel_cov, lambda c: c >= 0.9)
+        tel_q = np.asarray(obs_j.get("tel_score_q", ()))
+        if tel_q.size:
+            med = tel_q[:, tel_q.shape[1] // 2]
+            thr = float(sim.params.graylist_threshold)
+            score_cross_hb = _first_round(med, lambda c: c < thr)
+        # the final honest-side view of attacker edges over the current
+        # (possibly dialed) conns
+        cn_now = _host(sim.arrays["conns"])
+        sc = _host(sim.state.score(sim.params)).astype(np.float64)
+        att_edge = (cn_now >= 0) & att[np.clip(cn_now, 0, None)]
+        h_att = att_edge & honest[:, None]
+        score_final = float(sc[h_att].mean()) if h_att.any() else 0.0
+        out.append(TrialResult(
+            scenario=cfg.scenario, fraction=fraction, seed=s,
+            attackers=int(att.sum()),
+            honest_coverage=cov, benign_coverage=base["coverage"],
+            latency_p50_ms=p50, latency_p99_ms=p99,
+            benign_p50_ms=base["p50"],
+            latency_inflation=(p50 / base["p50"]
+                               if base["p50"] > 0 and math.isfinite(p50)
+                               else math.inf),
+            hb_to_graylist=engaged, hb_budget=budget,
+            graylisted_frac_final=gf_final, mesh_recovery_hb=recovery,
+            attacker_mesh_share_final=share_final,
+            attacker_score_final=score_final,
+            wall_s=(time.time() - t0) / len(seeds),
+            mesh_evictions_total=int(_host(sim.state.evictions).sum()),
+            px_grafts_total=int(_host(sim.state.px_grafts).sum()),
+            redials_total=int(_host(sim.state.redials).sum()),
+            recovery_time_ms=recovery_time_ms,
+            bytes_tx_total=float(_host(sim.state.bytes_tx).sum()),
+            coverage90_hb=cov90_hb,
+            score_cross_hb=score_cross_hb,
+        ))
+        if cfg.recovery_heartbeats > 0 and not graph_static:
+            # restore the epoch graph for the next trial
+            tw = time.perf_counter()
+            sim.rebind_graph(epoch_arrays["conns"], epoch_arrays["rev"],
+                             epoch_arrays["out_mask"])
+            w.add("rebind_graph", tw)
+        walls.append({"fraction": fraction, "seed": s,
+                      "resumed": s in resumed, **w.t})
+    return out
+
+
+def run_campaign(cfg: CampaignConfig, mesh=None, trial_mesh=None, dcn=None,
+                 device=None) -> CampaignResult:
+    """Execute the sweep: every (fraction, seed) cell, on `device` (CUDA
+    unless the caller passes another). `mesh`, `trial_mesh` and `dcn`
+    (several devices) raise: they come with ROADMAP A13."""
+    for name, v in (("mesh", mesh), ("trial_mesh", trial_mesh),
+                    ("dcn", dcn)):
+        if v is not None:
+            raise _later(f"run_campaign({name}=)", "multi-GPU (A13)")
+    cfg.validate()
+    adv = cfg.adversary_params()
+    t0 = time.time()
+    sim = Simulator(cfg.experiment, device=device)
+    budget = heartbeats_to_graylist(adv, sim.params)
+    if ((adv.graft_flood or adv.ihave_spam or adv.iwant_spam)
+            and not adv.identity_rotation
+            and any(f > 0 for f in cfg.fractions) and math.isinf(budget)):
+        raise ValueError(
+            "score defense cannot engage under this config "
+            "(heartbeats_to_graylist is inf): raise |slow_peer_penalty_weight|"
+            ", lower |graylist_threshold|, or raise the penalty/decay — "
+            "attack_gossipsub() is the armed default")
+    cache: dict[int, dict] = {}
+    trials: list[TrialResult] = []
+    walls: list[dict] = []
+    sup = cfg.supervisor
+    injector = _FailureInjector(sup.inject_failures)
+    quarantined: list[dict] = []
+    retries_total = 0
+    # a failed attempt may die mid-recovery with a dialed graph bound
+    graph_can_mutate = (cfg.recovery_heartbeats > 0
+                        and (cfg.repair.px or cfg.repair.redial))
+    epoch = dict(sim.arrays) if graph_can_mutate else None
+
+    def _on_fail():
+        if epoch is not None:
+            sim.rebind_graph(epoch["conns"], epoch["rev"], epoch["out_mask"])
+
+    def _cell(f: float, ss: list[int]) -> list[TrialResult]:
+        if f == 0.0:
+            return [_benign_trial(sim, cfg, s, cache, budget, walls)
+                    for s in ss]
+        if cfg.vmap_trials and len(ss) > 1:
+            return _attacked_trials(sim, cfg, f, ss, cache, budget, walls)
+        res: list[TrialResult] = []
+        for s in ss:
+            res.extend(_attacked_trials(sim, cfg, f, [s], cache, budget,
+                                        walls))
+        return res
+
+    def _quarantine(f: float, ss: list[int], err) -> None:
+        quarantined.append({
+            "fraction": f, "seeds": list(ss),
+            "failures": sup.max_retries + 1,
+            "error": repr(err)[:500] if err is not None else "unknown",
+        })
+
+    for f in cfg.fractions:
+        seeds = list(cfg.seeds)
+        res, used, err = _supervise(
+            sup, injector, lambda f=f, ss=seeds: _cell(f, ss), _on_fail,
+            device=sim.device)
+        retries_total += used
+        if res is not None:
+            trials.extend(res)
+            continue
+        if len(seeds) == 1:
+            _quarantine(f, seeds, err)
+            continue
+        # the batch is poisoned: isolate per seed so siblings survive
+        for s in seeds:
+            res1, used1, err1 = _supervise(
+                sup, injector, lambda f=f, s=s: _cell(f, [s]), _on_fail,
+                device=sim.device)
+            retries_total += used1
+            if res1 is not None:
+                trials.extend(res1)
+            else:
+                _quarantine(f, [s], err1)
+    return CampaignResult(
+        scenario=cfg.scenario,
+        network_size=sim.params.n,
+        trials=trials,
+        hb_budget=budget,
+        wall_s=time.time() - t0,
+        degraded=bool(quarantined) or retries_total > 0,
+        quarantined_trials=quarantined,
+        retries_total=retries_total,
+        phase_walls=walls,
+    )

@@ -17,9 +17,9 @@ verbatim so existing dashboards work:
 The text rendered for the same series operations is the reference's byte
 for byte. `NodeMetrics.fill_from_sim` projects the simulator's device-side
 counters onto these series; it reads only the viewed node's rows of the
-state, with one device-to-host copy, never the whole (N, C) state. The
-campaign series (`CampaignMetrics`) come with the campaign stack
-(ROADMAP A9).
+state, with one device-to-host copy, never the whole (N, C) state.
+`CampaignMetrics` projects a campaign's result dict (runtime/campaign.py)
+onto the `dst_testnode_attack_*` series.
 """
 
 from __future__ import annotations
@@ -526,6 +526,144 @@ class NodeMetrics:
                     for j in range(arr.shape[1]):
                         g.set(float(arr[i, j]),
                               labels={"hb": str(i), "idx": str(j)})
+
+    def render(self) -> str:
+        return self.registry.render()
+
+
+class CampaignMetrics:
+    """Prometheus series for adversarial campaigns (runtime/campaign.py).
+
+    One labeled sample per (scenario, fraction, seed) trial cell, named in
+    the dst_testnode_* family so the existing scrape/dashboard plumbing
+    picks the attack sweeps up unchanged. Gauges carry the resilience
+    metrics; non-finite values (no honest delivery -> inf latency) are
+    SKIPPED rather than exported — Prometheus text exposition has no null
+    and an +Inf gauge poisons every aggregation over the series."""
+
+    _LABELS = ("scenario", "fraction", "seed")
+
+    def __init__(self, registry: Registry | None = None):
+        self.registry = registry or Registry()
+        r = self.registry
+        lab = self._LABELS
+        self.trials = r.counter(
+            "dst_testnode_attack_trials_total",
+            "number of completed adversarial campaign trials", ("scenario",))
+        self.coverage = r.gauge(
+            "dst_testnode_attack_honest_coverage",
+            "honest-peer delivery coverage under attack", lab)
+        self.inflation = r.gauge(
+            "dst_testnode_attack_latency_inflation",
+            "honest p50 delay over the same-seed benign baseline", lab)
+        self.hb_to_graylist = r.gauge(
+            "dst_testnode_attack_heartbeats_to_graylist",
+            "heartbeats until the graylist defense engaged (-1 = never)", lab)
+        self.mesh_recovery = r.gauge(
+            "dst_testnode_attack_mesh_recovery_heartbeats",
+            "heartbeats until attacker mesh share fell back under the "
+            "recovery floor (-1 = not inside the window)", lab)
+        self.attacker_score = r.gauge(
+            "dst_testnode_attack_attacker_score",
+            "mean honest-side score of attacker edges after the schedule",
+            lab)
+        self.mesh_share = r.gauge(
+            "dst_testnode_attack_attacker_mesh_share",
+            "attacker share of honest mesh edges after the attack window",
+            lab)
+        # mesh-repair subsystem (ops/repair.py; populated when the campaign
+        # ran a recovery window — all-zero/-1 otherwise)
+        self.evictions = r.gauge(
+            "dst_testnode_attack_mesh_evictions_total",
+            "score-eviction PRUNEs issued across the trial", lab)
+        self.px_grafts = r.gauge(
+            "dst_testnode_attack_px_grafts_total",
+            "mesh edges gained through PX candidates across the trial", lab)
+        self.redials = r.gauge(
+            "dst_testnode_attack_redials_total",
+            "new connections dialed by the repair controller", lab)
+        self.recovery_time = r.gauge(
+            "dst_testnode_attack_recovery_time_ms",
+            "sim ms from attack-window end until the publisher regained an "
+            "honest mesh edge and attacker mesh share fell under the floor "
+            "(-1 = not recovered)", lab)
+        # fault-injection subsystem (ops/faults.py; populated when the
+        # campaign scheduled a fault window — all -1 otherwise, and -1
+        # sentinels are skipped like non-finite values below)
+        self.heal_time = r.gauge(
+            "dst_testnode_attack_heal_time_ms",
+            "sim ms from partition-window end until no cross-cut mesh edge "
+            "remained severed (-1 = never healed inside the schedule)", lab)
+        self.reconvergence = r.gauge(
+            "dst_testnode_attack_post_churn_reconvergence_hb",
+            "heartbeats after the crash window until restarted peers "
+            "regained mean mesh degree >= D_low (-1 = not reconverged)", lab)
+        self.coverage_partition = r.gauge(
+            "dst_testnode_attack_coverage_under_partition",
+            "fraction of honest peers on the publisher's side of the cut "
+            "(the reachable ceiling while partitioned)", lab)
+        # cross-protocol DHT adversary (ops/dht_adversary.py; populated
+        # when the campaign armed a DHT attack — -1 sentinel otherwise)
+        self.rtable_poison = r.gauge(
+            "dst_testnode_attack_rtable_poison_frac",
+            "attacker share of occupied honest routing-table slots after "
+            "the poisoning waves (-1 = DHT adversary not armed)", lab)
+        self.degraded = r.gauge(
+            "dst_testnode_attack_campaign_degraded",
+            "1 if the supervisor retried or quarantined any trial cell",
+            ("scenario",))
+        self.retries = r.counter(
+            "dst_testnode_attack_trial_retries_total",
+            "supervisor retries consumed across the campaign", ("scenario",))
+        self.quarantined = r.counter(
+            "dst_testnode_attack_trials_quarantined_total",
+            "trial cells abandoned after exhausting the retry budget",
+            ("scenario",))
+
+    def fill_from_campaign(self, campaign: dict) -> None:
+        """Project a CampaignResult.to_dict onto the series (duck-typed on
+        the dict, like summarize.report_campaign)."""
+
+        for t in campaign["trials"]:
+            self.trials.inc(labels={"scenario": t["scenario"]})
+            labels = {"scenario": t["scenario"],
+                      "fraction": f"{t['fraction']:g}",
+                      "seed": str(t["seed"])}
+            for series, key in (
+                (self.coverage, "honest_coverage"),
+                (self.inflation, "latency_inflation"),
+                (self.hb_to_graylist, "hb_to_graylist"),
+                (self.mesh_recovery, "mesh_recovery_hb"),
+                (self.attacker_score, "attacker_score_final"),
+                (self.mesh_share, "attacker_mesh_share_final"),
+                (self.evictions, "mesh_evictions_total"),
+                (self.px_grafts, "px_grafts_total"),
+                (self.redials, "redials_total"),
+                (self.recovery_time, "recovery_time_ms"),
+            ):
+                v = t.get(key)
+                if v is not None and math.isfinite(float(v)):
+                    series.set(float(v), labels=labels)
+            # fault gauges: -1 means "fault family not scheduled / never
+            # happened" — a sentinel, not a measurement, so don't export it
+            for series, key in (
+                (self.heal_time, "heal_time_ms"),
+                (self.reconvergence, "post_churn_reconvergence_hb"),
+                (self.coverage_partition, "coverage_under_partition"),
+                (self.rtable_poison, "rtable_poison_frac"),
+            ):
+                v = t.get(key)
+                if v is not None and math.isfinite(float(v)) and float(v) >= 0:
+                    series.set(float(v), labels=labels)
+        scen = {"scenario": campaign["scenario"]}
+        self.degraded.set(1.0 if campaign.get("degraded") else 0.0,
+                          labels=scen)
+        retries = int(campaign.get("retries_total", 0) or 0)
+        if retries:
+            self.retries.inc(retries, labels=scen)
+        quarantined = len(campaign.get("quarantined_trials") or ())
+        if quarantined:
+            self.quarantined.inc(quarantined, labels=scen)
 
     def render(self) -> str:
         return self.registry.render()

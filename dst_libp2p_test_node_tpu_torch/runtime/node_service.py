@@ -544,10 +544,8 @@ class NodeService:
         scrape exports as dst_sim_round_* gauges, but as whole curves per
         channel so a tenant can stream the live per-heartbeat trajectory
         instead of polling one point per scrape. Empty curves until
-        record_telemetry arms the recorder and an advance runs (the port's
-        simulators have no recorder yet, ROADMAP A9: the window answers
-        armed false with empty curves). The curves are the host copy the
-        pump thread made."""
+        record_telemetry arms the recorder and an advance runs. The
+        curves are the host copy the pump thread made."""
         with self._lock:
             curves = dict(self._tel_curves)
         return {

@@ -16,8 +16,11 @@ v1.1 fanout path. With cfg.uses_mix every publish first relays through the
 mix network (ops/mix.py). `publish_batch` injects several messages at one
 sim time, one publish() each; `run(checkpoint_path=)` snapshots the
 experiment (runtime/checkpoint.py), and a run loaded from the snapshot
-continues its schedule. Telemetry and meshes are later slices (ROADMAP A)
-and raise.
+continues its schedule. `record_telemetry` arms the flight recorder
+(ops/telemetry.py) for later advances, `publish(censor_edge=)` threads an
+adversarial drop mask, and `rebind_graph` adopts a graph the repair
+controller dialed (runtime/campaign.py). Meshes are a later slice
+(ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -199,6 +202,10 @@ class Simulator:
         self._last_msg_id = -1
         self._hb_carry_ms = 0.0
         self.records: list[MessageRecord] = []
+        # flight recorder: disarmed by default; last_telemetry holds the
+        # latest armed advance's tel_* curves as host numpy
+        self._telemetry = None
+        self.last_telemetry: dict = {}
         self.mix_params = None
         if cfg.uses_mix:
             self.mix_params = MixParams(num_mix=cfg.num_mix, mix_d=cfg.mix_d)
@@ -230,6 +237,7 @@ class Simulator:
         self._last_msg_id = -1
         self._hb_carry_ms = 0.0
         self.records = []
+        self.last_telemetry = {}  # the recorder stays armed across resets
         if not self._churny:
             self._valid_edge = self._compute_valid_edge()
 
@@ -260,21 +268,66 @@ class Simulator:
         if not self._churny:
             self._valid_edge = self._compute_valid_edge()
 
+    def rebind_graph(self, conns, rev, out_mask) -> None:
+        """Adopt a connection graph the repair controller extended
+        (ops/repair.py): every per-edge table indexes conns/rev, so
+        lat_edge/loss_edge, the answer tables and the edge validity are
+        re-derived, and the warm-start carry is set to INF. `self.graph`
+        keeps the epoch graph (checkpoints hash it)."""
+        dev = self.device
+        self.arrays = {
+            "conns": torch.as_tensor(conns, device=dev),
+            "rev": torch.as_tensor(rev, device=dev),
+            "out_mask": torch.as_tensor(out_mask, device=dev),
+        }
+        self._lat_edge, self._loss_edge = edge_tables(
+            self._stage, self._lat, self.arrays["conns"], self.arrays["rev"],
+            self._loss)
+        self._ans_tables = (answer_tables(self._lat_edge,
+                                          self.arrays["conns"])
+                            if self.cfg.with_gossip else None)
+        self.state = self.state.replace(warm_offset_ms=torch.full(
+            (self.params.n,), 3.4e38, dtype=torch.float32, device=dev))
+        if not self._churny:
+            self._valid_edge = self._compute_valid_edge()
+
+    def record_telemetry(self, params=None) -> None:
+        """Arm the flight recorder: later advances leave their per-heartbeat
+        tel_* curves in `last_telemetry` (host numpy). None or a
+        record=False TelemetryParams disarms it; the trajectory is the same
+        bytes either way."""
+        if params is not None:
+            params.validate()
+            if not params.enabled:
+                params = None
+        self._telemetry = params
+
     def advance(self, ms: float) -> None:
         """Advance simulated time by `ms`, running the heartbeats due."""
         steps, self._hb_carry_ms = drain_heartbeat_carry(
             self._hb_carry_ms, ms, self.params.heartbeat_ms)
         if steps > 0:
             a = self.arrays
-            self.state = run_heartbeats(self.state, a["conns"], a["rev"],
-                                        a["out_mask"], self.params, steps)
+            if self._telemetry is not None:
+                from ..ops.telemetry import run_recorded_heartbeats
+
+                self.state, trace = run_recorded_heartbeats(
+                    self.state, a["conns"], a["rev"], a["out_mask"],
+                    self.params, steps, telemetry=self._telemetry)
+                self.last_telemetry = {k: _host(v) for k, v in trace.items()}
+            else:
+                self.state = run_heartbeats(self.state, a["conns"], a["rev"],
+                                            a["out_mask"], self.params,
+                                            steps)
 
     def warmup(self) -> None:
         self.advance(self.cfg.warmup_s * 1000.0)
 
-    def publish(self, publisher: int,
-                msg_size: int | None = None) -> MessageRecord:
-        """Inject one message at the current sim time."""
+    def publish(self, publisher: int, msg_size: int | None = None,
+                censor_edge=None) -> MessageRecord:
+        """Inject one message at the current sim time. `censor_edge`: an
+        optional (N, C) adversarial drop mask (ops/adversary.censor_mask);
+        None keeps the benign publish."""
         cfg = self.cfg
         size = msg_size if msg_size is not None else cfg.topo.msg_size_bytes
         a = self.arrays
@@ -293,6 +346,7 @@ class Simulator:
             ans_tables=self._ans_tables, valid_edge=self._valid_edge,
             # an unsubscribed publisher takes the v1.1 fanout path
             with_fanout=not bool(self._subscribed_np[publisher]),
+            censor_edge=censor_edge,
         )
         if cfg.msgid_mode == "go":
             msg_id = max(int(t0_ms * 1e6), self._last_msg_id + 1)

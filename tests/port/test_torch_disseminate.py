@@ -112,11 +112,13 @@ def test_outside_the_slice_raises():
             torch.from_numpy(topo.bw_up_mbit))
     kw = dict(publisher=1, t0_ms=0.0, params=pt, payload_bytes=15000)
     for extra, slice_name in ((dict(return_plan=True), "tooling"),
-                              (dict(censor_edge=at["conns"] >= 0),
-                               "campaign-stack"),
                               (dict(mesh=object()), "multi-GPU")):
         with pytest.raises(NotImplementedError, match=slice_name):
             td.disseminate(*args, **kw, **extra)
+    # censor_edge is ported now (the campaign slice): every edge censored,
+    # nothing leaves the publisher
+    res, _ = td.disseminate(*args, **kw, censor_edge=at["conns"] >= 0)
+    assert int(res.received.sum()) == 1 and bool(res.received[1])
     # a lossy topology is ported now (slice 4): the call runs
     res, _ = td.disseminate(*args, **kw, loss_stage=torch.full((6, 6), 0.5),
                             loss_mode="message")

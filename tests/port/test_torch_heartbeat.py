@@ -69,10 +69,22 @@ def test_heartbeat_step_plain_decay_bitwise():
 
 
 def test_mesh_repair_is_refused_not_approximated():
-    g, _, pt, _ = _setup(0.0, -10000.0)
-    st = tst.init_state(pt, 0, "cpu")
-    at = tst.graph_arrays(g, "cpu")
-    p_evict = dataclasses.replace(pt, evict=True)
-    with pytest.raises(NotImplementedError, match="campaign-stack"):
-        thb.run_heartbeats(st, at["conns"], at["rev"], at["out_mask"],
-                           p_evict, 1)
+    # mesh repair is ported now (the campaign slice): the evict and px
+    # branches run, bitwise against the reference, instead of raising
+    g, pj, pt, sj = _setup(0.0, -10000.0)
+    kw = dict(evict=True, px=True, eviction_threshold=-0.5, slow_weight=-1.0)
+    pj, pt = dataclasses.replace(pj, **kw), dataclasses.replace(pt, **kw)
+    aj, at = jst.graph_arrays(g), tst.graph_arrays(g, "cpu")
+    rng = np.random.default_rng(3)
+    sj = jhb.run_heartbeats(sj, aj["conns"], aj["rev"], aj["out_mask"], pj,
+                            5)
+    sj = sj.replace(slow_penalty=jnp.asarray(
+        rng.integers(0, 3, (N, g.capacity)).astype(np.float32)))
+    st = interop.state_from_numpy(_leaves(sj), "cpu")
+    want = jhb.run_heartbeats(sj, aj["conns"], aj["rev"], aj["out_mask"],
+                              pj, 3)
+    got = thb.run_heartbeats(st, at["conns"], at["rev"], at["out_mask"],
+                             pt, 3)
+    assert interop.leaf_mismatches(_leaves(want),
+                                   interop.state_to_numpy(got)) == []
+    assert int(got.evictions.sum()) > 0

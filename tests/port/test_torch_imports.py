@@ -4,9 +4,10 @@ runtime.multitopic, runtime.checkpoint, runtime.native_logemit, the
 role workloads' ops.kad, ops.connmanager, ops.servicedisco,
 runtime.kad_runtime, runtime.sd_runtime and runtime.regression_runtime,
 and the service's runtime.metrics, runtime.supervise,
-runtime.node_service, runtime.publisher and runtime.traffic named), and
-chip_smoke.py, import in a fresh interpreter where `import jax` and
-`import flax` fail."""
+runtime.node_service, runtime.publisher and runtime.traffic, and the
+campaign's ops.adversary, ops.repair, ops.telemetry and runtime.campaign
+named), and chip_smoke.py, import in a fresh interpreter where
+`import jax` and `import flax` fail."""
 
 import os
 import subprocess
@@ -37,7 +38,8 @@ for name in ("ops.mix", "runtime.multitopic", "runtime.checkpoint",
              "ops.servicedisco", "runtime.kad_runtime", "runtime.sd_runtime",
              "runtime.regression_runtime", "runtime.metrics",
              "runtime.supervise", "runtime.node_service",
-             "runtime.publisher", "runtime.traffic"):
+             "runtime.publisher", "runtime.traffic", "ops.adversary",
+             "ops.repair", "ops.telemetry", "runtime.campaign"):
     assert port.__name__ + "." + name in names, name
 sys.exit(1 if bad else 0)
 """

@@ -10,6 +10,8 @@ runtime/supervise.py) against the reference, bitwise on the CPU:
     histogram and the dispatch EWMA);
   - the HTTP surface: 400, 404, 405, 500 for an unjoined topic, 429 with
     Retry-After, 503 while draining, /service and /telemetry (unarmed);
+  - the flight recorder armed on the service's simulator: the /telemetry
+    body (over HTTP, byte for byte) and the dst_sim_round_* series;
   - supervision: injected failures, a poison request bisected out of a
     batch, the watchdog's worker thread;
   - the service checkpoint: arrays equal to the reference's file, the
@@ -354,6 +356,33 @@ def test_http_surface_matches_reference():
     assert r429[1]["Retry-After"] == "1"
     tel = next(x for x in got if isinstance(x, dict) and "armed" in x)
     assert tel["armed"] is False and tel["curves"] == {}
+
+
+def test_armed_telemetry_window_matches_reference():
+    from dst_libp2p_test_node_tpu.ops.telemetry import (
+        TelemetryParams as JTel)
+    from dst_libp2p_test_node_tpu_torch.ops.telemetry import (
+        TelemetryParams as TTel)
+
+    js, ts = _pair("single", max_batch=3)
+    js.sim.record_telemetry(JTel(record=True))
+    ts.sim.record_telemetry(TTel(record=True))
+    _drive((js, ts), _schedule("single"), advance_ms=2000.0)
+    _same_service(js, ts)
+    assert "dst_sim_round_mesh_coverage" in ts.metrics_text()
+    bodies = []
+    for svc in (js, ts):
+        svc.start()
+        try:
+            c = f"http://127.0.0.1:{svc.control_port}"
+            bodies.append(_req(c + "/telemetry")[2])
+        finally:
+            svc.stop()
+    assert bodies[1] == bodies[0]
+    tel = json.loads(bodies[1])
+    assert tel["armed"] is True and tel["heartbeats"] == 2
+    assert len(tel["curves"]["tel_score_q"]) == 2
+    assert all(len(v) == 2 for v in tel["curves"].values())
 
 
 # ------------------------------------------------------------- checkpoint
