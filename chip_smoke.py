@@ -191,6 +191,32 @@ not printed):
                result. (d) the service's recorder at 8(b)'s 10,000 peers
                (one topic): record_telemetry, one tick, /telemetry armed
                with curves and /metrics with the dst_sim_round_* series.
+ 10. campaign, the rest - faults, the adaptive attacker, the DHT adversary
+               and the defense sweep: (a) at 128 peers (fractions 0 and
+               0.2, seeds 0 and 1, checkpoints and the recorder on), on
+               the card and on the CPU: each fault family alone and the
+               three composed (graft flood; the composed partition still
+               open over the publishes), the adaptive attacker on eclipse
+               and graft flood with a recovery window (slot race), the DHT
+               two-leg campaign (eclipse + poison + cluster, healing at
+               recovery round 3): fields, checkpoint files (kad/* leaves
+               included) and obs sidecars bitwise; then a
+               run_defense_sweep of 2 bands x 2 weights, equal outside
+               wall_s. (b) three campaigns on 9(c)'s network (100,000
+               peers x 4 fragments, exact, 60 s warm-up), each fractions
+               0 / 0.1 x seeds 0 / 1, 20 attack and 10 recovery heartbeats
+               (evict + px + redial), checkpoints on: faults (graft flood,
+               crash 2:8, partition 4:12 at 0.5, spike 0:6 of 500 ms,
+               recorder on), adaptive (eclipse), dht (eclipse, lookup
+               eclipse + rtable poison, healing at round 5; then resumed
+               on its directory to the same result); counts zeroed just
+               before and read just after each, the gather must launch;
+               per trial the walls by phase (the DHT build included) and
+               the resilience metrics, peak memory, then the host syncs of
+               one faulted and one adaptive window. (c) at BASELINE config
+               6's width (2,048 peers) the `attack` process with fault,
+               DHT and adaptive flags and the `pareto` process with its
+               default grid: exit 0, strict JSON, a non-empty front.
 
 Then one JSON line with every kernel's numbers: at 1M x 40 with
 `launches` from phase 4's config-5 run, under `exact` at 100k x 40 with
@@ -198,15 +224,16 @@ Then one JSON line with every kernel's numbers: at 1M x 40 with
 numbers with `launches` from phase 3d, and the launches of phase 3f
 (`config3`), 4b (`warm`), 6(a)'s unpadded batch (`batch`), 6(b)'s
 resumed run (`resume`), 7(b)'s regression run (`roles`), 9(c)'s first
-campaign (`campaign`), and under
+campaign (`campaign`), 10(b)'s three campaigns (`faults`, `adaptive`,
+`dht`), and under
 `service` the 670k x 40 numbers with `launches` from 8(b)'s batched run
 (and its sequential run's). Then the total run time, and last the line
 {"ok": true, "device": {...}}. Without CUDA it exits 1 and prints no
 result; run alone, without the package beside it, it exits 2.
 
-Machine time: 591.8 s of run time on one H100 with every phase, builds
-included (PERF.md); phase 8 took 208.1 s of it and phase 9 114.1 s.
-Inside half of a 20-minute budget.
+Machine time: 698.4 s of run time on one H100 with every phase, builds
+included (PERF.md); phase 8 took 198.7 s of it, phase 9 91.9 s and
+phase 10 165.6 s. Inside a 20-minute budget, above half of it.
 """
 
 from __future__ import annotations
@@ -2626,6 +2653,331 @@ def phase_9(dev):
     return launches
 
 
+# ---------------------------------------------------------------- phase 10
+
+CAMP10_N = CAMP6_N
+# 10(b)'s fault schedule: crash, partition and spike windows overlapping
+# inside the 20-round attack window
+FAULTS10 = dict(crash_frac=0.05, crash_window=(2, 8), partition_frac=0.5,
+                partition_window=(4, 12), spike_frac=0.05,
+                spike_window=(0, 6), spike_ms=500.0)
+
+
+def _cfg10(n, scenario, fractions, seeds, attack_hb, warmup_s, faults=None,
+           adaptive=False, dht=None, **kw):
+    """_campaign_cfg with the slice-10 knobs: a fault schedule, the
+    adaptive attacker (its defaults), the DHT adversary."""
+    from dst_libp2p_test_node_tpu_torch.ops.adversary import (
+        AdaptivePolicy, AdversaryParams)
+    from dst_libp2p_test_node_tpu_torch.ops.dht_adversary import (
+        DhtAdversaryParams)
+    from dst_libp2p_test_node_tpu_torch.ops.faults import FaultParams
+
+    cfg = _campaign_cfg(n, scenario, fractions, seeds, attack_hb, warmup_s,
+                        **kw)
+    return dataclasses.replace(
+        cfg, faults=FaultParams(**(faults or {})),
+        dht=DhtAdversaryParams(**(dht or {})),
+        adversary=AdversaryParams(scenario=scenario,
+                                  adaptive=AdaptivePolicy(enabled=adaptive)))
+
+
+def _both_devices(dev, tag, make_cfg, run):
+    """run(cfg, device) on the card and on the CPU with a checkpoint
+    directory each; CampaignResult fields and checkpoint files bitwise."""
+    res = []
+    for i, d in enumerate((dev, torch.device("cpu"))):
+        ck = os.path.join(SCRATCH, f"camp10a_{tag}_{i}")
+        shutil.rmtree(ck, ignore_errors=True)
+        res.append((run(make_cfg(ck), d), ck))
+    (rg, ckg), (rc, ckc) = res
+    check(_campaign_fields(rg) == _campaign_fields(rc),
+          f"10(a) {tag}: TrialResults differ")
+    _same_npz_dirs(f"10(a) {tag}", ckg, ckc)
+    return rg
+
+
+def phase_campaign10_parity(dev):
+    """10(a): at 128 peers (fractions 0 and 0.2, seeds 0 and 1), on the
+    card and on the CPU: each fault family alone and the three composed
+    (graft flood; the composed partition still open over the publishes),
+    the adaptive attacker on eclipse and graft flood with a recovery
+    window (evict + px + redial, slot race), the DHT two-leg campaign
+    (eclipse + poison + cluster, healing at recovery round 3), all with
+    checkpoints and the recorder: fields, checkpoint states, kad leaves
+    and obs sidecars bitwise; then a run_defense_sweep of 2 bands x 2
+    weights, its artifact equal outside wall_s."""
+    from dst_libp2p_test_node_tpu_torch.runtime.campaign import (
+        run_campaign, run_defense_sweep)
+
+    t0 = time.time()
+    n = CAMP_PARITY_N
+    common = dict(fractions=(0.0, 0.2), seeds=(0, 1), attack_hb=10,
+                  warmup_s=5.0, anchor_stages=3)
+    cases = {
+        "crash": dict(scenario="sybil_graft_flood", faults=dict(
+            crash_frac=0.1, crash_window=(2, 6))),
+        "partition": dict(scenario="sybil_graft_flood", faults=dict(
+            partition_frac=0.5, partition_window=(2, 6))),
+        "spike": dict(scenario="sybil_graft_flood", faults=dict(
+            spike_frac=0.1, spike_window=(0, 6), spike_ms=500.0)),
+        "composed": dict(scenario="sybil_graft_flood", faults=dict(
+            FAULTS10, crash_frac=0.1, partition_window=(4, 40))),
+        "adaptive_eclipse": dict(scenario="eclipse_publisher",
+                                 adaptive=True, recovery=8),
+        "adaptive_flood": dict(scenario="sybil_graft_flood", adaptive=True,
+                               recovery=8),
+        "dht": dict(scenario="eclipse_publisher", recovery=8, dht=dict(
+            lookup_eclipse=True, rtable_poison=True, sybil_cluster=True,
+            heal_hb=3)),
+    }
+    summary = []
+    attacked = {}
+    for tag, kw in cases.items():
+        rg = _both_devices(
+            dev, tag, lambda ck, kw=kw: _cfg10(n, ckpt=ck, **common, **kw),
+            lambda c, d: run_campaign(c, device=d))
+        attacked[tag] = [t for t in rg.trials if t.fraction > 0]
+        summary.append(f"{tag}: coverage "
+                       f"{min(t.honest_coverage for t in attacked[tag]):.4f}")
+    check(all(0 < t.rtable_poison_frac < 1 for t in attacked["dht"]),
+          "10(a) dht: no routing-table poison measured")
+    sweep = []
+    for d in (dev, torch.device("cpu")):
+        cfg = _cfg10(n, "eclipse_publisher", (0.2,), (0, 1), 6, 5.0,
+                     adaptive=True, recovery=6, anchor_stages=3,
+                     telemetry=False)
+        sw = run_defense_sweep(cfg, degree_grid=((4, 6, 8), (6, 8, 12)),
+                               weight_grid=(-10.0, -20.0), device=d)
+        sw.pop("wall_s")
+        sweep.append(sw)
+    check(sweep[0] == sweep[1], "10(a): the defense sweep differs")
+    check(len(sweep[0]["configs"]) == 4 and sweep[0]["pareto"],
+          f"10(a): sweep front {sweep[0]['pareto']}")
+    print(f"[campaign10] 10(a) {len(cases)} campaigns at {n} peers x 2 "
+          f"fractions x 2 seeds and a 2 x 2 defense sweep: CUDA = CPU in "
+          f"every TrialResult field, checkpoint file and sweep row "
+          f"({time.time() - t0:.1f} s); " + "; ".join(summary)
+          + f"; sweep front {sweep[0]['pareto']}, beats default "
+          f"{sweep[0]['beats_default']}")
+
+
+def _resilience(t):
+    return (f"heal_time_ms {t['heal_time_ms']}, post_churn_reconvergence_hb"
+            f" {t['post_churn_reconvergence_hb']}, coverage_under_partition "
+            f"{t['coverage_under_partition']}, rtable_poison_frac "
+            f"{t['rtable_poison_frac']}")
+
+
+def _window10_syncs(dev, cfg):
+    """Host syncs (aten::_local_scalar_dense) and profiled wall of one
+    faulted (10(b)'s schedule, graft flood) and one adaptive (eclipse)
+    attack window at the campaign's shape, under the CPU profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dst_libp2p_test_node_tpu_torch.ops import adversary as adv_ops
+    from dst_libp2p_test_node_tpu_torch.ops import faults as fault_ops
+    from dst_libp2p_test_node_tpu_torch.runtime.simulator import Simulator
+
+    sim = Simulator(cfg.experiment, device=dev)
+    sim.warmup()
+    n = sim.params.n
+    att = torch.as_tensor(adv_ops.attacker_cohort(n, 0.1, 0, publisher=4),
+                          device=dev)
+    fp = fault_ops.FaultParams(**FAULTS10)
+    fm = {k: torch.as_tensor(v, device=dev) for k, v in
+          fault_ops.fault_masks(n, fp, 0, publisher=4).items()}
+    a = sim.arrays
+    out = {}
+    for name in ("faulted", "adaptive"):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            t0 = time.time()
+            if name == "faulted":
+                fault_ops.run_faulted_heartbeats(
+                    sim.state, a["conns"], a["rev"], a["out_mask"], att,
+                    sim.params, adv_ops.AdversaryParams(), fp, fm["crash"],
+                    fm["side"], fm["spike"], cfg.attack_heartbeats,
+                    telemetry=cfg.telemetry)
+            else:
+                adv_ops.run_adaptive_heartbeats(
+                    sim.state, a["conns"], a["rev"], a["out_mask"], att,
+                    sim.params, adv_ops.AdversaryParams(
+                        scenario="eclipse_publisher",
+                        adaptive=adv_ops.AdaptivePolicy(enabled=True)),
+                    cfg.attack_heartbeats, telemetry=cfg.telemetry)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        out[name] = (sum(e.count for e in prof.key_averages()
+                         if e.key == "aten::_local_scalar_dense"), wall)
+    return out
+
+
+def _campaign10_full(dev, tag, cfg):
+    """One 10(b) campaign with its counts zeroed just before and read
+    just after; prints its numbers and returns (launches, result)."""
+    from dst_libp2p_test_node_tpu_torch.native import score_update as su
+    from dst_libp2p_test_node_tpu_torch.native import vmem_gather as vg
+    from dst_libp2p_test_node_tpu_torch.runtime.campaign import run_campaign
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    vg.launches = 0
+    su.launches = 0
+    res = run_campaign(cfg, device=dev)
+    torch.cuda.synchronize()
+    launches = {"vmem_gather": vg.launches, "score_update": su.launches}
+    peak = torch.cuda.max_memory_allocated(dev)
+    d = res.to_dict()
+    print(f"[campaign10] 10(b) {tag}: {CAMP_FULL_N} peers x 4 fragments, "
+          f"{cfg.scenario}, fractions 0/0.1 x seeds 0/1, "
+          f"{cfg.attack_heartbeats} attack + {cfg.recovery_heartbeats} "
+          f"recovery heartbeats: wall_s {res.wall_s:.3f}, trials_per_s "
+          f"{res.trials_per_s:.4f}; launches {launches}; peak memory "
+          f"{peak / 2**30:.2f} GiB; {_worst(d)}")
+    for t, w in zip(d["trials"], res.phase_walls):
+        walls = ", ".join(f"{k} {v:.3f} s" for k, v in w.items()
+                          if k not in ("fraction", "seed", "resumed"))
+        print(f"[campaign10] 10(b) {tag}   {_trial_line(t)}; "
+              f"{_resilience(t)}; walls: {walls}")
+    check(launches["vmem_gather"] > 0,
+          f"10(b) {tag}: the campaign never launched vmem_gather")
+    for t in res.trials:
+        check(math.isfinite(t.honest_coverage) and t.honest_coverage > 0,
+              f"10(b) {tag}: trial {t.fraction}/{t.seed} delivered nothing")
+    return launches, res
+
+
+def phase_campaign10_full(dev):
+    """10(b): three campaigns on config 4's network (9(c)'s: 100,000 peers
+    x 4 fragments of 15,000 B, exact, 60 s warm-up, no churn), each at
+    fractions 0 / 0.1, seeds 0 / 1, 20 attack and 10 recovery heartbeats
+    (evict + px + redial), checkpoints on: faults (graft flood under
+    FAULTS10, recorder on), adaptive (eclipse, the default policy), dht
+    (eclipse with lookup eclipse + rtable poison, healing at recovery
+    round 5), the last rerun on its directory to the same result. Then
+    the host syncs of one faulted and one adaptive window."""
+    out = {}
+    ck = {k: os.path.join(SCRATCH, f"camp10b_{k}")
+          for k in ("faults", "adaptive", "dht")}
+    for p in ck.values():
+        shutil.rmtree(p, ignore_errors=True)
+    common = dict(msg_size=15000, frags=4, recovery=10)
+    cfgs = {
+        "faults": _cfg10(CAMP_FULL_N, "sybil_graft_flood", (0.0, 0.1),
+                         (0, 1), 20, EXACT_WARMUP_S, faults=FAULTS10,
+                         ckpt=ck["faults"], **common),
+        "adaptive": _cfg10(CAMP_FULL_N, "eclipse_publisher", (0.0, 0.1),
+                           (0, 1), 20, EXACT_WARMUP_S, adaptive=True,
+                           ckpt=ck["adaptive"], telemetry=False, **common),
+        "dht": _cfg10(CAMP_FULL_N, "eclipse_publisher", (0.0, 0.1), (0, 1),
+                      20, EXACT_WARMUP_S, dht=dict(
+                          lookup_eclipse=True, rtable_poison=True,
+                          heal_hb=5), ckpt=ck["dht"], telemetry=False,
+                      **common),
+    }
+    results = {}
+    for tag, cfg in cfgs.items():
+        out[tag], results[tag] = _campaign10_full(dev, tag, cfg)
+    att = [t for t in results["dht"].trials if t.fraction > 0]
+    check(all(t.rtable_poison_frac > 0 for t in att),
+          "10(b) dht: no routing-table poison measured")
+    from dst_libp2p_test_node_tpu_torch.runtime.campaign import run_campaign
+
+    t1 = time.time()
+    again = run_campaign(cfgs["dht"], device=dev)
+    resumed = [w for w in again.phase_walls if w["fraction"] > 0]
+    check(resumed and all(w["resumed"] for w in resumed),
+          "10(b) dht: the rerun did not resume every attacked trial")
+    check(_campaign_fields(again) == _campaign_fields(results["dht"]),
+          "10(b) dht: the resumed campaign differs from the first run")
+    print(f"[campaign10] 10(b) dht resumed from "
+          f"{len(os.listdir(ck['dht']))} checkpoint files: same "
+          f"CampaignResult outside the walls ({time.time() - t1:.1f} s, "
+          f"wall_s {again.wall_s:.3f})")
+    syncs = _window10_syncs(dev, cfgs["faults"])
+    print(f"[campaign10] 10(b) host syncs in {cfgs['faults'].attack_heartbeats}"
+          f" heartbeats: faulted window {syncs['faulted'][0]} "
+          f"({syncs['faulted'][1]:.3f} s profiled), adaptive window "
+          f"{syncs['adaptive'][0]} ({syncs['adaptive'][1]:.3f} s profiled)")
+    return out
+
+
+def _strict_json(path):
+    def _refuse(tok):
+        raise ValueError(f"non-strict JSON constant {tok}")
+
+    with open(path) as f:
+        return json.load(f, parse_constant=_refuse)
+
+
+def phase_campaign10_cli(dev):
+    """10(c): at BASELINE config 6's width (2,048 peers), the `attack`
+    process with fault, DHT and adaptive flags (eclipse, config 6's grid
+    and depth, a 10-heartbeat recovery window) and the `pareto` process
+    with its default grid: both exit 0 with strict JSON, the attack's
+    trials all present and the sweep's front non-empty."""
+    t0 = time.time()
+    out = {}
+    js = {k: os.path.join(SCRATCH, f"camp10c_{k}.json")
+          for k in ("attack", "pareto")}
+    argv = {
+        "attack": ["attack", "--scenario", "eclipse_publisher", "-n",
+                   str(CAMP10_N), "--msg-size", "2000", "--connect-to", "10",
+                   "--warmup-s", "30", "--fractions", "0,0.1", "--seeds",
+                   "0,1", "--attack-heartbeats", "20", "--messages", "3",
+                   "--delay-s", "2", "--adaptive", "--crash-frac", "0.05",
+                   "--crash-window", "2:8", "--partition-frac", "0.5",
+                   "--partition-window", "4:12", "--spike-frac", "0.05",
+                   "--spike-window", "0:6", "--spike-ms", "500",
+                   "--dht-eclipse", "--dht-poison", "--dht-heal-hb", "5",
+                   "--recovery-heartbeats", "10", "--evict", "--px",
+                   "--redial", "--json", js["attack"]],
+        "pareto": ["pareto", "-n", str(CAMP10_N), "--json", js["pareto"]],
+    }
+    for name, args in argv.items():
+        tc = time.time()
+        proc = subprocess.run([sys.executable, "-m",
+                               "dst_libp2p_test_node_tpu_torch", *args],
+                              cwd=ROOT, capture_output=True, text=True,
+                              timeout=600)
+        check(proc.returncode == 0, f"10(c) {name} exited "
+              f"{proc.returncode}: {proc.stderr[-2000:]}")
+        out[name] = (_strict_json(js[name]), time.time() - tc,
+                     proc.stdout.strip().splitlines()[-1])
+    d, cli_s, last = out["attack"]
+    check(len(d["trials"]) == 4, f"10(c) attack: {len(d['trials'])} trials")
+    print(f"[campaign10] 10(c) attack ({CAMP10_N} peers, eclipse, "
+          f"--adaptive, crash + partition + spike, --dht-eclipse "
+          f"--dht-poison): exit 0 in {cli_s:.1f} s, strict JSON, wall_s "
+          f"{d['wall_s']:.3f}, trials_per_s {d['trials_per_s']:.4f}; "
+          f"{_worst(d)}")
+    for t in d["trials"]:
+        print(f"[campaign10] 10(c)   {_trial_line(t)}; {_resilience(t)}")
+    sw, cli_s, last = out["pareto"]
+    check(sw["pareto"], "10(c) pareto: empty front")
+    print(f"[campaign10] 10(c) pareto ({CAMP10_N} peers, default grid): "
+          f"exit 0 in {cli_s:.1f} s, strict JSON, {len(sw['configs'])} "
+          f"points, front {sw['pareto']}, beats default "
+          f"{sw['beats_default']}, sweep wall_s {sw['wall_s']:.3f}; "
+          + "; ".join(f"{r['d_low']}:{r['d']}:{r['d_high']} w "
+                      f"{r['slow_peer_penalty_weight']}: coverage "
+                      f"{r['coverage']:.4f}, bandwidth "
+                      f"{r['bandwidth_bytes']:.0f} B, recovery "
+                      f"{r['recovery_time_ms']} ms" for r in sw["configs"])
+          + f" ({time.time() - t0:.1f} s)")
+
+
+def phase_10(dev):
+    t0 = time.time()
+    os.makedirs(SCRATCH, exist_ok=True)
+    phase_campaign10_parity(dev)
+    launches = phase_campaign10_full(dev)
+    phase_campaign10_cli(dev)
+    print(f"[campaign10] phase 10 took {time.time() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -2657,6 +3009,7 @@ def main() -> int:
         launches_roles = phase_roles(dev)
         service = phase_8(dev)
         launches_campaign = phase_9(dev)
+        launches10 = phase_10(dev)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -2671,6 +3024,9 @@ def main() -> int:
                  resume=dict(launches=launches_resume[k]),
                  roles=dict(launches=launches_roles[k]),
                  campaign=dict(launches=launches_campaign[k]),
+                 faults=dict(launches=launches10["faults"][k]),
+                 adaptive=dict(launches=launches10["adaptive"][k]),
+                 dht=dict(launches=launches10["dht"][k]),
                  service=dict(
                      v["service"],
                      launches=service["batched"]["launches"][k],

@@ -1,7 +1,8 @@
 """Command line of the port: the reference's `run` experiment, its role
 workloads (`kad`, `connmanager`, `regression`, `servicedisco`), the
 resident node service (`serve`, driven by `inject`), the adversarial
-campaign (`attack`) and the `topogen` and `summarize` tools, on one GPU.
+campaign (`attack`), the defense Pareto sweep (`pareto`) and the
+`topogen` and `summarize` tools, on one GPU.
 
   python -m dst_libp2p_test_node_tpu_torch run <runs> <nodes> <message_size> \\
       <num_fragment> <num_publishers> <min_bandwidth> <max_bandwidth> \\
@@ -45,14 +46,21 @@ prints the awk summary of a latencies file.
 
   python -m dst_libp2p_test_node_tpu_torch attack --scenario S -n PEERS \
       --fractions 0,0.1 --seeds 0,1 [--recovery-heartbeats R --evict --px \
-      --redial] [--json F] [--metrics-out F] [--device cpu]
+      --redial] [--adaptive] [--crash-frac F --crash-window A:B ...] \
+      [--dht-eclipse --dht-poison --dht-cluster --dht-heal-hb H] \
+      [--json F] [--metrics-out F] [--device cpu]
+  python -m dst_libp2p_test_node_tpu_torch pareto [--scenario S] \
+      [--degree-grid DL:D:DH,...] [--weight-grid W,...] [--json F] \
+      [--device cpu]
 
-`attack` runs one scenario over a fraction x seed grid and prints the
-reference's campaign report; --json writes the result as strict JSON and
---metrics-out the dst_testnode_attack_* Prometheus text, both the
-reference CLI's bytes apart from wall times. The flags of later slices
-(--adaptive and its knobs, the fault windows, the --dht-* adversary,
---mesh, --trial-groups) exit with an error naming their slice.
+`attack` runs one scenario over a fraction x seed grid, with the fault
+schedule, the adaptive attacker and the DHT adversary when their flags
+arm them, and prints the reference's campaign report; --json writes the
+result as strict JSON and --metrics-out the dst_testnode_attack_*
+Prometheus text, both the reference CLI's bytes apart from wall times.
+`pareto` races a grid of defense knobs against the adaptive attacker and
+prints the reference's Pareto report (--json: its artifact). --mesh and
+--trial-groups (several GPUs) exit with an error naming their slice.
 """
 
 from __future__ import annotations
@@ -742,28 +750,6 @@ def validate_attack_flags(
 # the attack flags of later slices: set, each exits with an error naming
 # the slice (never silently ignored)
 _LATER_ATTACK_FLAGS = (
-    ("adaptive", "--adaptive", "next campaign"),
-    ("throttle_margin", "--throttle-margin", "next campaign"),
-    ("px_poison_per_hb", "--px-poison-per-hb", "next campaign"),
-    ("crash_frac", "--crash-frac", "next campaign (faults)"),
-    ("crash_window", "--crash-window", "next campaign (faults)"),
-    ("partition_frac", "--partition-frac", "next campaign (faults)"),
-    ("partition_window", "--partition-window", "next campaign (faults)"),
-    ("spike_frac", "--spike-frac", "next campaign (faults)"),
-    ("spike_window", "--spike-window", "next campaign (faults)"),
-    ("spike_ms", "--spike-ms", "next campaign (faults)"),
-    ("dht_eclipse", "--dht-eclipse", "next campaign (DHT adversary)"),
-    ("dht_poison", "--dht-poison", "next campaign (DHT adversary)"),
-    ("dht_cluster", "--dht-cluster", "next campaign (DHT adversary)"),
-    ("dht_heal_hb", "--dht-heal-hb", "next campaign (DHT adversary)"),
-    ("dht_poison_per_peer", "--dht-poison-per-peer",
-     "next campaign (DHT adversary)"),
-    ("dht_cluster_prefix_bits", "--dht-cluster-prefix-bits",
-     "next campaign (DHT adversary)"),
-    ("dht_evict_max_fails", "--dht-evict-max-fails",
-     "next campaign (DHT adversary)"),
-    ("dht_evict_backoff_ms", "--dht-evict-backoff-ms",
-     "next campaign (DHT adversary)"),
     ("mesh", "--mesh", "multi-GPU (A13)"),
     ("trial_groups", "--trial-groups", "multi-GPU (A13)"),
 )
@@ -836,22 +822,65 @@ def cmd_attack(argv: list[str]) -> int:
     p.add_argument("--metrics-out", default=None,
                    help="write Prometheus text exposition of the "
                    "dst_testnode_attack_* series here")
-    # the reference's flags of later slices (an error names the slice)
+    # the adaptive attacker controller (ops/adversary.AdaptivePolicy)
+    p.add_argument("--adaptive", action="store_true",
+                   help="arm the per-round adaptive attacker controller "
+                   "(backoff-expiry regraft + PX sybil poison + recovery "
+                   "slot race + score-aware duty cycle); graft-flood "
+                   "scenarios only")
+    p.add_argument("--throttle-margin", type=float, default=None,
+                   help="adaptive duty-cycle setpoint as a fraction of the "
+                   "graylist threshold (0 < m < 1); requires --adaptive")
+    p.add_argument("--px-poison-per-hb", type=int, default=None,
+                   help="sybil ids the adaptive attacker plants per victim "
+                   "px_pool row per heartbeat; requires --adaptive")
+    # fault injection (ops/faults.py): windows are A:B heartbeat rounds of
+    # the attack window, half-open
+    p.add_argument("--crash-frac", type=float, default=0.0,
+                   help="fraction of non-publisher peers that crash for "
+                   "--crash-window and restart with cold mesh/score state")
+    p.add_argument("--crash-window", default="0:0", metavar="A:B",
+                   help="heartbeat rounds [A, B) the crash cohort is dark")
+    p.add_argument("--partition-frac", type=float, default=0.0,
+                   help="fraction of peers cut onto the far side of a "
+                   "two-component graph partition")
+    p.add_argument("--partition-window", default="0:0", metavar="A:B",
+                   help="heartbeat rounds [A, B) the partition is up")
+    p.add_argument("--spike-frac", type=float, default=0.0,
+                   help="fraction of peers whose uplink clocks take a "
+                   "latency spike during --spike-window")
+    p.add_argument("--spike-window", default="0:0", metavar="A:B",
+                   help="heartbeat rounds [A, B) of the latency spike")
+    p.add_argument("--spike-ms", type=float, default=0.0,
+                   help="extra uplink serialization delay per spiked peer")
+    # the DHT adversary (ops/dht_adversary.py): the recovery window's
+    # re-dial path draws its candidates from the (attacked) DHT
+    p.add_argument("--dht-eclipse", action="store_true",
+                   help="lookup eclipse: attacker responders answer "
+                   "FIND_NODE with sybil-only shortlists")
+    p.add_argument("--dht-poison", action="store_true",
+                   help="routing-table poisoning: sybil insert waves squat "
+                   "honest bucket slots")
+    p.add_argument("--dht-cluster", action="store_true",
+                   help="sybil key clustering: mint attacker keys inside "
+                   "the victim's keyspace prefix")
+    p.add_argument("--dht-heal-hb", type=int, default=-1, metavar="HB",
+                   help="recovery heartbeat at which the DHT heals (the "
+                   "redial pool switches to honest lookups); -1 = never")
+    p.add_argument("--dht-poison-per-peer", type=int, default=8,
+                   help="sybil insert attempts per honest routing table")
+    p.add_argument("--dht-cluster-prefix-bits", type=int, default=16,
+                   help="shared victim-prefix bits of minted sybil keys")
+    p.add_argument("--dht-evict-max-fails", type=int, default=1,
+                   help="failed lookups a routing-table entry survives "
+                   "before eviction (retry budget)")
+    p.add_argument("--dht-evict-backoff-ms", type=float, default=0.0,
+                   help="exponential backoff base between retries of a "
+                   "failing routing-table entry")
+    # several GPUs (an error names the slice)
     later = p.add_argument_group("later slices")
-    later.add_argument("--adaptive", action="store_true")
-    later.add_argument("--throttle-margin", type=float, default=None)
-    later.add_argument("--px-poison-per-hb", type=int, default=None)
     later.add_argument("--mesh", action="store_true")
     later.add_argument("--trial-groups", type=int, default=None)
-    for flag in ("--crash-frac", "--partition-frac", "--spike-frac",
-                 "--spike-ms", "--dht-poison-per-peer",
-                 "--dht-cluster-prefix-bits", "--dht-evict-max-fails",
-                 "--dht-evict-backoff-ms", "--dht-heal-hb"):
-        later.add_argument(flag, default=None)
-    for flag in ("--crash-window", "--partition-window", "--spike-window"):
-        later.add_argument(flag, default=None, metavar="A:B")
-    for flag in ("--dht-eclipse", "--dht-poison", "--dht-cluster"):
-        later.add_argument(flag, action="store_true")
     _device_arg(p)
     a = p.parse_args(argv)
 
@@ -861,8 +890,7 @@ def cmd_attack(argv: list[str]) -> int:
             mimic_margin=a.mimic_margin,
             rotation_period_hb=a.rotation_period_hb,
             dht_attack=(a.dht_eclipse or a.dht_poison or a.dht_cluster),
-            dht_heal_hb=(int(a.dht_heal_hb) if a.dht_heal_hb is not None
-                         else -1),
+            dht_heal_hb=a.dht_heal_hb,
             adaptive=a.adaptive,
             throttle_margin=a.throttle_margin,
             px_poison_per_hb=a.px_poison_per_hb,
@@ -875,7 +903,16 @@ def cmd_attack(argv: list[str]) -> int:
                     f"{slice_name} slice (ROADMAP A)")
     device = _resolve(p, a.device)
 
-    from .ops.adversary import AdversaryParams
+    def _window(spec: str, flag: str) -> tuple[int, int]:
+        try:
+            lo, hi = spec.split(":")
+            return int(lo), int(hi)
+        except ValueError:
+            p.error(f"{flag} must be A:B heartbeat indices, got {spec!r}")
+
+    from .ops.adversary import AdaptivePolicy, AdversaryParams
+    from .ops.dht_adversary import DhtAdversaryParams
+    from .ops.faults import FaultParams
     from .ops.repair import RepairParams
     from .runtime.campaign import (
         CampaignConfig, SupervisorConfig, attack_gossipsub, run_campaign)
@@ -889,6 +926,13 @@ def cmd_attack(argv: list[str]) -> int:
         adv_kw["mimic_margin"] = a.mimic_margin
     if a.rotation_period_hb is not None:
         adv_kw["rotation_period_hb"] = a.rotation_period_hb
+    if a.adaptive:
+        pol_kw: dict = {"enabled": True}
+        if a.throttle_margin is not None:
+            pol_kw["throttle_margin"] = a.throttle_margin
+        if a.px_poison_per_hb is not None:
+            pol_kw["px_poison_per_hb"] = a.px_poison_per_hb
+        adv_kw["adaptive"] = AdaptivePolicy(**pol_kw)
     # eclipse needs a mesh-bound publish to have anything to eclipse
     gs = attack_gossipsub(flood_publish=(a.scenario != "eclipse_publisher"))
     cfg = CampaignConfig(
@@ -918,6 +962,24 @@ def cmd_attack(argv: list[str]) -> int:
             evict=a.evict, eviction_threshold=a.eviction_threshold,
             px=a.px, px_count=a.px_count,
             redial=a.redial, redial_patience=a.redial_patience),
+        faults=FaultParams(
+            crash_frac=a.crash_frac,
+            crash_window=_window(a.crash_window, "--crash-window"),
+            partition_frac=a.partition_frac,
+            partition_window=_window(a.partition_window,
+                                     "--partition-window"),
+            spike_frac=a.spike_frac,
+            spike_window=_window(a.spike_window, "--spike-window"),
+            spike_ms=a.spike_ms),
+        dht=DhtAdversaryParams(
+            lookup_eclipse=a.dht_eclipse,
+            rtable_poison=a.dht_poison,
+            sybil_cluster=a.dht_cluster,
+            heal_hb=a.dht_heal_hb,
+            poison_per_peer=a.dht_poison_per_peer,
+            cluster_prefix_bits=a.dht_cluster_prefix_bits,
+            evict_max_fails=a.dht_evict_max_fails,
+            evict_backoff_ms=a.dht_evict_backoff_ms),
         supervisor=SupervisorConfig(
             trial_timeout_s=a.trial_timeout_s,
             max_retries=a.max_retries,
@@ -944,6 +1006,115 @@ def cmd_attack(argv: list[str]) -> int:
     return 0
 
 
+def cmd_pareto(argv: list[str]) -> int:
+    """Defense Pareto sweep: grid the score-defense knobs (the mesh degree
+    band, the slow-peer penalty weight) against the adaptive attacker and
+    print the coverage / bandwidth / recovery-time front
+    (runtime/campaign.run_defense_sweep)."""
+    from .ops.adversary import ADAPTIVE_SCENARIOS
+
+    p = argparse.ArgumentParser(prog="pareto")
+    p.add_argument("--scenario", choices=ADAPTIVE_SCENARIOS,
+                   default="eclipse_publisher",
+                   help="adaptive-capable scenario the sweep defends "
+                   "against (eclipse_publisher gives the sharpest "
+                   "recovery_time_ms separation)")
+    p.add_argument("-n", "--peers", type=int, default=64)
+    p.add_argument("--fractions", default="0.2",
+                   help="comma-separated ATTACKED fractions (> 0); the "
+                   "sweep aggregates over all of them")
+    p.add_argument("--seeds", default="0,1")
+    p.add_argument("--messages", type=int, default=2)
+    p.add_argument("--msg-size", type=int, default=2000)
+    p.add_argument("--delay-s", type=float, default=0.5)
+    p.add_argument("--warmup-s", type=float, default=8.0)
+    p.add_argument("--attack-heartbeats", type=int, default=6)
+    p.add_argument("--recovery-heartbeats", type=int, default=8)
+    p.add_argument("--connect-to", type=int, default=8)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--publisher-id", type=int, default=4)
+    p.add_argument("--throttle-margin", type=float, default=None,
+                   help="adaptive duty-cycle setpoint (0 < m < 1)")
+    p.add_argument("--degree-grid", default="4:6:8,4:4:6",
+                   metavar="DL:D:DH[,...]",
+                   help="comma-separated d_low:d:d_high degree bands to "
+                   "sweep (the defaults are inserted if absent)")
+    p.add_argument("--weight-grid", default="-10", metavar="W[,...]",
+                   help="comma-separated slow_peer_penalty_weight values "
+                   "(<= 0) to sweep")
+    p.add_argument("--json", default=None,
+                   help="write the sweep artifact as strict JSON here")
+    later = p.add_argument_group("later slices")
+    later.add_argument("--trial-groups", type=int, default=None)
+    _device_arg(p)
+    a = p.parse_args(argv)
+    if a.trial_groups is not None:
+        p.error("--trial-groups is not ported yet: it comes with the "
+                "multi-GPU (A13) slice (ROADMAP A)")
+
+    try:
+        degree_grid = tuple(
+            tuple(int(x) for x in band.split(":"))
+            for band in a.degree_grid.split(",") if band.strip())
+        if any(len(b) != 3 for b in degree_grid):
+            raise ValueError
+    except ValueError:
+        p.error(f"--degree-grid must be DL:D:DH[,DL:D:DH...], got "
+                f"{a.degree_grid!r}")
+    weight_grid = tuple(
+        float(s) for s in a.weight_grid.split(",") if s.strip())
+    fractions = tuple(float(s) for s in a.fractions.split(",") if s.strip())
+    if not fractions or any(f <= 0.0 for f in fractions):
+        p.error("--fractions must list attacked fractions > 0 (the sweep "
+                "measures the defense against the armed attacker; benign "
+                "baselines belong to the attack subcommand)")
+    seeds = tuple(int(s) for s in a.seeds.split(",") if s.strip())
+    device = _resolve(p, a.device)
+
+    from .ops.adversary import AdaptivePolicy, AdversaryParams
+    from .ops.repair import RepairParams
+    from .runtime.campaign import (
+        CampaignConfig, attack_gossipsub, run_defense_sweep)
+    from .runtime.simulator import ExperimentConfig
+    from .runtime.summarize import report_defense_sweep
+
+    pol_kw: dict = {"enabled": True}
+    if a.throttle_margin is not None:
+        pol_kw["throttle_margin"] = a.throttle_margin
+    cfg = CampaignConfig(
+        scenario=a.scenario,
+        fractions=fractions,
+        seeds=seeds,
+        experiment=ExperimentConfig(
+            topo=TopoParams(
+                network_size=a.peers, anchor_stages=3,
+                msg_size_bytes=a.msg_size, messages=a.messages,
+                delay_seconds=a.delay_s),
+            connect_to=a.connect_to,
+            gossipsub=attack_gossipsub(
+                flood_publish=(a.scenario != "eclipse_publisher")),
+            publisher_id=a.publisher_id,
+            warmup_s=a.warmup_s,
+            seed=a.seed,
+        ),
+        adversary=AdversaryParams(
+            scenario=a.scenario, adaptive=AdaptivePolicy(**pol_kw)),
+        attack_heartbeats=a.attack_heartbeats,
+        recovery_heartbeats=a.recovery_heartbeats,
+        repair=RepairParams(evict=True, px=True, redial=True),
+    )
+    t0 = time.time()
+    sweep = run_defense_sweep(cfg, degree_grid=degree_grid,
+                              weight_grid=weight_grid, device=device)
+    print(report_defense_sweep(sweep), end="")
+    if a.json:
+        with open(a.json, "w") as f:
+            # strict JSON: run_defense_sweep sanitizes non-finite values
+            json.dump(sweep, f, indent=2, allow_nan=False)
+    print(_wall_line(device, t0, f" points={len(sweep['configs'])}"))
+    return 0
+
+
 COMMANDS = {
     "run": cmd_run,
     "kad": cmd_kad,
@@ -953,6 +1124,7 @@ COMMANDS = {
     "serve": cmd_serve,
     "inject": cmd_inject,
     "attack": cmd_attack,
+    "pareto": cmd_pareto,
     "topogen": cmd_topogen,
     "summarize": cmd_summarize,
 }

@@ -7,9 +7,12 @@ same on both sides; the PRNG key travels as a (2,) uint32 array and is held
 as int64 words in the port (prng.py). The tests use the pair to start both
 engines from one state and compare them leaf by leaf. `leaves_to_numpy`
 and `dataclass_from_numpy` do the same for the role workloads' state
-(KadState, ConnState, AdvertStore) and results. `obs_to_numpy` /
-`obs_from_numpy` carry a window's observable curves, and `result_fields` /
-`campaign_from_fields` a campaign's TrialResult and CampaignResult.
+(KadState, ConnState, AdvertStore), a campaign's carries (the adaptive
+attacker's AdaptiveCtrl, a trial's KadState) and results. `obs_to_numpy` /
+`obs_from_numpy` carry any {name: array} dict: a window's observable
+curves, a trial's fault cohorts (ops/faults.fault_masks) or a DHT repair
+pool under one name; `result_fields` / `campaign_from_fields` a
+campaign's TrialResult and CampaignResult.
 """
 
 from __future__ import annotations
@@ -90,8 +93,8 @@ def dataclass_from_numpy(cls, leaves: dict, device):
 
 
 def obs_to_numpy(obs: dict) -> dict:
-    """{key: numpy array} of a window's obs dict (tensors of the port or
-    arrays of the reference)."""
+    """{key: numpy array} of a dict of arrays: a window's obs, fault
+    cohorts or pools (tensors of the port or arrays of the reference)."""
     return {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
                 else np.asarray(v)) for k, v in obs.items()}
 

@@ -23,9 +23,14 @@ involution (ops/pull.py), applied after each heartbeat:
 Violations accrue into `state.slow_penalty` (the v1.1 P7 shape), so the
 defense chain is the engine's own: score -> gates -> graylist -> prune.
 Each `lax.cond` of the reference is one host predicate; the identity
-rotation's scrub cadence reads the window's round index on the host. The
-adaptive controller (AdaptivePolicy armed) comes with the next campaign
-slice and raises.
+rotation's scrub cadence reads the window's round index on the host.
+
+The adaptive attacker (AdaptivePolicy armed) replaces adversary_round with
+`adaptive_round`: a per-attacker controller carry (ops/state.AdaptiveCtrl)
+predicts its next penalty counter, floods or throttles to legal re-grafts
+(duty cycle), updates its estimate from its own tx view and plants sybil
+ids in honest px_pool rows. `run_adaptive_heartbeats` is its window;
+disabled it is run_attacked_heartbeats.
 """
 
 from __future__ import annotations
@@ -38,9 +43,11 @@ import torch
 
 from .heartbeat import heartbeat_step
 from .pull import neighbor_pull_bool, reciprocal_pull_bool
-from .state import PX_POOL_WIDTH, SimParams, SimState
-from .telemetry import contracted_score, stack_obs, telemetry_observables
-from .xlamath import sum_f32
+from .state import (PX_POOL_WIDTH, AdaptiveCtrl, SimParams, SimState,
+                    init_adaptive_ctrl, repair_inert)
+from .telemetry import (adaptive_observables, contracted_score, stack_obs,
+                        telemetry_observables)
+from .xlamath import fma_f32, sum_f32
 
 SCENARIOS = (
     "sybil_graft_flood",
@@ -54,19 +61,20 @@ SCENARIOS = (
 )
 
 # the scenarios the adaptive controller composes with (the graft-flood
-# family); kept for the flag checks, the controller itself is not ported
+# family, whose round behavior is mesh pressure a controller can modulate)
 ADAPTIVE_SCENARIOS = ("sybil_graft_flood", "eclipse_publisher",
                       "cold_boot_join")
-
-ADAPTIVE_SLICE = "next campaign (adaptive controller, faults, DHT adversary)"
 
 
 @dataclass(frozen=True)
 class AdaptivePolicy:
-    """The reference's adaptive attacker policy, kept as a configuration
-    surface: disabled (the default) every runner takes the static path;
-    armed, `AdversaryParams.validate` raises (the controller is a later
-    slice)."""
+    """The reference's per-round adaptive attacker policy. Disabled (the
+    default) every runner takes the static path. Armed: `regraft` re-grafts
+    every edge whose backoff expired, `px_poison` plants px_poison_per_hb
+    sybil ids per victim px_pool row per round, `slot_race` has the cohort
+    run the dial controller in recovery windows, `duty_cycle` stops the
+    flood when one more violation would push the predicted counter past
+    throttle_margin * c_req."""
 
     enabled: bool = False
     regraft: bool = True
@@ -85,10 +93,19 @@ class AdaptivePolicy:
             raise ValueError(
                 f"px_poison_per_hb must be in [1, {PX_POOL_WIDTH}] "
                 f"(the px_pool width), got {self.px_poison_per_hb}")
-        if self.enabled:
-            raise NotImplementedError(
-                "the adaptive attacker controller is not ported yet: it "
-                f"comes with the {ADAPTIVE_SLICE} slice (ROADMAP A9)")
+        if self.enabled and not (self.regraft or self.px_poison
+                                 or self.slot_race or self.duty_cycle):
+            raise ValueError("adaptive policy is enabled but every behavior "
+                             "is off — use enabled=False (the delegating "
+                             "path) instead of an armed no-op")
+        if self.enabled and scenario is not None \
+                and scenario not in ADAPTIVE_SCENARIOS:
+            raise ValueError(
+                f"adaptive policy composes with {ADAPTIVE_SCENARIOS} only "
+                f"(the graft-flood family), not scenario {scenario!r}: the "
+                "spam scenarios have no backoff/mesh loop to adapt to, "
+                "mimicry is already an adaptive policy, and rotation's "
+                "identity scrubs erase the controller's own estimate")
 
 
 @dataclass(frozen=True)
@@ -290,15 +307,19 @@ def attack_observables(state: SimState, conns, rev, attacker,
 
 def adversary_round(state: SimState, conns, rev, attacker,
                     params: SimParams, adv: AdversaryParams, nbr_ok=None,
-                    hb_idx: int | None = None):
+                    hb_idx: int | None = None, edge_ok=None):
     """One heartbeat of attacker behavior and honest defense accounting,
     applied after heartbeat_step. Returns (new_state, obs). `hb_idx`: the
-    window's 0-based round index (identity_rotation's scrub cadence)."""
+    window's 0-based round index (identity_rotation's scrub cadence);
+    `edge_ok`: heartbeat_step's per-edge availability mask (a partitioned
+    edge carries no attack traffic either)."""
     if adv.identity_rotation and hb_idx is None:
         raise ValueError("identity_rotation needs the scan round index "
                          "(hb_idx) to schedule the identity scrubs")
     t = state.t_ms
     valid = _valid_edges(state, conns, rev, nbr_ok)
+    if edge_ok is not None:
+        valid = valid & edge_ok
     att_row = attacker[:, None] & valid
 
     mesh = state.mesh_mask
@@ -388,31 +409,168 @@ def adversary_round(state: SimState, conns, rev, attacker,
 def run_attacked_heartbeats(state: SimState, conns, rev, out_mask, attacker,
                             params: SimParams, adv: AdversaryParams,
                             steps: int, telemetry=None):
-    """`steps` rounds of [heartbeat_step -> adversary_round]. Decay is per
+    """`steps` rounds of [heartbeat_step -> adversary_round]: the attack
+    window with no fault schedule (ops/faults.attack_window). Decay is per
     round (the window writes the penalty counter mid-run, so nothing is
     deferred and score_update is not reached); the neighbor pull hoists
     when churn is off. Returns (state, obs) with obs leaves shaped
     (steps,). `telemetry`: an armed TelemetryParams adds the tel_*
     channels (no PRNG, no state write)."""
-    if adv.adaptive.enabled:
-        adv.adaptive.validate(adv.scenario)
-    if telemetry is not None and not telemetry.enabled:
-        telemetry = None
-    nbr_ok = None
-    if params.churn_down_per_hb == 0.0 and params.churn_up_per_hb == 0.0:
-        nbr_ok = neighbor_pull_bool(state.alive & state.subscribed, conns,
-                                    rev)
-    rounds = []
-    for hb in range(steps):
-        state = heartbeat_step(state, conns, rev, out_mask, params,
-                               nbr_ok=nbr_ok)
-        state, obs = adversary_round(state, conns, rev, attacker, params,
-                                     adv, nbr_ok=nbr_ok, hb_idx=hb)
-        if telemetry is not None:
-            obs.update(telemetry_observables(
-                state, conns, rev, params, telemetry, contract_score="first"))
-        rounds.append(obs)
-    return state, stack_obs(rounds)
+    from .faults import attack_window  # faults imports this module
+
+    return attack_window(state, conns, rev, out_mask, attacker, params, adv,
+                         steps, telemetry=telemetry)
+
+
+def _decayed_plus(est: torch.Tensor, decay: float, add: torch.Tensor):
+    """est * decay + add in float32 with one rounding: XLA's CPU backend
+    contracts both of the controller's multiply-adds into FMAs in every
+    reference program that runs it (ROADMAP C5)."""
+    return fma_f32(est, _f32(decay, est), add)
+
+
+def adaptive_round(state: SimState, ctrl: AdaptiveCtrl, conns, rev,
+                   attacker, params: SimParams, adv: AdversaryParams,
+                   nbr_ok=None, edge_ok=None, hb_idx: int | None = None,
+                   att_sorted=None, n_att=None, px_pool_live: bool = True):
+    """One heartbeat of the adaptive attacker controller and the honest
+    defense accounting, applied after heartbeat_step (and after
+    repair_round in the recovery windows). Returns ((state, ctrl), obs):
+    the attack observables plus the adv_* controller channels. No PRNG.
+
+    Per attacker row: PREDICT the next counter (viol_est * slow_decay +
+    violation_penalty); ACT (flood every valid edge) while that stays under
+    throttle_margin * c_req, else THROTTLE to legal re-grafts (backoff
+    expired, edge not meshed); OBSERVE its own violations into viol_est;
+    POISON empty px_pool slots of honest peers beside the cohort with
+    sybil ids, rotating through the sorted cohort by round.
+
+    `hb_idx`: the window's 0-based round; `att_sorted` / `n_att`: the
+    window-invariant sorted cohort ids and cohort size the runners hoist.
+    `px_pool_live`: False where the reference strips the repair leaves
+    from its window (repair fully off), so the poisoner does not run and
+    adv_px_sybil_frac reads 0."""
+    pol = adv.adaptive
+    if not pol.enabled:
+        raise ValueError("adaptive_round requires an armed AdaptivePolicy; "
+                         "the disabled path is run_attacked_heartbeats")
+    i32 = torch.int32
+    t = state.t_ms
+    valid = _valid_edges(state, conns, rev, nbr_ok)
+    if edge_ok is not None:
+        valid = valid & edge_ok
+    att_row = attacker[:, None] & valid
+    n = conns.shape[0]
+    dev = conns.device
+    me = torch.arange(n, dtype=i32, device=dev)
+    zero = _f32(0.0, state.slow_penalty)
+    pen = _f32(adv.violation_penalty, zero)
+
+    # -- 1/2: the score-aware duty cycle ----------------------------------
+    if pol.duty_cycle and params.slow_weight < 0.0:
+        c_req = _f32(params.graylist_threshold / params.slow_weight, zero)
+        predicted = _decayed_plus(ctrl.viol_est, params.slow_decay,
+                                  pen.expand_as(ctrl.viol_est))
+        act = attacker & (predicted < _f32(pol.throttle_margin, zero)
+                          * c_req)
+    else:
+        act = attacker
+
+    # -- the graft set: the flood when acting, legal re-grafts otherwise --
+    legal = att_row & (state.backoff_until <= t) & ~state.mesh_mask
+    graft = att_row & act[:, None]
+    if pol.regraft:
+        graft = graft | legal
+    rx = reciprocal_pull_bool(graft, conns, rev)
+    violation = rx & ((state.backoff_until > t) | state.mesh_mask)
+    sc = state.score(params)
+    accept = rx & ~violation & (sc >= 0.0)
+    mesh = (state.mesh_mask | graft | accept) & valid
+    slow_penalty = _accrue(state.slow_penalty, violation,
+                           adv.violation_penalty)
+    grafts = state.grafts + graft.sum(dim=-1, dtype=i32)
+    grafts_rx = state.grafts_rx + rx.sum(dim=-1, dtype=i32)
+
+    # -- 3: the estimate, from the attacker's own tx view -----------------
+    self_viol = (graft & ((state.backoff_until > t)
+                          | state.mesh_mask)).any(dim=-1)
+    viol_est = _decayed_plus(ctrl.viol_est, params.slow_decay,
+                             torch.where(attacker & self_viol, pen, zero))
+    regrafts = ctrl.regrafts
+    if pol.regraft:
+        regrafts = regrafts + torch.where(
+            attacker, legal.sum(dim=-1, dtype=i32), 0)
+    throttled_hb = ctrl.throttled_hb + (attacker & ~act).to(i32)
+
+    # -- 4: PX poisoning: sybil answers to PX demand ----------------------
+    px_injected = ctrl.px_injected
+    extra = {}
+    if pol.px_poison and px_pool_live:
+        pool = state.px_pool.clone()
+        if att_sorted is None:
+            att_sorted = torch.sort(torch.where(attacker, me, n)).values
+        if n_att is None:
+            n_att = attacker.sum(dtype=torch.int64)
+        att_nbr = neighbor_pull_bool(attacker, conns, rev)
+        victim = (~attacker & state.alive & state.subscribed
+                  & (att_nbr & valid).any(dim=-1))
+        hb = hb_idx if hb_idx is not None else 0
+        base = me.long() + hb * pol.px_poison_per_hb
+        denom = n_att.clamp_min(1)
+        rows = me.long()
+        for k in range(pol.px_poison_per_hb):
+            cand = att_sorted[(base + k) % denom]
+            empty = pool < 0
+            slot = torch.argmax(empty.to(torch.uint8), dim=-1)
+            do = victim & (n_att > 0) & (cand < n) & empty.any(dim=-1)
+            pool[rows, slot] = torch.where(do, cand.to(pool.dtype),
+                                           pool[rows, slot])
+            px_injected = px_injected + do.to(i32)
+        extra["px_pool"] = pool
+
+    new_state = state.replace(
+        mesh_mask=mesh, slow_penalty=slow_penalty,
+        grafts=grafts, grafts_rx=grafts_rx, **extra)
+    new_ctrl = AdaptiveCtrl(viol_est=viol_est, regrafts=regrafts,
+                            px_injected=px_injected,
+                            throttled_hb=throttled_hb)
+    obs = attack_observables(new_state, conns, rev, attacker, params,
+                             valid=valid)
+    obs.update(adaptive_observables(
+        new_state, new_ctrl, attacker, acting=act,
+        violations=violation.sum(dtype=torch.int64),
+        px_pool_live=px_pool_live))
+    return (new_state, new_ctrl), obs
+
+
+def cohort_order(attacker: torch.Tensor):
+    """(sorted cohort ids, padded with n; cohort size): the PX poisoner's
+    sybil-id schedule, invariant over a window."""
+    n = attacker.shape[0]
+    me = torch.arange(n, dtype=torch.int32, device=attacker.device)
+    return (torch.sort(torch.where(attacker, me, n)).values,
+            attacker.sum(dtype=torch.int64))
+
+
+def run_adaptive_heartbeats(state: SimState, conns, rev, out_mask, attacker,
+                            params: SimParams, adv: AdversaryParams,
+                            steps: int, ctrl: AdaptiveCtrl | None = None,
+                            telemetry=None):
+    """The adaptive attack window: `steps` rounds of [heartbeat_step ->
+    adaptive_round] with the controller carry (ops/faults.attack_window
+    with no fault schedule). Disabled this is run_attacked_heartbeats (and
+    `ctrl` must be None); armed, `ctrl` defaults to a fresh
+    init_adaptive_ctrl and the result is ((state, ctrl), obs) with the
+    adv_* channels beside the attack observables."""
+    from .faults import attack_window  # faults imports this module
+
+    if not adv.adaptive.enabled and ctrl is not None:
+        raise ValueError("ctrl given but adv.adaptive is disabled — the "
+                         "disabled path is run_attacked_heartbeats and "
+                         "carries none")
+    return attack_window(state, conns, rev, out_mask, attacker, params, adv,
+                         steps, adaptive=adv.adaptive.enabled, ctrl=ctrl,
+                         telemetry=telemetry)
 
 
 def censorship_penalty_update(state: SimState, conns, rev, attacker,

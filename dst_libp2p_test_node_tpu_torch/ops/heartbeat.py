@@ -59,15 +59,19 @@ def heartbeat_step(
     valid_pre: torch.Tensor | None = None,
     decay_scales=None,
     deg_in: torch.Tensor | None = None,
+    edge_ok: torch.Tensor | None = None,
 ):
     """One heartbeat. The optional arguments are the reference's:
     `nbr_ok` / `valid_pre` hoisted neighbor and edge validity (churn off),
-    `decay_scales` the deferred-decay (fmd_scale, slow_scale) pair, and
-    `deg_in` the carried (N,) mesh degree (requires valid_pre, churn off);
-    with `deg_in` the step returns (state, deg_out)."""
-    if deg_in is not None and (valid_pre is None or _churny(params)):
-        raise ValueError("deg_in requires valid_pre and churn off "
-                         "(run_heartbeats' churn-free scan protocol)")
+    `decay_scales` the deferred-decay (fmd_scale, slow_scale) pair,
+    `deg_in` the carried (N,) mesh degree (requires valid_pre, churn off,
+    no edge_ok); with `deg_in` the step returns (state, deg_out).
+    `edge_ok`: an (N, C) per-edge availability mask ANDed into validity
+    (a partitioned edge, ops/faults.py)."""
+    if deg_in is not None and (valid_pre is None or edge_ok is not None
+                               or _churny(params)):
+        raise ValueError("deg_in requires valid_pre, no edge_ok, and churn "
+                         "off (run_heartbeats' churn-free scan protocol)")
     n, c = conns.shape
     key, k_graft, k_keep, k_churn_d, k_churn_u = prng.split(state.key, 5)
     t = state.t_ms
@@ -92,6 +96,8 @@ def heartbeat_step(
             nbr_ok = neighbor_pull_bool(alive & state.subscribed, conns, rev)
         valid = ((conns >= 0) & alive[:, None] & nbr_ok
                  & state.subscribed[:, None])
+    if edge_ok is not None:
+        valid = valid & edge_ok
 
     if deg_in is not None:
         mesh = state.mesh_mask           # mesh ⊆ valid by the protocol

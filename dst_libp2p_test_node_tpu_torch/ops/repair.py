@@ -20,8 +20,12 @@ A dial makes the connection graph dynamic, under the reference's contract:
     (Simulator.rebind_graph).
 
 The static runner passes actor=~attacker: attackers do not run the
-controller. The DHT-backed and adaptive runners come with the next
-campaign slice.
+controller. `run_dht_recovery_heartbeats` draws the re-dial candidates
+from a DHT shortlist (ops/dht_adversary.dht_repair_pool) instead of a
+random peer, with sybils refusing every dial, and
+`run_adaptive_recovery_heartbeats` contests each round with the adaptive
+attacker (ops/adversary.adaptive_round), which with slot_race runs the
+dial controller too and accepts dials.
 """
 
 from __future__ import annotations
@@ -32,9 +36,10 @@ from dataclasses import dataclass
 import torch
 
 from .. import prng
-from .adversary import attack_observables
+from .adversary import (AdversaryParams, adaptive_round, attack_observables,
+                        cohort_order)
 from .heartbeat import heartbeat_step
-from .state import SimParams, SimState
+from .state import AdaptiveCtrl, SimParams, SimState, init_adaptive_ctrl
 from .telemetry import stack_obs, telemetry_observables
 
 INF = 3.4e38
@@ -84,7 +89,7 @@ def _row_take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def repair_round(state: SimState, conns, rev, out_mask, params: SimParams,
-                 actor=None):
+                 actor=None, dht_pool=None, refuse=None):
     """One round of the repair controller, after heartbeat_step. Returns
     (state, conns, rev, out_mask). `actor`: the (N,) peers that run the
     controller (default all live ones); every live peer accepts dials.
@@ -93,7 +98,14 @@ def repair_round(state: SimState, conns, rev, out_mask, params: SimParams,
     candidate it is already connected to (both sides' backoff and score
     permitting), or dial an unconnected candidate (PX first, else a
     uniform random peer once starved for redial_patience rounds) into a
-    free slot on each side, grafting the fresh edge."""
+    free slot on each side, grafting the fresh edge.
+
+    `dht_pool`: an (N, K) DHT shortlist that replaces the random fallback
+    (the candidate lattice becomes PX -> DHT -> nothing); its examined
+    entry is consumed whether or not the dial lands, and the pool is
+    returned as a fifth result. `refuse`: (N,) peers that never accept a
+    dial (sybils): the dial is attempted, the candidate consumed, nothing
+    commits."""
     n, c = conns.shape
     dev = conns.device
     i32 = torch.int32
@@ -129,9 +141,18 @@ def repair_round(state: SimState, conns, rev, out_mask, params: SimParams,
     if params.redial:
         redial_want = act & (starve >= params.redial_patience)
     use_px = px_want | (redial_want & has_cand)
-    use_rand = redial_want & ~has_cand & alive_sub[r.long()]
-    want = use_px | use_rand
-    tgt = torch.where(use_px, cand, torch.where(use_rand, r, -1))
+    if dht_pool is None:
+        use_rand = redial_want & ~has_cand & alive_sub[r.long()]
+        want = use_px | use_rand
+        tgt = torch.where(use_px, cand, torch.where(use_rand, r, -1))
+    else:
+        d_ok = ((dht_pool >= 0) & (dht_pool != me[:, None])
+                & alive_sub[dht_pool.clamp_min(0).long()])
+        dk0 = torch.argmax(d_ok.to(torch.uint8), dim=-1)
+        dcand = _row_take(dht_pool, dk0)
+        use_dht = redial_want & ~has_cand & d_ok.any(dim=-1)
+        want = use_px | use_dht
+        tgt = torch.where(use_px, cand, torch.where(use_dht, dcand, -1))
     tgt_c = tgt.clamp_min(0).long()
 
     new = dict(starve_hb=starve, key=key)
@@ -164,6 +185,8 @@ def repair_round(state: SimState, conns, rev, out_mask, params: SimParams,
         # a dialer never accepts in the same round
         attempt = (dial_try & has_free[tgt_c] & alive_sub[tgt_c]
                    & ~dial_try[tgt_c])
+        if refuse is not None:
+            attempt = attempt & ~refuse[tgt_c]
         # one inbound dial per acceptor: lowest dialer id wins
         winner = torch.full((n,), n, dtype=i32, device=dev).scatter_reduce(
             0, torch.where(attempt, tgt_c, 0),
@@ -212,8 +235,74 @@ def repair_round(state: SimState, conns, rev, out_mask, params: SimParams,
             use_px[:, None]
             & (torch.arange(pw, device=dev)[None, :] == k0[:, None]),
             -1, pool)
+        if dht_pool is not None:
+            # the same consume-on-examine rule for the DHT shortlist
+            dht_pool = torch.where(
+                use_dht[:, None]
+                & (torch.arange(dht_pool.shape[1], device=dev)[None, :]
+                   == dk0[:, None]), -1, dht_pool)
         conns, rev, out_mask = conns2, rev2, out2
+    if dht_pool is not None:
+        return state.replace(**new), conns, rev, out_mask, dht_pool
     return state.replace(**new), conns, rev, out_mask
+
+
+def _recovery_loop(state, conns, rev, out_mask, attacker, params, steps,
+                   publisher, telemetry, dht_pool=None, actor=None,
+                   refuse=None, adv=None, ctrl=None):
+    """The recovery windows' shared loop: [heartbeat_step -> repair_round
+    (-> adaptive_round when `adv` is given)] with the graph, and the DHT
+    pool and controller when given, carried from round to round."""
+    if telemetry is not None and not telemetry.enabled:
+        telemetry = None
+    f32 = torch.float32
+    if adv is not None:
+        att_sorted, n_att = cohort_order(attacker)
+    rounds = []
+    for hb in range(steps):
+        ev0 = state.evictions.sum(dtype=torch.int64)
+        px0 = state.px_grafts.sum(dtype=torch.int64)
+        rd0 = state.redials.sum(dtype=torch.int64)
+        state = heartbeat_step(state, conns, rev, out_mask, params)
+        fired = repair_round(state, conns, rev, out_mask, params,
+                             actor=actor, dht_pool=dht_pool, refuse=refuse)
+        if dht_pool is not None:
+            state, conns, rev, out_mask, dht_pool = fired
+        else:
+            state, conns, rev, out_mask = fired
+        if adv is not None:
+            # the controller reacts after the repair pass: it re-grafts
+            # the slots eviction freed and re-poisons the consumed pool
+            (state, ctrl), obs = adaptive_round(
+                state, ctrl, conns, rev, attacker, params, adv, hb_idx=hb,
+                att_sorted=att_sorted, n_att=n_att)
+        else:
+            obs = attack_observables(state, conns, rev, attacker, params)
+        nbr = conns[publisher]
+        att_n = (nbr >= 0) & attacker[nbr.clamp_min(0).long()]
+        obs["pub_honest_degree"] = (
+            state.mesh_mask[publisher] & (nbr >= 0) & ~att_n
+        ).sum(dtype=torch.int64).to(f32)
+        obs["evictions"] = (state.evictions.sum(dtype=torch.int64)
+                            - ev0).to(f32)
+        obs["px_grafts"] = (state.px_grafts.sum(dtype=torch.int64)
+                            - px0).to(f32)
+        obs["redials"] = (state.redials.sum(dtype=torch.int64) - rd0).to(f32)
+        if dht_pool is not None:
+            obs["dht_pool_left"] = (dht_pool >= 0).sum(
+                dtype=torch.int64).to(f32)
+            # a peer whose every candidate refuses keeps counting up
+            obs["starve_max"] = state.starve_hb.max().to(f32)
+        if telemetry is not None:
+            obs.update(telemetry_observables(
+                state, conns, rev, params, telemetry, contract_score="first"))
+        rounds.append(obs)
+    carry = (state, conns, rev, out_mask)
+    if adv is not None:
+        carry = (state, ctrl, conns, rev, out_mask)
+    if dht_pool is not None:
+        carry = carry + (dht_pool,)
+    return carry, stack_obs(rounds)
 
 
 def run_recovery_heartbeats(state: SimState, conns, rev, out_mask,
@@ -225,30 +314,52 @@ def run_recovery_heartbeats(state: SimState, conns, rev, out_mask,
     out_mask), obs) with obs leaves shaped (steps,): the attack
     observables, the publisher's honest mesh degree and the round's
     evictions, PX grafts and re-dials."""
-    if telemetry is not None and not telemetry.enabled:
-        telemetry = None
-    f32 = torch.float32
-    rounds = []
-    for _ in range(steps):
-        ev0 = state.evictions.sum(dtype=torch.int64)
-        px0 = state.px_grafts.sum(dtype=torch.int64)
-        rd0 = state.redials.sum(dtype=torch.int64)
-        state = heartbeat_step(state, conns, rev, out_mask, params)
-        state, conns, rev, out_mask = repair_round(
-            state, conns, rev, out_mask, params, actor=~attacker)
-        obs = attack_observables(state, conns, rev, attacker, params)
-        nbr = conns[publisher]
-        att_n = (nbr >= 0) & attacker[nbr.clamp_min(0).long()]
-        obs["pub_honest_degree"] = (
-            state.mesh_mask[publisher] & (nbr >= 0) & ~att_n
-        ).sum(dtype=torch.int64).to(f32)
-        obs["evictions"] = (state.evictions.sum(dtype=torch.int64)
-                            - ev0).to(f32)
-        obs["px_grafts"] = (state.px_grafts.sum(dtype=torch.int64)
-                            - px0).to(f32)
-        obs["redials"] = (state.redials.sum(dtype=torch.int64) - rd0).to(f32)
-        if telemetry is not None:
-            obs.update(telemetry_observables(
-                state, conns, rev, params, telemetry, contract_score="first"))
-        rounds.append(obs)
-    return (state, conns, rev, out_mask), stack_obs(rounds)
+    return _recovery_loop(state, conns, rev, out_mask, attacker, params,
+                          steps, publisher, telemetry, actor=~attacker)
+
+
+def run_dht_recovery_heartbeats(state: SimState, conns, rev, out_mask,
+                                attacker, params: SimParams, steps: int,
+                                dht_pool=None, publisher: int = 0,
+                                telemetry=None):
+    """run_recovery_heartbeats with the DHT shortlist as the re-dial
+    candidate source (sybils refuse every dial). Returns ((state, conns,
+    rev, out_mask, dht_pool), obs) with the `dht_pool_left` and
+    `starve_max` channels. `dht_pool=None` is run_recovery_heartbeats."""
+    if dht_pool is None:
+        return run_recovery_heartbeats(state, conns, rev, out_mask,
+                                       attacker, params, steps,
+                                       publisher=publisher,
+                                       telemetry=telemetry)
+    return _recovery_loop(state, conns, rev, out_mask, attacker, params,
+                          steps, publisher, telemetry, dht_pool=dht_pool,
+                          actor=~attacker, refuse=attacker)
+
+
+def run_adaptive_recovery_heartbeats(
+        state: SimState, conns, rev, out_mask, attacker, params: SimParams,
+        steps: int, adv: AdversaryParams | None = None,
+        ctrl: AdaptiveCtrl | None = None, dht_pool=None,
+        publisher: int = 0, telemetry=None):
+    """The recovery window contested by the adaptive attacker: each round
+    [heartbeat_step -> repair_round -> adaptive_round]. With slot_race the
+    cohort runs the dial controller too and its sybils accept dials
+    (actor = everyone, nobody refuses). Disabled (`adv` None or its
+    policy off) this is run_dht_recovery_heartbeats and `ctrl` must be
+    None; armed the result is ((state, ctrl, conns, rev, out_mask[,
+    dht_pool]), obs) with the adv_* channels."""
+    if adv is None or not adv.adaptive.enabled:
+        if ctrl is not None:
+            raise ValueError("ctrl given but the adaptive policy is "
+                             "disabled — the delegating path carries none")
+        return run_dht_recovery_heartbeats(
+            state, conns, rev, out_mask, attacker, params, steps,
+            dht_pool=dht_pool, publisher=publisher, telemetry=telemetry)
+    if ctrl is None:
+        ctrl = init_adaptive_ctrl(params.n, conns.device)
+    race = adv.adaptive.slot_race
+    actor = None if race else ~attacker
+    refuse = None if race or dht_pool is None else attacker
+    return _recovery_loop(state, conns, rev, out_mask, attacker, params,
+                          steps, publisher, telemetry, dht_pool=dht_pool,
+                          actor=actor, refuse=refuse, adv=adv, ctrl=ctrl)

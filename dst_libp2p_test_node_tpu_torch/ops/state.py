@@ -335,3 +335,36 @@ def graph_arrays(graph, device=None) -> dict:
         "rev": torch.as_tensor(graph.rev, device=device),
         "out_mask": torch.as_tensor(graph.out_mask, device=device),
     }
+
+
+def repair_inert(params: SimParams) -> bool:
+    """True iff no path reads or writes the repair leaves: eviction, PX on
+    PRUNE and re-dial are all off. The reference strips the leaves from
+    its compiled windows then; the port keeps them and skips what would
+    read them (the adaptive controller's PX poisoner)."""
+    return not (params.evict or params.px or params.redial)
+
+
+@dataclass
+class AdaptiveCtrl:
+    """The adaptive attacker's controller state, (N,) per peer (honest rows
+    stay zero): `viol_est` the attacker's own estimate of the worst
+    honest-side penalty counter on its edges, and three attacker-side
+    counters (re-grafts sent, sybil ids planted in px_pool rows, rounds
+    spent duty-cycled off)."""
+
+    viol_est: torch.Tensor      # (N,) f32
+    regrafts: torch.Tensor      # (N,) int32
+    px_injected: torch.Tensor   # (N,) int32
+    throttled_hb: torch.Tensor  # (N,) int32
+
+
+def init_adaptive_ctrl(n: int, device=None) -> AdaptiveCtrl:
+    """Zeroed controller carry for a fresh trial window."""
+    dev = resolve_device(device)
+    return AdaptiveCtrl(
+        viol_est=torch.zeros((n,), dtype=torch.float32, device=dev),
+        regrafts=torch.zeros((n,), dtype=torch.int32, device=dev),
+        px_injected=torch.zeros((n,), dtype=torch.int32, device=dev),
+        throttled_hb=torch.zeros((n,), dtype=torch.int32, device=dev),
+    )

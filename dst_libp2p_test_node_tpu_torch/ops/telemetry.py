@@ -17,8 +17,8 @@ the score quantiles are jnp.nanquantile's linear rule, step for step.
 `run_recorded_heartbeats` is run_heartbeats with a per-round emission:
 the same hoisted validity, carried degree and deferred decay (the
 recorded scores apply the running scales on the fly), materialized once
-at the end by the score_update kernel. The adversarial runners' channel
-(`adaptive_observables`) comes with the adaptive controller's slice.
+at the end by the score_update kernel. `adaptive_observables` is the
+adaptive attacker's channel set (adv_*), emitted by its windows.
 """
 
 from __future__ import annotations
@@ -160,6 +160,34 @@ def telemetry_observables(state: SimState, conns, rev, params: SimParams,
         "tel_iwant": isum(state.iwant_tx),
         "tel_queue_depth_ms": (sum_f32(torch.where(live, backlog, zero))
                                / n_live),
+    }
+
+
+def adaptive_observables(state: SimState, ctrl, attacker, acting,
+                         violations, px_pool_live: bool = True) -> dict:
+    """The adaptive attacker's per-round channels (float32 0-d tensors):
+    adv_violation_rate (violations this round per attacker),
+    adv_throttled_frac (share of the cohort duty-cycled off),
+    adv_regraft_attempts (cumulative re-grafts), adv_px_sybil_frac (share
+    of occupied honest px_pool entries holding attacker ids; 0 where the
+    window carries no live pool). `ctrl` is the AdaptiveCtrl carry,
+    `acting` the (N,) flood mask, `violations` the round's count."""
+    f32 = torch.float32
+    n_att = attacker.sum(dtype=torch.int64).clamp_min(1).to(f32)
+    if px_pool_live:
+        honest = ~attacker & state.alive & state.subscribed
+        occ = (state.px_pool >= 0) & honest[:, None]
+        sybil = occ & attacker[state.px_pool.clamp_min(0).long()]
+        px_sybil_frac = (sybil.sum(dtype=torch.int64).to(f32)
+                         / occ.sum(dtype=torch.int64).clamp_min(1).to(f32))
+    else:
+        px_sybil_frac = torch.zeros((), dtype=f32, device=attacker.device)
+    return {
+        "adv_violation_rate": violations.to(f32) / n_att,
+        "adv_throttled_frac": ((attacker & ~acting).sum(dtype=torch.int64)
+                               .to(f32) / n_att),
+        "adv_regraft_attempts": ctrl.regrafts.sum(dtype=torch.int64).to(f32),
+        "adv_px_sybil_frac": px_sybil_frac,
     }
 
 

@@ -5,30 +5,45 @@ runtime/campaign.py, single-device path).
 reports resilience metrics per trial. A trial:
 
   setup     the attacker cohort is drawn on the host
-            (ops/adversary.attacker_cohort); the trial's PRNG and state are
-            re-seeded from the trial seed, the connection graph is shared
+            (ops/adversary.attacker_cohort), and the fault cohorts when a
+            fault schedule is armed (ops/faults.fault_masks); the trial's
+            PRNG and state are re-seeded from the trial seed, the
+            connection graph is shared
   warmup    benign mesh stabilization (cold_boot_join: inside the window)
   window    `attack_heartbeats` rounds of [heartbeat_step ->
-            adversary_round]; same-fraction seeds run as a loop of
-            single-trial windows, which equal the reference's one
+            adversary_round], with the fault schedule
+            (ops/faults.run_faulted_heartbeats) and the adaptive attacker
+            (ops/adversary.adaptive_round, its controller carried into the
+            recovery window) when armed; same-fraction seeds run as a loop
+            of single-trial windows, which equal the reference's one
             vmapped scan over the stacked trials bitwise
+  dht       with the DHT adversary armed, the trial's Kademlia state built
+            under the shared cohort (ops/dht_adversary.build_attacked_dht)
+            and one repair shortlist per recovery leg
   recovery  optional `recovery_heartbeats` rounds of [heartbeat_step
             (evict / px armed) -> repair_round], after the trial
-            checkpoint; a dialed graph is rebound (Simulator.rebind_graph)
-            for the publish schedule and the epoch graph restored after
-  publish   the injection schedule with the censor mask, and the
-            P3-analog censorship penalty after each publish
+            checkpoint: the DHT-backed window in two legs split at
+            dht.heal_hb (the second resumes the trial's dialed graph), the
+            arms-race window with the adaptive attacker; a dialed graph is
+            rebound (Simulator.rebind_graph) for the publish schedule and
+            the epoch graph restored after
+  publish   the injection schedule with the censor mask (and the cross-cut
+            mask while a partition is still open), and the P3-analog
+            censorship penalty after each publish
 
 A fraction-0.0 trial takes exactly the benign Simulator path, so its
 outputs are the bytes of a plain Simulator on the same seed.
 `checkpoint_dir` snapshots each trial after its window (the reference's
-file format plus an `.obs.npz` sidecar of its curves), and a later sweep
-resumes every trial it finds there.
+file format plus an `.obs.npz` sidecar of its curves, and the DHT's kad/*
+leaves), and a later sweep resumes every trial it finds there; a resumed
+adaptive trial restarts its controller from zero, as the reference's does.
+`run_defense_sweep` races a grid of defense knobs against the adaptive
+attacker and reports the coverage / bandwidth / recovery-time Pareto
+front.
 
-Peer meshes, trial meshes and the DCN engine (ROADMAP A13), fault
-schedules, the adaptive attacker and the DHT adversary (the next campaign
-slice) and the conformance certificate (A14) raise NotImplementedError
-naming their slice.
+Peer meshes, trial meshes and the DCN engine (ROADMAP A13) and the
+conformance certificate (A14) raise NotImplementedError naming their
+slice.
 """
 
 from __future__ import annotations
@@ -37,23 +52,37 @@ import json
 import math
 import os
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
 
 from ..config.env import GossipSubParams
 from ..ops.adversary import (
-    ADAPTIVE_SLICE,
     AdversaryParams,
     attacker_cohort,
     censor_mask,
     censorship_penalty_update,
     eclipse_setup,
     heartbeats_to_graylist,
-    run_attacked_heartbeats,
 )
-from ..ops.repair import RepairParams, run_recovery_heartbeats
+from ..ops.dht_adversary import (
+    DhtAdversaryParams,
+    build_attacked_dht,
+    dht_repair_pool,
+    rtable_poison_frac,
+)
+from ..ops.faults import (
+    FaultParams,
+    fault_masks,
+    partition_edge_mask,
+    run_faulted_heartbeats,
+)
+from ..ops.repair import (
+    RepairParams,
+    run_adaptive_recovery_heartbeats,
+    run_dht_recovery_heartbeats,
+)
 from ..ops.telemetry import TelemetryParams
 from .simulator import ExperimentConfig, MessageRecord, Simulator
 from .summarize import sanitize_nonfinite
@@ -80,61 +109,6 @@ def attack_gossipsub(**overrides) -> GossipSubParams:
     )
     base.update(overrides)
     return GossipSubParams(**base)
-
-
-@dataclass(frozen=True)
-class FaultParams:
-    """The reference's fault schedule fields (ops/faults.py). Armed, a
-    campaign raises: fault windows come with the next campaign slice."""
-
-    crash_frac: float = 0.0
-    crash_window: tuple[int, int] = (0, 0)
-    partition_frac: float = 0.0
-    partition_window: tuple[int, int] = (0, 0)
-    spike_frac: float = 0.0
-    spike_window: tuple[int, int] = (0, 0)
-    spike_ms: float = 0.0
-
-    @property
-    def enabled(self) -> bool:
-        crash = self.crash_frac > 0.0 and (self.crash_window[1]
-                                           > self.crash_window[0])
-        part = self.partition_frac > 0.0 and (self.partition_window[1]
-                                              > self.partition_window[0])
-        spike = (self.spike_frac > 0.0 and self.spike_ms > 0.0
-                 and self.spike_window[1] > self.spike_window[0])
-        return crash or part or spike
-
-    def validate(self) -> None:
-        if self.enabled:
-            raise _later("fault injection (crash / partition / spike)",
-                         ADAPTIVE_SLICE)
-
-
-@dataclass(frozen=True)
-class DhtAdversaryParams:
-    """The reference's DHT adversary switches (ops/dht_adversary.py).
-    Armed, a campaign raises: the DHT adversary comes with the next
-    campaign slice."""
-
-    discovery: bool = False
-    lookup_eclipse: bool = False
-    rtable_poison: bool = False
-    sybil_cluster: bool = False
-    poison_per_peer: int = 8
-    cluster_prefix_bits: int = 16
-    heal_hb: int = -1
-    evict_max_fails: int = 1
-    evict_backoff_ms: float = 0.0
-
-    @property
-    def enabled(self) -> bool:
-        return (self.discovery or self.lookup_eclipse or self.rtable_poison
-                or self.sybil_cluster)
-
-    def validate(self) -> None:
-        if self.enabled:
-            raise _later("the DHT adversary", ADAPTIVE_SLICE)
 
 
 @dataclass(frozen=True)
@@ -221,6 +195,28 @@ class CampaignConfig:
         self.supervisor.validate()
         self.telemetry.validate()
         self.dht.validate()
+        if self.dht.enabled:
+            if self.recovery_heartbeats < 1:
+                raise ValueError(
+                    "dht arming needs recovery_heartbeats >= 1: the DHT "
+                    "candidate source only feeds the recovery window")
+            if not self.repair.redial:
+                raise ValueError(
+                    "dht arming needs repair.redial=True: the DHT shortlist "
+                    "is the re-dial path's candidate source")
+            if self.dht.heal_hb >= self.recovery_heartbeats:
+                raise ValueError(
+                    f"dht.heal_hb {self.dht.heal_hb} must fall inside the "
+                    f"recovery window ({self.recovery_heartbeats} rounds)")
+        if self.faults.crash and (
+                self.faults.crash_window[1] > self.attack_heartbeats):
+            # the restart must land inside the window (a partition or
+            # spike may spill past it: an open partition folds into the
+            # publish schedule's delivery mask)
+            raise ValueError(
+                f"crash_window end {self.faults.crash_window[1]} exceeds "
+                f"attack_heartbeats {self.attack_heartbeats}: the restart "
+                "would never fire")
         if self.conformance:
             raise _later("the conformance certificate", "tooling (A14)")
         if adv.eclipse:
@@ -342,10 +338,13 @@ def _reset_trial(sim: Simulator, seed: int) -> None:
 
 
 def _publish_schedule(sim: Simulator, censor=None, attacker=None,
-                      adv: AdversaryParams | None = None
-                      ) -> list[MessageRecord]:
+                      adv: AdversaryParams | None = None, cross=None,
+                      partition_ms=None) -> list[MessageRecord]:
     """The experiment's injection schedule with the censor mask threaded
-    into every publish and the censorship penalty after each one."""
+    into every publish and the censorship penalty after each one. `cross`
+    / `partition_ms`: a partition still open over the schedule folds its
+    cross-cut mask into the delivery mask of every publish inside [lo,
+    hi) sim-ms."""
     exp = sim.cfg
     n = exp.topo.network_size
     delay_ms = exp.topo.delay_seconds * 1000.0
@@ -354,7 +353,12 @@ def _publish_schedule(sim: Simulator, censor=None, attacker=None,
     for i in range(exp.topo.messages):
         if i > 0:
             sim.advance(delay_ms)
-        rec = sim.publish(pub, censor_edge=censor)
+        eff = censor
+        if cross is not None and partition_ms is not None:
+            t_now = float(sim.state.t_ms)
+            if partition_ms[0] <= t_now < partition_ms[1]:
+                eff = cross if censor is None else (censor | cross)
+        rec = sim.publish(pub, censor_edge=eff)
         if censor is not None:
             received = torch.as_tensor(rec.received, device=sim.device)
             sim.state = censorship_penalty_update(
@@ -478,18 +482,80 @@ def _try_resume(sim: Simulator, cfg: CampaignConfig, fraction: float,
 
 
 def _save_trial(sim: Simulator, cfg: CampaignConfig, fraction: float,
-                seed: int, obs: dict) -> None:
+                seed: int, obs: dict, kad_state=None) -> None:
     from .checkpoint import save_checkpoint
 
     os.makedirs(cfg.checkpoint_dir, exist_ok=True)
     ck, sc = _trial_ckpt(cfg, fraction, seed)
-    save_checkpoint(sim, ck)
+    save_checkpoint(sim, ck, kad_state=kad_state)
     # the obs sidecar: the window's curves, which the state alone cannot
     # give back to a resumed trial
     tmp = sc + ".tmp"
     with open(tmp, "wb") as fh:
         np.savez_compressed(fh, **{k: np.asarray(v) for k, v in obs.items()})
     os.replace(tmp, sc)
+
+
+def _dht_legs(dht: DhtAdversaryParams, steps: int) -> tuple[int, int]:
+    """(attacked rounds, healed rounds) of a recovery window: dht.heal_hb
+    splits the window at the heal edge; -1 = the DHT never heals."""
+    if dht.heal_hb < 0:
+        return steps, 0
+    return dht.heal_hb, steps - dht.heal_hb
+
+
+def _attack_window(sim: Simulator, cfg: CampaignConfig, adv, att_j, fm,
+                   steps: int, tel):
+    """One trial's attack window from the bound state: (state, obs, ctrl),
+    ctrl the adaptive attacker's carry (None when disarmed). `fm`: the
+    trial's fault cohorts as tensors (None when no fault is armed)."""
+    a = sim.arrays
+    if fm is None:
+        fm = {k: None for k in ("crash", "side", "spike")}
+    st, obs = run_faulted_heartbeats(
+        sim.state, a["conns"], a["rev"], a["out_mask"], att_j, sim.params,
+        adv, cfg.faults, fm["crash"], fm["side"], fm["spike"], steps,
+        telemetry=tel)
+    if adv.adaptive.enabled:
+        st, ctrl = st
+        return st, obs, ctrl
+    return st, obs, None
+
+
+def _recovery(sim: Simulator, cfg: CampaignConfig, adv, att_j, pub: int,
+              tel, ctrl, kad):
+    """The trial's recovery window from the bound state: ((state, conns,
+    rev, out_mask), host obs). `kad`: the trial's DHT context (two legs,
+    the second resuming the first's dialed graph) or None."""
+    rparams = cfg.repair.apply(sim.params)
+    a = sim.arrays
+    cur = (sim.state, a["conns"], a["rev"], a["out_mask"])
+    adaptive = adv.adaptive.enabled
+    if kad is None:
+        legs = ((cfg.recovery_heartbeats, None),)
+    else:
+        steps1, steps2 = _dht_legs(cfg.dht, cfg.recovery_heartbeats)
+        legs = ((steps1, kad[1]), (steps2, kad[2]))
+    leg_obs = []
+    for steps, pool in legs:
+        if steps <= 0:
+            continue
+        if adaptive:
+            # the controller carry crosses the heal edge
+            carry, lobs = run_adaptive_recovery_heartbeats(
+                *cur, att_j, rparams, steps, adv=adv, ctrl=ctrl,
+                dht_pool=pool, publisher=pub, telemetry=tel)
+            ctrl = carry[1]
+            cur = (carry[0],) + tuple(carry[2:5])
+        else:
+            carry, lobs = run_dht_recovery_heartbeats(
+                *cur, att_j, rparams, steps, dht_pool=pool, publisher=pub,
+                telemetry=tel)
+            cur = tuple(carry[:4])
+        leg_obs.append(_obs_to_host(lobs))
+    robs = {k: np.concatenate([lo[k] for lo in leg_obs])
+            for k in leg_obs[0]}
+    return cur, robs
 
 
 def _attacked_trials(sim: Simulator, cfg: CampaignConfig, fraction: float,
@@ -507,18 +573,27 @@ def _attacked_trials(sim: Simulator, cfg: CampaignConfig, fraction: float,
     # without PX or re-dial no dial can commit: the graph stays the epoch's
     graph_static = not (cfg.repair.px or cfg.repair.redial)
     tel = cfg.telemetry if cfg.telemetry.enabled else None
+    faults = cfg.faults
     dev = sim.device
 
     t0 = time.time()
     cohorts: dict[int, tuple] = {}
     state_by_seed: dict[int, object] = {}
     obs_by_seed: dict[int, dict] = {}
+    # the adaptive controller per trial; a trial resumed from a checkpoint
+    # has none and restarts it from zero (the reference's warm restart)
+    ctrl_by_seed: dict[int, object] = {}
+    fmasks: dict[int, tuple] = {}
     wall_by_seed: dict[int, _Walls] = {s: _Walls(sim) for s in seeds}
     resumed: set[int] = set()
     for s in seeds:
         att = attacker_cohort(n, fraction, seed=s, conns=conns_np,
                               publisher=pub, eclipse=adv.eclipse)
         cohorts[s] = (att, torch.as_tensor(att, device=dev))
+        if faults.enabled:
+            fm = fault_masks(n, faults, seed=s, publisher=pub)
+            fmasks[s] = (fm, {k: torch.as_tensor(v, device=dev)
+                              for k, v in fm.items()})
     if cfg.checkpoint_dir:
         for s in seeds:
             got = _try_resume(sim, cfg, fraction, s)
@@ -539,37 +614,66 @@ def _attacked_trials(sim: Simulator, cfg: CampaignConfig, fraction: float,
             sim.state = eclipse_setup(sim.state, a["conns"], cohorts[s][1],
                                       pub)
         tw = w.add("warmup", tw)
-        st, obs = run_attacked_heartbeats(
-            sim.state, a["conns"], a["rev"], a["out_mask"], cohorts[s][1],
-            sim.params, adv, steps, telemetry=tel)
+        st, obs, ctrl = _attack_window(
+            sim, cfg, adv, cohorts[s][1],
+            fmasks[s][1] if s in fmasks else None, steps, tel)
         state_by_seed[s] = st
         obs_by_seed[s] = _obs_to_host(obs)
+        if ctrl is not None:
+            ctrl_by_seed[s] = ctrl
         w.add("attack_window", tw)
 
     epoch_arrays = dict(sim.arrays)
+    dht_on = cfg.dht.enabled and cfg.recovery_heartbeats > 0
+    steps1, steps2 = _dht_legs(cfg.dht, cfg.recovery_heartbeats)
     out = []
     for s in seeds:
         w = wall_by_seed[s]
         att, att_j = cohorts[s]
+        kad = None
+        if dht_on:
+            # the trial's DHT under the shared cohort (the same ids attack
+            # both layers) and one shortlist per recovery leg; rebuilt on
+            # resume, as the reference does (deterministic per seed)
+            tw = time.perf_counter()
+            kstate, directory = build_attacked_dht(
+                n, seed=s, dht=cfg.dht, attacker=att, victim=pub,
+                stage=sim._stage, lat_ms=sim._lat)
+            pfrac = rtable_poison_frac(kstate, att)
+            pool_a = pool_b = None
+            if steps1 > 0:
+                pool_a, kstate = dht_repair_pool(
+                    kstate, cfg.dht, sim._stage, sim._lat, attacker=att_j,
+                    directory=directory)
+            if steps2 > 0:
+                pool_b, kstate = dht_repair_pool(
+                    kstate, cfg.dht, sim._stage, sim._lat, attacker=att_j,
+                    directory=directory, healed=True)
+            kad = (kstate, pool_a, pool_b, pfrac)
+            w.add("dht_build", tw)
         base = _ensure_baseline(sim, cache, s, w)
         tw = time.perf_counter()
         _reset_trial(sim, s)
         sim.state = state_by_seed[s]
         tw = w.add("setup", tw)
+        part_ms = None
+        if faults.partition:
+            # the partition window in sim ms, anchored on the post-window
+            # clock (so a resumed trial gets it too): a window reaching
+            # past the attack window stays open over the publishes
+            t_win0 = float(sim.state.t_ms) - steps * hb_ms
+            pws, pwe = faults.partition_window
+            part_ms = (t_win0 + pws * hb_ms, t_win0 + pwe * hb_ms)
         if cfg.checkpoint_dir and s not in resumed:
-            _save_trial(sim, cfg, fraction, s, obs_by_seed[s])
+            _save_trial(sim, cfg, fraction, s, obs_by_seed[s],
+                        kad_state=kad[0] if kad is not None else None)
             tw = w.add("checkpoint_save", tw)
         obs_j = obs_by_seed[s]
         recovery_time_ms = -1.0
         if cfg.recovery_heartbeats > 0:
             # after the checkpoint, which hashes the epoch graph
-            rparams = cfg.repair.apply(sim.params)
-            a = sim.arrays
-            (st2, cn2, rv2, om2), robs = run_recovery_heartbeats(
-                sim.state, a["conns"], a["rev"], a["out_mask"], att_j,
-                rparams, cfg.recovery_heartbeats, publisher=pub,
-                telemetry=tel)
-            robs = _obs_to_host(robs)
+            (st2, cn2, rv2, om2), robs = _recovery(
+                sim, cfg, adv, att_j, pub, tel, ctrl_by_seed.get(s), kad)
             sim.state = st2
             tw = w.add("recovery_window", tw)
             if not graph_static:
@@ -580,6 +684,11 @@ def _attacked_trials(sim: Simulator, cfg: CampaignConfig, fraction: float,
                                          np.asarray(robs[k])])
                          if k in robs else np.asarray(obs_j[k]))
                      for k in obs_j}
+            if kad is not None:
+                # a host channel, constant over the window, shaped as a
+                # curve
+                obs_j["rtable_poison_frac"] = np.full(
+                    cfg.recovery_heartbeats, kad[3], np.float32)
             rec_ok = ((robs["attacker_mesh_share"]
                        <= cfg.mesh_recovery_share)
                       & (robs["pub_honest_degree"] >= 1.0))
@@ -587,11 +696,38 @@ def _attacked_trials(sim: Simulator, cfg: CampaignConfig, fraction: float,
             if hit.size:
                 recovery_time_ms = float((hit[0] + 1) * hb_ms)
         censor = censor_mask(att_j, sim.arrays["conns"])
+        part_cross = None
+        if part_ms is not None:
+            # the cut over the current (possibly dialed) conns
+            part_cross = partition_edge_mask(fmasks[s][1]["side"],
+                                             sim.arrays["conns"])
         records = _publish_schedule(sim, censor=censor, attacker=att_j,
-                                    adv=adv)
+                                    adv=adv, cross=part_cross,
+                                    partition_ms=part_ms)
         tw = w.add("publish", tw)
         honest = ~att
         cov, p50, p99 = _delivery_metrics(records, honest)
+        heal_time_ms = -1.0
+        reconv_hb = -1
+        cov_part = -1.0
+        if faults.partition:
+            pwe = faults.partition_window[1]
+            curve = np.asarray(obs_j.get("cross_mesh_edges", ()))
+            if curve.size > pwe:
+                hit = np.nonzero(curve[pwe:] > 0)[0]
+                if hit.size:
+                    heal_time_ms = float((hit[0] + 1) * hb_ms)
+            side_np = fmasks[s][0]["side"]
+            same_side = side_np == side_np[pub]
+            cov_part = float((same_side & honest).sum()
+                             / max(int(honest.sum()), 1))
+        if faults.crash:
+            cwe = faults.crash_window[1]
+            curve = np.asarray(obs_j.get("restarted_mean_degree", ()))
+            if curve.size > cwe:
+                hit = np.nonzero(curve[cwe:] >= sim.params.d_low)[0]
+                if hit.size:
+                    reconv_hb = int(hit[0] + 1)
         engaged, gf_final, recovery, share_final = _obs_metrics(
             obs_j, cfg.mesh_recovery_share)
         cov90_hb = -1
@@ -630,8 +766,12 @@ def _attacked_trials(sim: Simulator, cfg: CampaignConfig, fraction: float,
             redials_total=int(_host(sim.state.redials).sum()),
             recovery_time_ms=recovery_time_ms,
             bytes_tx_total=float(_host(sim.state.bytes_tx).sum()),
+            heal_time_ms=heal_time_ms,
+            post_churn_reconvergence_hb=reconv_hb,
+            coverage_under_partition=cov_part,
             coverage90_hb=cov90_hb,
             score_cross_hb=score_cross_hb,
+            rtable_poison_frac=(kad[3] if kad is not None else -1.0),
         ))
         if cfg.recovery_heartbeats > 0 and not graph_static:
             # restore the epoch graph for the next trial
@@ -660,6 +800,7 @@ def run_campaign(cfg: CampaignConfig, mesh=None, trial_mesh=None, dcn=None,
     budget = heartbeats_to_graylist(adv, sim.params)
     if ((adv.graft_flood or adv.ihave_spam or adv.iwant_spam)
             and not adv.identity_rotation
+            and not adv.adaptive.enabled
             and any(f > 0 for f in cfg.fractions) and math.isinf(budget)):
         raise ValueError(
             "score defense cannot engage under this config "
@@ -734,3 +875,123 @@ def run_campaign(cfg: CampaignConfig, mesh=None, trial_mesh=None, dcn=None,
         retries_total=retries_total,
         phase_walls=walls,
     )
+
+
+# ------------------------------------------------------------ defense sweep
+
+
+DEFENSE_OBJECTIVES = {
+    "coverage": "max",
+    "bandwidth_bytes": "min",
+    "recovery_time_ms": "min",
+}
+
+
+def pareto_front(values, directions) -> np.ndarray:
+    """Boolean non-domination mask over the rows of a (P, K) objective
+    matrix, one "max"/"min" per column: row j is dominated when some row
+    is at least as good on every objective and better on one."""
+    v = np.asarray(values, dtype=np.float64)
+    if v.ndim != 2 or v.shape[1] != len(directions):
+        raise ValueError(
+            f"values must be (P, {len(directions)}), got {v.shape}")
+    v = v.copy()
+    for k, d in enumerate(directions):
+        if d == "min":
+            v[:, k] = -v[:, k]
+        elif d != "max":
+            raise ValueError(f"direction {d!r} not in ('max', 'min')")
+    ge = (v[:, None, :] >= v[None, :, :]).all(-1)
+    gt = (v[:, None, :] > v[None, :, :]).any(-1)
+    return ~(ge & gt).any(axis=0)
+
+
+def _sweep_knobs(gs: GossipSubParams) -> tuple:
+    return (gs.d_low, gs.d, gs.d_high, gs.slow_peer_penalty_weight)
+
+
+def run_defense_sweep(cfg: CampaignConfig,
+                      degree_grid: tuple = ((4, 6, 8), (6, 8, 12),
+                                            (8, 12, 16)),
+                      weight_grid: tuple = (-5.0, -10.0, -20.0),
+                      trial_mesh=None, device=None) -> dict:
+    """Race a grid of defense configurations (the mesh-degree band and the
+    slow-peer penalty weight, the base config's own knobs always included)
+    against the adaptive attacker: each point is a full run_campaign on
+    `device`, aggregated over its attacked trials into coverage (mean
+    honest delivery), bandwidth_bytes (mean bytes sent per trial) and
+    recovery_time_ms (unrecovered trials charged the whole window).
+    Returns the reference's strict-JSON artifact: the rows, the Pareto
+    front, the default's index and the points that dominate it.
+    `trial_mesh` raises: it comes with ROADMAP A13."""
+    if trial_mesh is not None:
+        raise _later("run_defense_sweep(trial_mesh=)", "multi-GPU (A13)")
+    adv = cfg.adversary_params()
+    if not adv.adaptive.enabled:
+        raise ValueError(
+            "run_defense_sweep races the ADAPTIVE attacker: arm "
+            "cfg.adversary.adaptive (a static-cohort Pareto sweep would "
+            "understate every defense)")
+    if cfg.recovery_heartbeats < 1:
+        raise ValueError(
+            "run_defense_sweep needs recovery_heartbeats >= 1: "
+            "recovery_time_ms is a sweep objective")
+    if not any(f > 0 for f in cfg.fractions):
+        raise ValueError("run_defense_sweep needs an attacked fraction")
+    base_gs = cfg.experiment.gossipsub
+    points = [(dl, d, dh, w)
+              for (dl, d, dh) in degree_grid for w in weight_grid]
+    default_knobs = _sweep_knobs(base_gs)
+    if default_knobs not in points:
+        points.insert(0, default_knobs)
+    default_index = points.index(default_knobs)
+    t0 = time.time()
+    rows = []
+    for dl, d, dh, w in points:
+        gs = replace(base_gs, d_low=dl, d=d, d_high=dh,
+                     slow_peer_penalty_weight=w,
+                     d_score=None, d_out=None, d_lazy=None)
+        # per-point checkpoints would collide on the same trial keys
+        cfg_p = replace(cfg, experiment=replace(cfg.experiment,
+                                                gossipsub=gs),
+                        checkpoint_dir=None)
+        res = run_campaign(cfg_p, device=device)
+        atk = [t for t in res.trials if t.fraction > 0.0]
+        cap_ms = float((cfg.recovery_heartbeats + 1) * gs.heartbeat_ms)
+        rec = [t.recovery_time_ms if t.recovery_time_ms >= 0.0 else cap_ms
+               for t in atk]
+        rows.append({
+            "d_low": dl, "d": d, "d_high": dh,
+            "slow_peer_penalty_weight": w,
+            "is_default": (dl, d, dh, w) == default_knobs,
+            "coverage": float(np.mean([t.honest_coverage for t in atk])),
+            "bandwidth_bytes": float(np.mean(
+                [t.bytes_tx_total for t in atk])),
+            "recovery_time_ms": float(np.mean(rec)),
+            "recovered_frac": float(np.mean(
+                [t.recovery_time_ms >= 0.0 for t in atk])),
+            "trials": len(atk),
+            "degraded": res.degraded,
+        })
+    dirs = tuple(DEFENSE_OBJECTIVES.values())
+    vals = np.array([[r[k] for k in DEFENSE_OBJECTIVES] for r in rows])
+    front = pareto_front(vals, dirs)
+    sign = np.array([-1.0 if d == "min" else 1.0 for d in dirs])
+    sv = vals * sign
+    dv = sv[default_index]
+    beats = [i for i in range(len(rows))
+             if i != default_index
+             and bool((sv[i] >= dv).all() and (sv[i] > dv).any())]
+    return sanitize_nonfinite({
+        "scenario": cfg.scenario,
+        "network_size": cfg.experiment.topo.network_size,
+        "fractions": [f for f in cfg.fractions if f > 0.0],
+        "seeds": list(cfg.seeds),
+        "recovery_heartbeats": cfg.recovery_heartbeats,
+        "objectives": dict(DEFENSE_OBJECTIVES),
+        "configs": rows,
+        "pareto": [i for i in range(len(rows)) if bool(front[i])],
+        "default_index": default_index,
+        "beats_default": beats,
+        "wall_s": time.time() - t0,
+    })

@@ -9,7 +9,8 @@ publish against the reference, on the CPU, bitwise (no tolerance):
   - disseminate(censor_edge=) at fractional latencies, exact and bounded,
     sender-side and receiver-side (the pull budget lowered), lossless and
     tcp-lossy, from an attacked state whose graylist gate binds;
-  - the adaptive controller refused by name, not approximated."""
+  - the adaptive policy's validation, which once refused the controller
+    by name and now arms it as the reference does."""
 
 import dataclasses
 import math
@@ -188,15 +189,30 @@ def test_censored_publish_at_fractional_latencies(world, mode, budget, lossy,
 
 
 def test_adaptive_controller_is_refused_by_name():
-    adv = tadv.AdversaryParams(adaptive=tadv.AdaptivePolicy(enabled=True))
-    with pytest.raises(NotImplementedError, match="next campaign"):
-        adv.validate()
-    with pytest.raises(ValueError, match="throttle_margin"):
-        tadv.AdaptivePolicy(throttle_margin=1.5).validate()
-    for bad in (dict(scenario="nope"), dict(violation_penalty=0.0),
-                dict(mimic_margin=1.0), dict(rotation_period_hb=1)):
+    # the controller is ported (tests/port/test_torch_adaptive.py): an
+    # armed policy validates, and the reference's refusals stay refusals
+    for scenario in tadv.ADAPTIVE_SCENARIOS:
+        tadv.AdversaryParams(scenario=scenario, adaptive=tadv.AdaptivePolicy(
+            enabled=True)).validate()
+    for pol in (dict(throttle_margin=1.5), dict(enabled=True, regraft=False,
+                                                px_poison=False,
+                                                slot_race=False,
+                                                duty_cycle=False)):
         with pytest.raises(ValueError) as te:
-            tadv.AdversaryParams(**bad).validate()
+            tadv.AdaptivePolicy(**pol).validate()
         with pytest.raises(ValueError) as je:
-            jadv.AdversaryParams(**bad).validate()
+            jadv.AdaptivePolicy(**pol).validate()
+        assert str(te.value) == str(je.value)
+    for bad in (dict(scenario="nope"), dict(violation_penalty=0.0),
+                dict(mimic_margin=1.0), dict(rotation_period_hb=1),
+                dict(scenario="iwant_spam",
+                     adaptive=dict(enabled=True))):
+        tkw, jkw = dict(bad), dict(bad)
+        if "adaptive" in bad:
+            tkw["adaptive"] = tadv.AdaptivePolicy(**bad["adaptive"])
+            jkw["adaptive"] = jadv.AdaptivePolicy(**bad["adaptive"])
+        with pytest.raises(ValueError) as te:
+            tadv.AdversaryParams(**tkw).validate()
+        with pytest.raises(ValueError) as je:
+            jadv.AdversaryParams(**jkw).validate()
         assert str(te.value) == str(je.value)

@@ -14,7 +14,9 @@ on the CPU:
   - the fraction-0.0 contract: the benign trial is a plain Simulator's
     bytes (the reference's tests/test_adversary.py:60-95);
   - CampaignMetrics text and the interop round trip;
-  - the paths of later slices raise naming their slice."""
+  - the paths of later slices raise naming their slice, and the fault,
+    DHT and adaptive configs that once did now run as the reference's
+    (or fail with its error)."""
 
 import os
 
@@ -168,27 +170,43 @@ def test_campaign_metrics_and_interop(campaigns):
     assert interop.leaf_mismatches(obs, again) == []
 
 
-def test_later_slices_raise_by_name():
+def test_later_slices_raise_by_name(campaigns):
     cfg = _cfg("torch", recovery=0)
     for kw, slice_name in ((dict(mesh=object()), "multi-GPU"),
                            (dict(trial_mesh=object()), "multi-GPU"),
                            (dict(dcn=True), "multi-GPU")):
         with pytest.raises(NotImplementedError, match=slice_name):
             tc.run_campaign(cfg, device="cpu", **kw)
-    for over, slice_name in (
-            (dict(faults=tc.FaultParams(partition_frac=0.3,
-                                        partition_window=(1, 3))),
-             "next campaign"),
-            (dict(dht=tc.DhtAdversaryParams(lookup_eclipse=True)),
-             "next campaign"),
-            (dict(conformance=True), "tooling"),
-            (dict(adversary=tadv.AdversaryParams(
+    bad = _cfg("torch", recovery=0, conformance=True)
+    with pytest.raises(NotImplementedError, match="tooling"):
+        tc.run_campaign(bad, device="cpu")
+    # ported with this campaign's slice: the same config gives the
+    # reference's fields, or its error
+    from dst_libp2p_test_node_tpu.ops import adversary as jadv
+    from dst_libp2p_test_node_tpu.ops import dht_adversary as jda
+    from dst_libp2p_test_node_tpu.ops import faults as jf
+    from dst_libp2p_test_node_tpu_torch.ops import dht_adversary as tda
+    from dst_libp2p_test_node_tpu_torch.ops import faults as tf
+
+    for over in (
+            lambda f, d, a: dict(faults=f.FaultParams(
+                partition_frac=0.3, partition_window=(1, 3))),
+            lambda f, d, a: dict(dht=d.DhtAdversaryParams(
+                lookup_eclipse=True)),
+            lambda f, d, a: dict(adversary=a.AdversaryParams(
                 scenario="eclipse_publisher",
-                adaptive=tadv.AdaptivePolicy(enabled=True))),
-             "next campaign")):
-        bad = _cfg("torch", recovery=0, **over)
-        with pytest.raises(NotImplementedError, match=slice_name):
-            tc.run_campaign(bad, device="cpu")
+                adaptive=a.AdaptivePolicy(enabled=True)))):
+        out = []
+        for pkg, mods in (("jax", (jf, jda, jadv)),
+                          ("torch", (tf, tda, tadv))):
+            c = _cfg(pkg, recovery=0, seeds=(0,), **over(*mods))
+            run = (jc.run_campaign if pkg == "jax" else
+                   lambda c: tc.run_campaign(c, device="cpu"))
+            try:
+                out.append(_fields(run(c)))
+            except ValueError as e:
+                out.append(str(e))
+        assert out[0] == out[1]
     # the reference's own config errors stay errors
     with pytest.raises(ValueError, match="flood_publish"):
         c = _cfg("torch", recovery=0)

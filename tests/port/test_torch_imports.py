@@ -5,8 +5,8 @@ role workloads' ops.kad, ops.connmanager, ops.servicedisco,
 runtime.kad_runtime, runtime.sd_runtime and runtime.regression_runtime,
 and the service's runtime.metrics, runtime.supervise,
 runtime.node_service, runtime.publisher and runtime.traffic, and the
-campaign's ops.adversary, ops.repair, ops.telemetry and runtime.campaign
-named), and chip_smoke.py, import in a fresh interpreter where
+campaign's ops.adversary, ops.repair, ops.telemetry, ops.faults,
+ops.dht_adversary and runtime.campaign named), and chip_smoke.py, import in a fresh interpreter where
 `import jax` and `import flax` fail."""
 
 import os
@@ -39,7 +39,8 @@ for name in ("ops.mix", "runtime.multitopic", "runtime.checkpoint",
              "runtime.regression_runtime", "runtime.metrics",
              "runtime.supervise", "runtime.node_service",
              "runtime.publisher", "runtime.traffic", "ops.adversary",
-             "ops.repair", "ops.telemetry", "runtime.campaign"):
+             "ops.repair", "ops.telemetry", "ops.faults",
+             "ops.dht_adversary", "runtime.campaign"):
     assert port.__name__ + "." + name in names, name
 sys.exit(1 if bad else 0)
 """
