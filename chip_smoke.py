@@ -217,6 +217,24 @@ not printed):
                6's width (2,048 peers) the `attack` process with fault,
                DHT and adaptive flags and the `pareto` process with its
                default grid: exit 0, strict JSON, a non-empty front.
+ 11. round chains and the protocol arena: (a) on the card and on the
+               CPU, run_fused_rounds at 512 peers, split and fused
+               (benign; the adaptive attacker with the recorder; crash +
+               partition + spike), every leaf the same bytes in all four
+               runs, and run_arena_campaign at 128 peers without and with
+               faults, equal outside wall_s. (b) on 9(c)'s network the
+               reference's bench chain (3 rounds of 100 heartbeats and an
+               exact publish from peers 4, 5, 6), split then fused: the
+               same bytes, walls, peer-rounds/s and launches (zeroed just
+               before and read just after each); then the arena probe
+               (benign + sybil_graft_flood against the default adaptive
+               policy, fraction 0.25, seeds 0 and 1, 20 attack heartbeats,
+               3 messages, flood publish off), gated as the reference
+               gates it (benign coverage >= 0.95 for both protocols,
+               episub's benign bandwidth below GossipSub's), with its
+               rows, launches, peak memory and the host syncs of one
+               episub adaptive window. (c) the `arena` process at 2,048
+               peers: exit 0, strict JSON.
 
 Then one JSON line with every kernel's numbers: at 1M x 40 with
 `launches` from phase 4's config-5 run, under `exact` at 100k x 40 with
@@ -225,15 +243,16 @@ numbers with `launches` from phase 3d, and the launches of phase 3f
 (`config3`), 4b (`warm`), 6(a)'s unpadded batch (`batch`), 6(b)'s
 resumed run (`resume`), 7(b)'s regression run (`roles`), 9(c)'s first
 campaign (`campaign`), 10(b)'s three campaigns (`faults`, `adaptive`,
-`dht`), and under
+`dht`), 11(b)'s fused chain (`fused`, with the split chain's beside it)
+and arena (`arena`), and under
 `service` the 670k x 40 numbers with `launches` from 8(b)'s batched run
 (and its sequential run's). Then the total run time, and last the line
 {"ok": true, "device": {...}}. Without CUDA it exits 1 and prints no
 result; run alone, without the package beside it, it exits 2.
 
-Machine time: 698.4 s of run time on one H100 with every phase, builds
-included (PERF.md); phase 8 took 198.7 s of it, phase 9 91.9 s and
-phase 10 165.6 s. Inside a 20-minute budget, above half of it.
+Machine time: 749.2 s of run time on one H100 with every phase, builds
+included (PERF.md); phase 8 took 194.2 s of it, phase 9 87.3 s, phase 10
+169.4 s and phase 11 67.8 s. Inside a 20-minute budget, above half of it.
 """
 
 from __future__ import annotations
@@ -2978,6 +2997,348 @@ def phase_10(dev):
     return launches
 
 
+# ---------------------------------------------------------------- phase 11
+
+FUSED_PARITY_N = 512
+ARENA_PARITY_N = 128
+ARENA_CLI_N = 2048
+# bench.py's chain: 300 timed heartbeat rounds over 3 publishes from peers
+# 4, 5 and 6, from the post-warm-up state
+FUSED_PUBS = (4, 5, 6)
+FUSED_HB_PER_ROUND = 100
+# the arena's fault cell at 11(a): the partition still open over the
+# publishes
+FAULTS11 = dict(crash_frac=0.1, crash_window=(1, 4), partition_frac=0.4,
+                partition_window=(2, 9), spike_frac=0.1, spike_window=(0, 3),
+                spike_ms=37.5)
+
+
+def _exp11(n, msg_size, frags, warmup_s, messages=3, delay_s=2.0,
+           anchor_stages=5, armed=True):
+    """Config 4's network shape at `n` peers; `armed`: attack_gossipsub()
+    with flood publish off (the arena's), else the default GossipSub."""
+    from dst_libp2p_test_node_tpu_torch.config.env import GossipSubParams
+    from dst_libp2p_test_node_tpu_torch.config.topology import TopoParams
+    from dst_libp2p_test_node_tpu_torch.runtime import campaign as camp
+    from dst_libp2p_test_node_tpu_torch.runtime.simulator import (
+        ExperimentConfig)
+
+    return ExperimentConfig(
+        topo=TopoParams(
+            network_size=n, anchor_stages=anchor_stages, min_bandwidth=50,
+            max_bandwidth=150, min_latency=40, max_latency=130,
+            msg_size_bytes=msg_size, num_frags=frags, messages=messages,
+            delay_seconds=delay_s),
+        connect_to=10, warmup_s=warmup_s, seed=0,
+        gossipsub=(camp.attack_gossipsub(flood_publish=False) if armed
+                   else GossipSubParams()))
+
+
+def _fused_chain(sim, fused, hb, arms=None):
+    """run_fused_rounds from the Simulator's state with its edge tables
+    (the bench chain's lat_edge, ans_tables and valid_edge)."""
+    from dst_libp2p_test_node_tpu_torch.ops.disseminate import (
+        run_fused_rounds)
+
+    a = sim.arrays
+    return run_fused_rounds(
+        sim.state, a["conns"], a["rev"], sim._stage, sim._lat, sim._bw,
+        a["out_mask"], list(FUSED_PUBS),
+        dataclasses.replace(sim.params, fused_rounds=fused),
+        sim.cfg.topo.msg_size_bytes, hb, fragments=sim.cfg.topo.num_frags,
+        lat_edge=sim._lat_edge, ans_tables=sim._ans_tables,
+        valid_edge=sim._valid_edge, **(arms or {}))
+
+
+def _chain_bytes(out, adaptive):
+    from dst_libp2p_test_node_tpu_torch import interop
+
+    head, res, obs = out
+    state, ctrl = head if adaptive else (head, None)
+    d = {"state/" + k: v for k, v in interop.state_to_numpy(state).items()}
+    d.update({"res/" + f.name: getattr(res, f.name).cpu().numpy()
+              for f in dataclasses.fields(res)})
+    if ctrl is not None:
+        d.update({"ctrl/" + k: v
+                  for k, v in interop.leaves_to_numpy(ctrl).items()})
+    d.update({"obs/" + k: v
+              for k, v in interop.obs_to_numpy(obs).items()})
+    return d
+
+
+def _same_bytes(what, want, got):
+    from dst_libp2p_test_node_tpu_torch import interop
+
+    bad = interop.leaf_mismatches(want, got) + sorted(set(want) ^ set(got))
+    check(not bad, f"{what}: {bad[:8]} differ")
+
+
+def _arms11(case, n, d):
+    """run_fused_rounds's arms for an 11(a) case, on device d."""
+    from dst_libp2p_test_node_tpu_torch.ops import adversary as adv_ops
+    from dst_libp2p_test_node_tpu_torch.ops import faults as fault_ops
+    from dst_libp2p_test_node_tpu_torch.ops.telemetry import (
+        TelemetryParams)
+
+    if case == "benign":
+        return {}
+    if case == "adaptive":
+        att = adv_ops.attacker_cohort(n, 0.25, 0, publisher=4)
+        return dict(attacker=torch.as_tensor(att, device=d),
+                    adv=adv_ops.AdversaryParams(
+                        scenario="sybil_graft_flood",
+                        adaptive=adv_ops.AdaptivePolicy(enabled=True)),
+                    telemetry=TelemetryParams(record=True))
+    fp = fault_ops.FaultParams(crash_frac=0.1, crash_window=(1, 4),
+                               partition_frac=0.3, partition_window=(1, 3),
+                               spike_frac=0.2, spike_window=(0, 4),
+                               spike_ms=50.0)
+    m = fault_ops.fault_masks(n, fp, 0, publisher=FUSED_PUBS[0])
+    return dict(attacker=torch.zeros(n, dtype=torch.bool, device=d),
+                adv=adv_ops.AdversaryParams(), faults=fp,
+                **{k: torch.as_tensor(v, device=d) for k, v in m.items()})
+
+
+def _arena_cfg(exp, seeds, steps, faults=None):
+    from dst_libp2p_test_node_tpu_torch.ops import adversary as adv_ops
+    from dst_libp2p_test_node_tpu_torch.ops.faults import FaultParams
+    from dst_libp2p_test_node_tpu_torch.runtime import campaign as camp
+
+    return camp.CampaignConfig(
+        scenario="sybil_graft_flood", fractions=(0.25,), seeds=seeds,
+        experiment=exp,
+        adversary=adv_ops.AdversaryParams(
+            scenario="sybil_graft_flood",
+            adaptive=adv_ops.AdaptivePolicy(enabled=True)),
+        attack_heartbeats=steps, faults=FaultParams(**(faults or {})))
+
+
+def phase_fused_arena_parity(dev):
+    """11(a), on the card and on the CPU: run_fused_rounds at 512 peers,
+    split and fused, benign / adaptive + telemetry / faults (crash +
+    partition + spike on a zero-attacker cohort), 3 rounds of 4
+    heartbeats and a publish: every state leaf, result, controller and
+    curve the same bytes in all four runs; then run_arena_campaign at 128
+    peers (benign + sybil_graft_flood against the adaptive attacker,
+    seeds 0 and 1), without and with faults: the artifact equal outside
+    wall_s."""
+    from dst_libp2p_test_node_tpu_torch.runtime.campaign import (
+        run_arena_campaign)
+    from dst_libp2p_test_node_tpu_torch.runtime.simulator import Simulator
+
+    t0 = time.time()
+    n = FUSED_PARITY_N
+    for case in ("benign", "adaptive", "faults"):
+        runs = []
+        for d in (dev, torch.device("cpu")):
+            sim = Simulator(_exp11(n, 2000, 1, 10.0, anchor_stages=3),
+                            device=d)
+            sim.warmup()
+            for fused in (False, True):
+                runs.append(_chain_bytes(
+                    _fused_chain(sim, fused, 4, _arms11(case, n, d)),
+                    case == "adaptive"))
+        for i, what in enumerate(("CUDA split", "CUDA fused", "CPU fused")):
+            _same_bytes(f"11(a) fused {case}: {what} against CPU split",
+                        runs[2], runs[(0, 1, 3)[i]])
+        check(runs[2]["res/received"].any(),
+              f"11(a) fused {case}: nothing delivered")
+    arena = {}
+    for tag, faults in (("plain", None), ("faults", FAULTS11)):
+        got = []
+        for d in (dev, torch.device("cpu")):
+            cfg = _arena_cfg(_exp11(ARENA_PARITY_N, 2000, 1, 8.0,
+                                    messages=2, delay_s=0.5,
+                                    anchor_stages=3), (0, 1), 6, faults)
+            art = run_arena_campaign(cfg, device=d)
+            art.pop("wall_s")
+            got.append(art)
+        check(got[0] == got[1], f"11(a) arena {tag}: CUDA and CPU differ")
+        arena[tag] = got[0]
+    rows = "; ".join(
+        f"{tag} {r['scenario']}/{r['protocol']} coverage "
+        f"{r['coverage']:.4f} bandwidth {r['bandwidth_bytes']:.0f} B"
+        for tag, art in arena.items() for r in art["rows"])
+    print(f"[arena] 11(a) run_fused_rounds at {n} peers (benign, adaptive "
+          f"+ telemetry, faults), split and fused: CUDA = CPU in every "
+          f"leaf; run_arena_campaign at {ARENA_PARITY_N} peers, plain and "
+          f"faulted: CUDA = CPU in every field ({time.time() - t0:.1f} s);"
+          f" {rows}")
+
+
+def _episub_window_syncs(dev, exp):
+    """Host syncs (aten::_local_scalar_dense) and profiled wall of one
+    episub adaptive window (sybil_graft_flood, fraction 0.25, 20 rounds)
+    from an episub-warmed tree at the arena's shape."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dst_libp2p_test_node_tpu_torch.ops import adversary as adv_ops
+    from dst_libp2p_test_node_tpu_torch.ops import episub as ep_ops
+    from dst_libp2p_test_node_tpu_torch.runtime.simulator import Simulator
+
+    sim = Simulator(exp, device=dev)
+    n = sim.params.n
+    a = sim.arrays
+    g = (a["conns"], a["rev"], a["out_mask"])
+    ep = ep_ops.EpisubParams(root=exp.publisher_id % n)
+    warm = int(exp.warmup_s * 1000.0 // sim.params.heartbeat_ms)
+    st, ct = ep_ops.run_episub_heartbeats(
+        sim.state, ep_ops.init_episub_ctrl(n, dev), *g, sim.params, ep, warm)
+    att = torch.as_tensor(adv_ops.attacker_cohort(
+        n, 0.25, 0, conns=sim.graph.conns, publisher=4), device=dev)
+    adv = adv_ops.AdversaryParams(
+        scenario="sybil_graft_flood",
+        adaptive=adv_ops.AdaptivePolicy(enabled=True))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t0 = time.time()
+        ep_ops.run_episub_adaptive_heartbeats(st, ct, *g, att, sim.params,
+                                              ep, adv, 20)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    return (sum(e.count for e in prof.key_averages()
+                if e.key == "aten::_local_scalar_dense"), wall)
+
+
+def phase_fused_arena_full(dev):
+    """11(b) on 9(c)'s network (100,000 peers, connect_to 10, 5 anchor
+    stages, 40-130 ms, 50-150 Mbit, 4 fragments of a 15,000 B message,
+    exact, a 60 s warm-up, no churn): the bench chain (3 rounds of 100
+    heartbeats and a publish from peers 4, 5 and 6, the post-warm-up
+    state, the Simulator's edge tables) split and then fused, the same
+    bytes, walls, peer-rounds/s and launches; then the arena (benign +
+    sybil_graft_flood against the default adaptive policy, fraction
+    0.25, seeds 0 and 1, 20 attack heartbeats, 3 messages 2 s apart,
+    flood publish off: 8 trials) gated as the reference's probe gates it,
+    with its launches, peak memory and the host syncs of one episub
+    adaptive window. Returns {"split", "fused", "arena"} launches."""
+    from dst_libp2p_test_node_tpu_torch.native import score_update as su
+    from dst_libp2p_test_node_tpu_torch.native import vmem_gather as vg
+    from dst_libp2p_test_node_tpu_torch.runtime.campaign import (
+        run_arena_campaign)
+    from dst_libp2p_test_node_tpu_torch.runtime.simulator import Simulator
+
+    n = CAMP_FULL_N
+    out = {}
+    ts = time.time()
+    sim = Simulator(_exp11(n, 15000, 4, EXACT_WARMUP_S, armed=False),
+                    device=dev)
+    sim.warmup()
+    torch.cuda.synchronize()
+    print(f"[arena] 11(b) chain set-up and warm-up {time.time() - ts:.3f} s")
+    chains = {}
+    for mode in ("split", "fused"):
+        vg.launches = 0
+        su.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res = _fused_chain(sim, mode == "fused", FUSED_HB_PER_ROUND)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        out[mode] = {"vmem_gather": vg.launches, "score_update": su.launches}
+        chains[mode] = _chain_bytes(res, False)
+        rate = n * len(FUSED_PUBS) * FUSED_HB_PER_ROUND / wall
+        recv = chains[mode]["res/received"]
+        delays = chains[mode]["res/delay_ms"][recv]
+        print(f"[arena] 11(b) {mode} chain: {len(FUSED_PUBS)} rounds x "
+              f"{FUSED_HB_PER_ROUND} heartbeats + publish at {n} peers x "
+              f"4 fragments: wall {wall:.3f} s, "
+              f"{rate:.1f} simulated peer-rounds/s, coverage "
+              f"{recv.mean():.5f}, p50 {np.percentile(delays, 50):.3f} ms, "
+              f"p99 {np.percentile(delays, 99):.3f} ms, converged "
+              f"{bool(chains[mode]['res/converged'].all())}; launches "
+              f"{out[mode]}")
+        for name, count in out[mode].items():
+            check(count > 0, f"11(b) {mode} chain never launched {name}")
+    _same_bytes("11(b) the fused chain against the split one",
+                chains["split"], chains["fused"])
+    check(chains["split"]["res/converged"].all(),
+          "11(b): a chain publish did not converge")
+    del sim, chains
+
+    exp = _exp11(n, 15000, 4, EXACT_WARMUP_S)
+    cfg = _arena_cfg(exp, (0, 1), 20)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    vg.launches = 0
+    su.launches = 0
+    t0 = time.time()
+    art = run_arena_campaign(cfg, device=dev)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    out["arena"] = {"vmem_gather": vg.launches, "score_update": su.launches}
+    peak = torch.cuda.max_memory_allocated(dev)
+    rate = len(art["trials"]) / art["wall_s"]
+    print(f"[arena] 11(b) arena at {n} peers x 4 fragments (benign + "
+          f"sybil_graft_flood, adaptive, fraction 0.25, seeds 0/1, 20 "
+          f"attack heartbeats, 3 messages): {len(art['trials'])} trials, "
+          f"wall_s {art['wall_s']:.3f} ({wall:.3f} s with set-up), "
+          f"arena_trials_per_s {rate:.4f}; launches {out['arena']}; peak "
+          f"memory {peak / 2**30:.2f} GiB; wins {art['wins']}")
+    for r in art["rows"]:
+        print(f"[arena] 11(b)   {r['scenario']}/{r['protocol']}: coverage "
+              f"{r['coverage']:.5f}, p50 {r['latency_p50_ms']} ms, p99 "
+              f"{r['latency_p99_ms']} ms, bandwidth "
+              f"{r['bandwidth_bytes']:.0f} B, recovery "
+              f"{r['recovery_time_ms']} ms")
+    for t in art["trials"]:
+        extra = ", ".join(f"{k} {v:.4f}" for k, v in t.items()
+                          if k.endswith("_final"))
+        print(f"[arena] 11(b)     {t['scenario']}/{t['protocol']} seed "
+              f"{t['seed']}: coverage {t['coverage']:.5f}, attackers "
+              f"{t['attackers']}, recovery {t['recovery_time_ms']} ms"
+              + (f", {extra}" if extra else ""))
+    rows = {(r["scenario"], r["protocol"]): r for r in art["rows"]}
+    for proto in ("gossipsub", "episub"):
+        cov = rows[("benign", proto)]["coverage"]
+        check(cov >= 0.95, f"11(b) arena: benign coverage {cov} < 0.95 "
+              f"for {proto}")
+    bw_g = rows[("benign", "gossipsub")]["bandwidth_bytes"]
+    bw_e = rows[("benign", "episub")]["bandwidth_bytes"]
+    check(bw_e < bw_g, f"11(b) arena: episub's benign bandwidth {bw_e} is "
+          f"not below GossipSub's {bw_g}")
+    for name, count in out["arena"].items():
+        check(count > 0, f"11(b) arena never launched {name}")
+    syncs, swall = _episub_window_syncs(dev, exp)
+    print(f"[arena] 11(b) host syncs in one episub adaptive window of 20 "
+          f"heartbeats: {syncs} ({swall:.3f} s profiled)")
+    return out
+
+
+def phase_arena_cli(dev):
+    """11(c): the `arena` process at 2,048 peers (the command's defaults
+    otherwise) with --json: exit 0, strict JSON, every trial present."""
+    t0 = time.time()
+    js = os.path.join(SCRATCH, "arena11c.json")
+    proc = subprocess.run(
+        [sys.executable, "-m", "dst_libp2p_test_node_tpu_torch", "arena",
+         "-n", str(ARENA_CLI_N), "--json", js],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"11(c) arena exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    art = _strict_json(js)
+    check(len(art["trials"]) == 8, f"11(c) arena: {len(art['trials'])} "
+          "trials")
+    print(f"[arena] 11(c) arena ({ARENA_CLI_N} peers): exit 0 in "
+          f"{time.time() - t0:.1f} s, strict JSON, wall_s "
+          f"{art['wall_s']:.3f}, win_counts {art['win_counts']}, ties "
+          f"{art['ties']}; "
+          + "; ".join(f"{r['scenario']}/{r['protocol']} coverage "
+                      f"{r['coverage']:.4f}, bandwidth "
+                      f"{r['bandwidth_bytes']:.0f} B, recovery "
+                      f"{r['recovery_time_ms']} ms" for r in art["rows"]))
+
+
+def phase_11(dev):
+    t0 = time.time()
+    os.makedirs(SCRATCH, exist_ok=True)
+    phase_fused_arena_parity(dev)
+    launches = phase_fused_arena_full(dev)
+    phase_arena_cli(dev)
+    print(f"[arena] phase 11 took {time.time() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -3010,6 +3371,7 @@ def main() -> int:
         service = phase_8(dev)
         launches_campaign = phase_9(dev)
         launches10 = phase_10(dev)
+        launches11 = phase_11(dev)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -3027,6 +3389,9 @@ def main() -> int:
                  faults=dict(launches=launches10["faults"][k]),
                  adaptive=dict(launches=launches10["adaptive"][k]),
                  dht=dict(launches=launches10["dht"][k]),
+                 fused=dict(launches=launches11["fused"][k],
+                            split_launches=launches11["split"][k]),
+                 arena=dict(launches=launches11["arena"][k]),
                  service=dict(
                      v["service"],
                      launches=service["batched"]["launches"][k],

@@ -1,8 +1,8 @@
 """Command line of the port: the reference's `run` experiment, its role
 workloads (`kad`, `connmanager`, `regression`, `servicedisco`), the
 resident node service (`serve`, driven by `inject`), the adversarial
-campaign (`attack`), the defense Pareto sweep (`pareto`) and the
-`topogen` and `summarize` tools, on one GPU.
+campaign (`attack`), the defense Pareto sweep (`pareto`), the protocol
+arena (`arena`) and the `topogen` and `summarize` tools, on one GPU.
 
   python -m dst_libp2p_test_node_tpu_torch run <runs> <nodes> <message_size> \\
       <num_fragment> <num_publishers> <min_bandwidth> <max_bandwidth> \\
@@ -59,8 +59,16 @@ arm them, and prints the reference's campaign report; --json writes the
 result as strict JSON and --metrics-out the dst_testnode_attack_*
 Prometheus text, both the reference CLI's bytes apart from wall times.
 `pareto` races a grid of defense knobs against the adaptive attacker and
-prints the reference's Pareto report (--json: its artifact). --mesh and
---trial-groups (several GPUs) exit with an error naming their slice.
+prints the reference's Pareto report (--json: its artifact).
+
+  python -m dst_libp2p_test_node_tpu_torch arena \
+      [--scenarios benign,sybil_graft_flood] [-n PEERS] [--fraction F] \
+      [--seeds 0,1] [--lazy-degree K] [--json F] [--device cpu]
+
+`arena` races GossipSub against the episub tree (the adaptive attacker as
+referee) and prints the reference's win matrix (--json: its artifact).
+--mesh and --trial-groups (several GPUs) exit with an error naming their
+slice.
 """
 
 from __future__ import annotations
@@ -1115,6 +1123,106 @@ def cmd_pareto(argv: list[str]) -> int:
     return 0
 
 
+def cmd_arena(argv: list[str]) -> int:
+    """Protocol arena: race GossipSub against the episub tree on the same
+    graph, traffic, fault cohorts and adaptive attacker
+    (runtime/campaign.run_arena_campaign) and print the per-scenario win
+    matrix. The benign row rides along by default."""
+    from .ops.adversary import ADAPTIVE_SCENARIOS
+
+    p = argparse.ArgumentParser(prog="arena")
+    p.add_argument("--scenarios", default="benign,sybil_graft_flood",
+                   help="comma-separated scenario list; 'benign' is the "
+                   "reserved no-attacker row, the rest must be "
+                   f"adaptive-capable ({', '.join(ADAPTIVE_SCENARIOS)})")
+    p.add_argument("-n", "--peers", type=int, default=64)
+    p.add_argument("--fraction", type=float, default=0.25,
+                   help="attacker fraction for every attack scenario")
+    p.add_argument("--seeds", default="0,1")
+    p.add_argument("--messages", type=int, default=2)
+    p.add_argument("--msg-size", type=int, default=2000)
+    p.add_argument("--delay-s", type=float, default=0.5)
+    p.add_argument("--warmup-s", type=float, default=8.0)
+    p.add_argument("--attack-heartbeats", type=int, default=8)
+    p.add_argument("--connect-to", type=int, default=8)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--publisher-id", type=int, default=4)
+    p.add_argument("--throttle-margin", type=float, default=None,
+                   help="adaptive duty-cycle setpoint (0 < m < 1)")
+    p.add_argument("--lazy-degree", type=int, default=None,
+                   help="episub lazy-IHAVE budget per round (default: "
+                   "the GossipSub d_lazy derivation)")
+    p.add_argument("--json", default=None,
+                   help="write the arena artifact as strict JSON here")
+    later = p.add_argument_group("later slices")
+    later.add_argument("--trial-groups", type=int, default=None)
+    _device_arg(p)
+    a = p.parse_args(argv)
+    if a.trial_groups is not None:
+        p.error("--trial-groups is not ported yet: it comes with the "
+                "multi-GPU (A13) slice (ROADMAP A)")
+
+    scenarios = tuple(s.strip() for s in a.scenarios.split(",") if s.strip())
+    attack_scs = [s for s in scenarios if s != "benign"]
+    bad = [s for s in attack_scs if s not in ADAPTIVE_SCENARIOS]
+    if bad:
+        p.error(f"scenarios {bad} are not adaptive-capable; choose from "
+                f"'benign', {', '.join(ADAPTIVE_SCENARIOS)}")
+    if not attack_scs:
+        p.error("--scenarios needs at least one attack scenario beside "
+                "'benign' (the arena's referee is the adaptive attacker)")
+    if not 0.0 < a.fraction < 1.0:
+        p.error("--fraction must be in (0, 1)")
+    seeds = tuple(int(s) for s in a.seeds.split(",") if s.strip())
+    device = _resolve(p, a.device)
+
+    from .ops.adversary import AdaptivePolicy, AdversaryParams
+    from .ops.episub import EpisubParams
+    from .runtime.campaign import (
+        CampaignConfig, attack_gossipsub, run_arena_campaign)
+    from .runtime.simulator import ExperimentConfig
+    from .runtime.summarize import report_arena
+
+    pol_kw: dict = {"enabled": True}
+    if a.throttle_margin is not None:
+        pol_kw["throttle_margin"] = a.throttle_margin
+    cfg = CampaignConfig(
+        scenario=attack_scs[0],
+        fractions=(a.fraction,),
+        seeds=seeds,
+        experiment=ExperimentConfig(
+            topo=TopoParams(
+                network_size=a.peers, anchor_stages=3,
+                msg_size_bytes=a.msg_size, messages=a.messages,
+                delay_seconds=a.delay_s),
+            connect_to=a.connect_to,
+            # flood publish off: arena traffic rides mesh_mask, the
+            # surface the two protocols differ on
+            gossipsub=attack_gossipsub(flood_publish=False),
+            publisher_id=a.publisher_id,
+            warmup_s=a.warmup_s,
+            seed=a.seed,
+        ),
+        adversary=AdversaryParams(
+            scenario=attack_scs[0], adaptive=AdaptivePolicy(**pol_kw)),
+        attack_heartbeats=a.attack_heartbeats,
+    )
+    ep = None
+    if a.lazy_degree is not None:
+        ep = EpisubParams(root=a.publisher_id % a.peers,
+                          lazy_degree=a.lazy_degree)
+    t0 = time.time()
+    arena = run_arena_campaign(cfg, scenarios=scenarios, ep=ep,
+                               device=device)
+    print(report_arena(arena), end="")
+    if a.json:
+        with open(a.json, "w") as f:
+            # strict JSON: run_arena_campaign sanitizes non-finite values
+            json.dump(arena, f, indent=2, allow_nan=False)
+    print(_wall_line(device, t0, f" trials={len(arena['trials'])}"))
+    return 0
+
+
 COMMANDS = {
     "run": cmd_run,
     "kad": cmd_kad,
@@ -1125,6 +1233,7 @@ COMMANDS = {
     "inject": cmd_inject,
     "attack": cmd_attack,
     "pareto": cmd_pareto,
+    "arena": cmd_arena,
     "topogen": cmd_topogen,
     "summarize": cmd_summarize,
 }

@@ -66,6 +66,10 @@ drop mask folded into `survive` like the graylist gate: delivery only,
 and not counted in `lost_tx`. A peer-sharded mesh and `return_plan` raise
 NotImplementedError naming the slice that brings them (ROADMAP A).
 
+`run_fused_rounds` chains R rounds of a heartbeat burst (through the
+public heartbeat runners) and one publish at the carried clock, the
+reference's bench chain.
+
 Float arithmetic follows the reference's association order term by term,
 and every division by a constant divides by a device tensor: CUDA turns a
 division by a host scalar into a multiply by its reciprocal, which would
@@ -78,7 +82,7 @@ depends on the fixpoint), the port computes it in float64 and rounds once
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 
 import torch
 from torch.profiler import record_function
@@ -1174,3 +1178,101 @@ def disseminate(
             fanout_expire=torch.where(is_pub, t0_ms + ttl,
                                       state.fanout_expire))
     return result, new_state
+
+
+# ---------------------------------------------------------------------------
+# Round chains: R x [heartbeat burst -> publish at the carried clock]
+
+
+def run_fused_rounds(state: SimState, conns, rev, stage, lat_ms, bw,
+                     out_mask, publishers, params: SimParams,
+                     payload_bytes: int, hb_per_round: int, *,
+                     fragments: int = 1, with_gossip: bool = True,
+                     loss_stage=None, loss_mode: str = "tcp", lat_edge=None,
+                     loss_edge=None, ans_tables=None, valid_edge=None,
+                     censor_edge=None, attacker=None, adv=None, ctrl=None,
+                     faults=None, crash=None, side=None, spike=None,
+                     telemetry=None):
+    """Run R = len(publishers) rounds, each `hb_per_round` heartbeats and
+    then one publish from `publishers[r]` at the carried sim clock (t0_ms
+    = state.t_ms, the bench chain's convention).
+
+    The heartbeat runner of a round is the public one the arms select, in
+    the reference's order: run_faulted_heartbeats (a fault schedule; it
+    needs the attacker), run_adaptive_heartbeats (an armed adaptive
+    policy: the controller `ctrl` rides along, default a fresh one),
+    run_attacked_heartbeats (attacker and adv), run_recorded_heartbeats
+    (armed telemetry), else run_heartbeats.
+
+    `params.fused_rounds` selects the reference's one-scan program; the
+    port runs the same host loop either way (no capture yet), so both
+    modes give the phase-split chain's bytes, which the reference's fused
+    scan matches within its own rtol. The repair leaves stay on the state:
+    no path that runs with repair inert reads or writes them.
+
+    Returns (state, results, obs): the DisseminationResult leaves stacked
+    (R, ...), obs mapping each observable channel to its (R,
+    hb_per_round, ...) curve ({} when nothing is armed). With an armed
+    adaptive policy the first element is (state, ctrl)."""
+    from .adversary import run_adaptive_heartbeats, run_attacked_heartbeats
+    from .faults import run_faulted_heartbeats
+    from .heartbeat import run_heartbeats
+    from .state import init_adaptive_ctrl
+    from .telemetry import run_recorded_heartbeats
+
+    faulted = faults is not None and faults.enabled
+    attacked = attacker is not None and adv is not None
+    adaptive = attacked and adv.adaptive.enabled
+    if telemetry is not None and not telemetry.enabled:
+        telemetry = None
+    if (adv is None) != (attacker is None):
+        raise ValueError("attacker and adv arm together — pass both or "
+                         "neither")
+    if faulted and not attacked:
+        raise ValueError("faults compose on the attack window — pass "
+                         "attacker and adv (a zero-attacker cohort is fine)")
+    if ctrl is not None and not adaptive:
+        raise ValueError("ctrl given but adv.adaptive is disabled — the "
+                         "base runners carry none")
+    if adaptive and ctrl is None:
+        ctrl = init_adaptive_ctrl(params.n, conns.device)
+
+    results, obs_list = [], []
+    for pub in publishers:
+        if faulted:
+            out, obs = run_faulted_heartbeats(
+                state, conns, rev, out_mask, attacker, params, adv, faults,
+                crash, side, spike, hb_per_round, telemetry=telemetry,
+                ctrl=ctrl)
+            state, ctrl = out if adaptive else (out, ctrl)
+        elif adaptive:
+            (state, ctrl), obs = run_adaptive_heartbeats(
+                state, conns, rev, out_mask, attacker, params, adv,
+                hb_per_round, ctrl=ctrl, telemetry=telemetry)
+        elif attacked:
+            state, obs = run_attacked_heartbeats(
+                state, conns, rev, out_mask, attacker, params, adv,
+                hb_per_round, telemetry=telemetry)
+        elif telemetry is not None:
+            state, obs = run_recorded_heartbeats(
+                state, conns, rev, out_mask, params, hb_per_round,
+                telemetry)
+        else:
+            state = run_heartbeats(state, conns, rev, out_mask, params,
+                                   hb_per_round)
+            obs = {}
+        res, state = disseminate(
+            state, conns, rev, stage, lat_ms, bw, publisher=int(pub),
+            t0_ms=state.t_ms, params=params, payload_bytes=payload_bytes,
+            fragments=fragments, with_gossip=with_gossip,
+            loss_stage=loss_stage, loss_mode=loss_mode, lat_edge=lat_edge,
+            loss_edge=loss_edge, ans_tables=ans_tables,
+            valid_edge=valid_edge, censor_edge=censor_edge)
+        results.append(res)
+        obs_list.append(obs)
+    stacked = DisseminationResult(**{
+        f.name: torch.stack([getattr(r, f.name) for r in results])
+        for f in fields(DisseminationResult)})
+    obs = {k: torch.stack([o[k] for o in obs_list])
+           for k in sorted(obs_list[0])}
+    return ((state, ctrl) if adaptive else state), stacked, obs

@@ -39,7 +39,10 @@ leaves), and a later sweep resumes every trial it finds there; a resumed
 adaptive trial restarts its controller from zero, as the reference's does.
 `run_defense_sweep` races a grid of defense knobs against the adaptive
 attacker and reports the coverage / bandwidth / recovery-time Pareto
-front.
+front. `run_arena_campaign` races GossipSub against the episub tree
+(ops/episub.py) on the same graph, cohorts, faults and traffic, each
+protocol's windows resolved through the registry (ops/protocol.py), and
+scores who wins each objective.
 
 Peer meshes, trial meshes and the DCN engine (ROADMAP A13) and the
 conformance certificate (A14) raise NotImplementedError naming their
@@ -72,12 +75,7 @@ from ..ops.dht_adversary import (
     dht_repair_pool,
     rtable_poison_frac,
 )
-from ..ops.faults import (
-    FaultParams,
-    fault_masks,
-    partition_edge_mask,
-    run_faulted_heartbeats,
-)
+from ..ops.faults import FaultParams, fault_masks, partition_edge_mask
 from ..ops.repair import (
     RepairParams,
     run_adaptive_recovery_heartbeats,
@@ -339,20 +337,22 @@ def _reset_trial(sim: Simulator, seed: int) -> None:
 
 def _publish_schedule(sim: Simulator, censor=None, attacker=None,
                       adv: AdversaryParams | None = None, cross=None,
-                      partition_ms=None) -> list[MessageRecord]:
+                      partition_ms=None, advance=None) -> list[MessageRecord]:
     """The experiment's injection schedule with the censor mask threaded
     into every publish and the censorship penalty after each one. `cross`
     / `partition_ms`: a partition still open over the schedule folds its
     cross-cut mask into the delivery mask of every publish inside [lo,
-    hi) sim-ms."""
+    hi) sim-ms. `advance(ms)` runs the heartbeats between messages
+    (default Simulator.advance, GossipSub's)."""
     exp = sim.cfg
     n = exp.topo.network_size
     delay_ms = exp.topo.delay_seconds * 1000.0
     pub = exp.publisher_id % n
     a = sim.arrays
+    advance = sim.advance if advance is None else advance
     for i in range(exp.topo.messages):
         if i > 0:
-            sim.advance(delay_ms)
+            advance(delay_ms)
         eff = censor
         if cross is not None and partition_ms is not None:
             t_now = float(sim.state.t_ms)
@@ -504,6 +504,22 @@ def _dht_legs(dht: DhtAdversaryParams, steps: int) -> tuple[int, int]:
     return dht.heal_hb, steps - dht.heal_hb
 
 
+def _protocol_window_runner(protocol: str, runner: str):
+    """A window's heartbeat runner resolved through the protocol registry
+    (ops/protocol.py): for "gossipsub" the module-level runner object
+    itself. A protocol with its own carry (episub) is refused: its
+    windows thread the carry (_episub_windows)."""
+    from ..ops.protocol import get_protocol
+
+    spec = get_protocol(protocol)
+    if spec.init_ctrl is not None:
+        raise ValueError(
+            f"protocol {protocol!r} carries a per-protocol ctrl; route it "
+            "through its ctrl-threading windows (_episub_windows), not the "
+            "SimState-only attack/fault windows")
+    return getattr(spec, runner)
+
+
 def _attack_window(sim: Simulator, cfg: CampaignConfig, adv, att_j, fm,
                    steps: int, tel):
     """One trial's attack window from the bound state: (state, obs, ctrl),
@@ -512,7 +528,9 @@ def _attack_window(sim: Simulator, cfg: CampaignConfig, adv, att_j, fm,
     a = sim.arrays
     if fm is None:
         fm = {k: None for k in ("crash", "side", "spike")}
-    st, obs = run_faulted_heartbeats(
+    run_faulted = _protocol_window_runner("gossipsub",
+                                          "run_faulted_heartbeats")
+    st, obs = run_faulted(
         sim.state, a["conns"], a["rev"], a["out_mask"], att_j, sim.params,
         adv, cfg.faults, fm["crash"], fm["side"], fm["spike"], steps,
         telemetry=tel)
@@ -993,5 +1011,359 @@ def run_defense_sweep(cfg: CampaignConfig,
         "pareto": [i for i in range(len(rows)) if bool(front[i])],
         "default_index": default_index,
         "beats_default": beats,
+        "wall_s": time.time() - t0,
+    })
+
+
+# ------------------------------------------------------------ protocol arena
+
+# objective -> direction, in artifact column order: what a dissemination
+# protocol exists to deliver (coverage, the two latency quantiles), what
+# GossipSub's mesh redundancy spends on it (bandwidth, the axis a
+# Topiary-style tree shrinks, arXiv:2312.06800) and how fast the protocol
+# sheds the adaptive cohort. The win matrix scores each one per scenario.
+ARENA_OBJECTIVES = {
+    "coverage": "max",
+    "bandwidth_bytes": "min",
+    "latency_p50_ms": "min",
+    "latency_p99_ms": "min",
+    "recovery_time_ms": "min",
+}
+
+# relative gap under which an objective cell scores a tie
+ARENA_REL_TOL = 1e-3
+
+
+def _episub_windows(sim: Simulator, ep, attackers, states, ctrls, adv,
+                    steps: int, faults=None, fmasks=None, telemetry=None):
+    """The episub attack window for each trial, one after another (the
+    reference's vmapped window over the stacked trials gives the same
+    bytes): (states, ctrls, host obs dicts) in input order. An armed
+    adaptive policy adds the attacker's controller to the carry, which
+    the arena drops: it reads protocol state only and has no recovery
+    legs. `faults` / `fmasks`: an armed FaultParams and each trial's
+    cohorts as tensors."""
+    from ..ops.episub import run_episub_faulted_heartbeats
+
+    a = sim.arrays
+    if faults is None:
+        faults = FaultParams()
+    out_s, out_c, out_o = [], [], []
+    for j, (st, ct, att) in enumerate(zip(states, ctrls, attackers)):
+        # with no fault armed this is the adaptive (or attacked) window
+        m = (fmasks[j] if faults.enabled
+             else dict.fromkeys(("crash", "side", "spike")))
+        out, obs = run_episub_faulted_heartbeats(
+            st, ct, a["conns"], a["rev"], a["out_mask"], att, sim.params,
+            ep, adv, faults, m["crash"], m["side"], m["spike"], steps,
+            telemetry=telemetry)
+        out_s.append(out[0])
+        out_c.append(out[1])
+        out_o.append(_obs_to_host(obs))
+    return out_s, out_c, out_o
+
+
+def _episub_publish(sim: Simulator, ctrl, ep, censor=None, attacker=None,
+                    adv=None, cross=None, partition_ms=None):
+    """_publish_schedule with episub heartbeats between messages
+    (Simulator.advance would re-form GossipSub's mesh mid-trial). The
+    fractional-heartbeat carry is local, as in the reference, so the
+    Simulator's own carry stays 0 and each publish starts at state.t_ms.
+    Returns (records, ctrl)."""
+    from ..ops.episub import run_episub_heartbeats
+    from .simulator import drain_heartbeat_carry
+
+    a = sim.arrays
+    carry_ms = 0.0
+
+    def advance(ms: float) -> None:
+        nonlocal carry_ms, ctrl
+        steps, carry_ms = drain_heartbeat_carry(carry_ms, ms,
+                                                sim.params.heartbeat_ms)
+        if steps > 0:
+            sim.state, ctrl = run_episub_heartbeats(
+                sim.state, ctrl, a["conns"], a["rev"], a["out_mask"],
+                sim.params, ep, steps)
+
+    records = _publish_schedule(sim, censor=censor, attacker=attacker,
+                                adv=adv, cross=cross,
+                                partition_ms=partition_ms, advance=advance)
+    return records, ctrl
+
+
+def _cohort_sha(att: np.ndarray) -> str:
+    """sha256 of the packed attacker-cohort bitmask: the per-cell identity
+    that shows both protocols faced the same node ids."""
+    import hashlib
+
+    return hashlib.sha256(
+        np.packbits(np.asarray(att, dtype=bool)).tobytes()).hexdigest()
+
+
+def _arena_recovery_ms(obs: dict, floor: float, hb_ms: float,
+                       cap_ms: float) -> float:
+    """Recovery read off the attack window's attacker_mesh_share curve: 0.0
+    when the share never exceeds the floor, else the first return below
+    it after the peak, an unrecovered window charged `cap_ms`."""
+    share = np.asarray(obs["attacker_mesh_share"], dtype=np.float64)
+    if share.size == 0 or share.max() <= floor:
+        return 0.0
+    peak = int(np.argmax(share))
+    rel = _first_round(share[peak:], lambda c: c <= floor)
+    return float((peak + rel) * hb_ms) if rel > 0 else cap_ms
+
+
+def _arena_obs_extras(spec_observables, obs_j) -> dict:
+    """Final-round values of the shared attack channels and of the
+    protocol's own observables (ProtocolSpec.observables)."""
+    out: dict = {}
+    if obs_j is None:
+        return out
+    for k in ("graylisted_frac", "attacker_mesh_share") + tuple(
+            spec_observables):
+        if k in obs_j:
+            v = np.asarray(obs_j[k], dtype=np.float64)
+            if v.size:
+                out[k + "_final"] = float(v[-1])
+    return out
+
+
+def run_arena_campaign(cfg: CampaignConfig, scenarios=None, ep=None,
+                       trial_mesh=None, device=None) -> dict:
+    """The protocol arena, on `device` (CUDA unless the caller passes
+    another): GossipSub and episub race on the same inputs, and the
+    artifact scores who wins each objective per scenario.
+
+    Per (scenario, seed) cell both protocols get one Simulator's graph,
+    the same attacker cohort (its sha256 recorded per cell), the same
+    fault cohorts and the experiment's traffic schedule, with
+    flood_publish off: every publish rides mesh_mask, GossipSub's mesh or
+    episub's tree. The episub side warms up and advances between messages
+    with episub heartbeats. "benign" is the reserved no-attacker row; an
+    attack scenario needs the adaptive attacker armed. No repair and no
+    recovery window: recovery_time_ms is read off the attack window's
+    attacker_mesh_share curve. Returns the reference's strict-JSON dict:
+    per-trial rows, per-(scenario, protocol) rows, the win matrix and the
+    identity block. `trial_mesh` raises: it comes with ROADMAP A13."""
+    from ..ops.episub import (EpisubParams, init_episub_ctrl,
+                              run_episub_heartbeats)
+    from ..ops.protocol import get_protocol
+    from .checkpoint import _graph_hash
+
+    if trial_mesh is not None:
+        raise _later("run_arena_campaign(trial_mesh=)", "multi-GPU (A13)")
+    cfg.validate()
+    adv0 = cfg.adversary_params()
+    if cfg.experiment.gossipsub.flood_publish:
+        raise ValueError(
+            "the arena requires flood_publish=False: flood publish routes "
+            "traffic around mesh_mask, the one surface the two protocols "
+            "differ on — the race would measure nothing")
+    fracs = [f for f in cfg.fractions if f > 0.0]
+    if not fracs:
+        raise ValueError(
+            "the arena needs an attacked fraction (> 0); the benign row "
+            "is the reserved 'benign' scenario, not a 0.0 fraction")
+    fraction = fracs[0]
+    if scenarios is None:
+        scenarios = ("benign", cfg.scenario)
+    scenarios = tuple(scenarios)
+    if any(s != "benign" for s in scenarios) and not adv0.adaptive.enabled:
+        raise ValueError(
+            "arena attack scenarios require cfg.adversary.adaptive armed: "
+            "the adaptive attacker is the referee both protocols face")
+    protos = ("gossipsub", "episub")
+    gspec, espec = get_protocol(protos[0]), get_protocol(protos[1])
+    sim = Simulator(cfg.experiment, device=device)
+    dev = sim.device
+    n = sim.params.n
+    hb_ms = sim.params.heartbeat_ms
+    pub = cfg.experiment.publisher_id % n
+    conns_np = np.asarray(sim.graph.conns)
+    warm_steps = int(cfg.experiment.warmup_s * 1000.0 // hb_ms)
+    steps = cfg.attack_heartbeats
+    cap_ms = float((steps + 1) * hb_ms)
+    if ep is None:
+        # the tree roots at the publisher, the way the traffic flows
+        ep = EpisubParams(root=pub)
+    tel = cfg.telemetry if cfg.telemetry.enabled else None
+    seeds = list(cfg.seeds)
+    faulted = cfg.faults.enabled
+    t0 = time.time()
+    trials: list[dict] = []
+    cohort_shas: dict = {}
+    a = sim.arrays
+
+    for sc in scenarios:
+        benign = sc == "benign"
+        adv = (adv0 if benign or sc == cfg.scenario
+               else replace(adv0, scenario=sc))
+        cohorts = {}
+        for s in seeds:
+            att = (np.zeros(n, dtype=bool) if benign else attacker_cohort(
+                n, fraction, seed=s, conns=conns_np, publisher=pub,
+                eclipse=adv.eclipse))
+            cohorts[s] = (att, torch.as_tensor(att, device=dev))
+            cohort_shas.setdefault(sc, {})[str(s)] = _cohort_sha(att)
+        fmasks = None
+        if faulted and not benign:
+            fmasks = {s: {k: torch.as_tensor(v, device=dev)
+                          for k, v in fault_masks(n, cfg.faults, seed=s,
+                                                  publisher=pub).items()}
+                      for s in seeds}
+
+        def _finish(s, obs_j, spec_obs, records):
+            att, _ = cohorts[s]
+            cov, p50, p99 = _delivery_metrics(records, ~att)
+            rec_ms = (0.0 if obs_j is None else _arena_recovery_ms(
+                obs_j, cfg.mesh_recovery_share, hb_ms, cap_ms))
+            return {
+                "seed": s, "attackers": int(att.sum()),
+                "coverage": cov,
+                "bandwidth_bytes": float(_host(sim.state.bytes_tx).sum()),
+                "latency_p50_ms": p50, "latency_p99_ms": p99,
+                "recovery_time_ms": rec_ms,
+                "cohort_sha256": cohort_shas[sc][str(s)],
+                **_arena_obs_extras(spec_obs, obs_j),
+            }
+
+        def _part_ctx(s):
+            # a partition still open folds into the publish masks, anchored
+            # as in _attacked_trials
+            if not (faulted and not benign and cfg.faults.partition):
+                return None, None
+            t_win0 = float(sim.state.t_ms) - steps * hb_ms
+            pws, pwe = cfg.faults.partition_window
+            part_ms = (t_win0 + pws * hb_ms, t_win0 + pwe * hb_ms)
+            return partition_edge_mask(fmasks[s]["side"],
+                                       a["conns"]), part_ms
+
+        def _censor(s):
+            return None if benign else censor_mask(cohorts[s][1], a["conns"])
+
+        # ---- GossipSub: the registry's runners
+        g_out, g_obs = [], []
+        for s in seeds:
+            _reset_trial(sim, s)
+            sim.warmup()
+            if not benign and adv.eclipse:
+                sim.state = eclipse_setup(sim.state, a["conns"],
+                                          cohorts[s][1], pub)
+            if benign:
+                g_out.append(gspec.run_heartbeats(
+                    sim.state, a["conns"], a["rev"], a["out_mask"],
+                    sim.params, steps))
+                g_obs.append(None)
+            else:
+                st, obs, _ = _attack_window(
+                    sim, cfg, adv, cohorts[s][1],
+                    fmasks[s] if fmasks else None, steps, tel)
+                g_out.append(st)
+                g_obs.append(_obs_to_host(obs))
+        for j, s in enumerate(seeds):
+            _reset_trial(sim, s)
+            sim.state = g_out[j]
+            cross, part_ms = _part_ctx(s)
+            records = _publish_schedule(
+                sim, censor=_censor(s),
+                attacker=None if benign else cohorts[s][1],
+                adv=None if benign else adv, cross=cross,
+                partition_ms=part_ms)
+            trials.append({"scenario": sc, "protocol": protos[0],
+                           **_finish(s, g_obs[j], gspec.observables,
+                                     records)})
+
+        # ---- episub: the same cells, cohorts and fault masks
+        e_states, e_ctrls = [], []
+        for s in seeds:
+            _reset_trial(sim, s)
+            ctrl = init_episub_ctrl(n, dev)
+            if warm_steps > 0:
+                sim.state, ctrl = run_episub_heartbeats(
+                    sim.state, ctrl, a["conns"], a["rev"], a["out_mask"],
+                    sim.params, ep, warm_steps)
+            if not benign and adv.eclipse:
+                sim.state = eclipse_setup(sim.state, a["conns"],
+                                          cohorts[s][1], pub)
+            e_states.append(sim.state)
+            e_ctrls.append(ctrl)
+        if benign:
+            e_out, e_cout, e_obs = [], [], [None] * len(seeds)
+            for st, ct in zip(e_states, e_ctrls):
+                st2, ct2 = run_episub_heartbeats(
+                    st, ct, a["conns"], a["rev"], a["out_mask"], sim.params,
+                    ep, steps)
+                e_out.append(st2)
+                e_cout.append(ct2)
+        else:
+            e_out, e_cout, e_obs = _episub_windows(
+                sim, ep, [cohorts[s][1] for s in seeds], e_states, e_ctrls,
+                adv, steps, faults=cfg.faults if faulted else None,
+                fmasks=[fmasks[s] for s in seeds] if faulted else None,
+                telemetry=tel)
+        for j, s in enumerate(seeds):
+            _reset_trial(sim, s)
+            sim.state = e_out[j]
+            cross, part_ms = _part_ctx(s)
+            records, _ = _episub_publish(
+                sim, e_cout[j], ep, censor=_censor(s),
+                attacker=None if benign else cohorts[s][1],
+                adv=None if benign else adv, cross=cross,
+                partition_ms=part_ms)
+            trials.append({"scenario": sc, "protocol": protos[1],
+                           **_finish(s, e_obs[j], espec.observables,
+                                     records)})
+
+    # ---- aggregates and the win matrix
+    rows = []
+    for sc in scenarios:
+        for p in protos:
+            cell = [t for t in trials
+                    if t["scenario"] == sc and t["protocol"] == p]
+            rows.append({
+                "scenario": sc, "protocol": p, "trials": len(cell),
+                **{k: float(np.mean([t[k] for t in cell]))
+                   for k in ARENA_OBJECTIVES},
+            })
+    wins: dict = {}
+    win_counts = {p: 0 for p in protos}
+    ties = 0
+    for sc in scenarios:
+        by_p = {r["protocol"]: r for r in rows if r["scenario"] == sc}
+        wsc = {}
+        for k, d in ARENA_OBJECTIVES.items():
+            va, vb = by_p[protos[0]][k], by_p[protos[1]][k]
+            if ((math.isinf(va) and math.isinf(vb))
+                    or bool(np.isclose(va, vb, rtol=ARENA_REL_TOL,
+                                       atol=0.0))):
+                wsc[k] = "tie"
+                ties += 1
+                continue
+            w = protos[0] if ((va > vb) if d == "max" else (va < vb)) \
+                else protos[1]
+            wsc[k] = w
+            win_counts[w] += 1
+        wins[sc] = wsc
+
+    return sanitize_nonfinite({
+        "protocols": list(protos),
+        "scenarios": list(scenarios),
+        "network_size": n,
+        "fraction": fraction,
+        "seeds": seeds,
+        "attack_heartbeats": steps,
+        "objectives": dict(ARENA_OBJECTIVES),
+        "identity": {
+            "graph_sha256": _graph_hash(sim.graph),
+            "publisher": pub,
+            "cohort_sha256": cohort_shas,
+            "flood_publish": False,
+            "episub_root": ep.root,
+        },
+        "trials": trials,
+        "rows": rows,
+        "wins": wins,
+        "win_counts": win_counts,
+        "ties": ties,
         "wall_s": time.time() - t0,
     })

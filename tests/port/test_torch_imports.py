@@ -6,8 +6,9 @@ runtime.kad_runtime, runtime.sd_runtime and runtime.regression_runtime,
 and the service's runtime.metrics, runtime.supervise,
 runtime.node_service, runtime.publisher and runtime.traffic, and the
 campaign's ops.adversary, ops.repair, ops.telemetry, ops.faults,
-ops.dht_adversary and runtime.campaign named), and chip_smoke.py, import in a fresh interpreter where
-`import jax` and `import flax` fail."""
+ops.dht_adversary and runtime.campaign, and the arena's ops.protocol and
+ops.episub named), and chip_smoke.py, import in a fresh interpreter
+where `import jax` and `import flax` fail."""
 
 import os
 import subprocess
@@ -40,7 +41,8 @@ for name in ("ops.mix", "runtime.multitopic", "runtime.checkpoint",
              "runtime.supervise", "runtime.node_service",
              "runtime.publisher", "runtime.traffic", "ops.adversary",
              "ops.repair", "ops.telemetry", "ops.faults",
-             "ops.dht_adversary", "runtime.campaign"):
+             "ops.dht_adversary", "runtime.campaign", "ops.protocol",
+             "ops.episub"):
     assert port.__name__ + "." + name in names, name
 sys.exit(1 if bad else 0)
 """
