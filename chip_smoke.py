@@ -235,6 +235,32 @@ not printed):
                rows, launches, peak memory and the host syncs of one
                episub adaptive window. (c) the `arena` process at 2,048
                peers: exit 0, strict JSON.
+ 12. the conformance gate, the plan seam and trace: (a) on the card and
+               on the CPU, conformance_certificate over the canon (8
+               scenarios + adaptive, faults, churn, opportunistic graft,
+               gossip_fragments) at seeds 0 and 1: entries equal, clean,
+               every sim state the walks compare bitwise equal; both
+               mutants sim_bug on the card; the seed-0 certificate on the
+               card; disseminate(return_plan=True) at 2,048 peers x 2
+               fragments on the prefix and serial routes, lossless and at
+               1% tcp and message loss: plan, result and state leaves
+               bitwise; `trace` at 64 peers: its files equal. (b) a
+               campaign on 9(c)'s network armed as 10(c)'s `attack`
+               (eclipse, the default adaptive policy, 10(b)'s fault
+               schedule, no DHT), fractions 0 / 0.1 x seeds 0 / 1, 20
+               attack and 10 recovery heartbeats, conformance=True: the
+               attached certificate clean, its scenario, adaptive and
+               faults entries equal to (a)'s seed-0 ones; trials/s, the
+               certificate's seconds, launches (zeroed just before, read
+               just after; both must launch). (c) one exact publish of
+               3d's lossy config 4 at full width without and with
+               return_plan: the same result and state bytes; the plan's
+               shapes and bytes, peak memory, launches. (d) `conform
+               --device cuda --out` as a process: exit 0, its file the
+               seed-0 certificate's bytes; `trace -n 100000 --heartbeats
+               20 --warmup-hb 10 --profile-dir` as a process: exit 0,
+               strict JSON, 20 CSV rows, the profiler trace naming the
+               score_update kernel.
 
 Then one JSON line with every kernel's numbers: at 1M x 40 with
 `launches` from phase 4's config-5 run, under `exact` at 100k x 40 with
@@ -244,15 +270,18 @@ numbers with `launches` from phase 3d, and the launches of phase 3f
 resumed run (`resume`), 7(b)'s regression run (`roles`), 9(c)'s first
 campaign (`campaign`), 10(b)'s three campaigns (`faults`, `adaptive`,
 `dht`), 11(b)'s fused chain (`fused`, with the split chain's beside it)
-and arena (`arena`), and under
+and arena (`arena`), 12(b)'s campaign (`conformance_campaign`), 12(c)'s
+run (`plan`) and 12(d)'s trace process (`trace`, as its profiler counted
+them), and under
 `service` the 670k x 40 numbers with `launches` from 8(b)'s batched run
 (and its sequential run's). Then the total run time, and last the line
 {"ok": true, "device": {...}}. Without CUDA it exits 1 and prints no
 result; run alone, without the package beside it, it exits 2.
 
-Machine time: 749.2 s of run time on one H100 with every phase, builds
-included (PERF.md); phase 8 took 194.2 s of it, phase 9 87.3 s, phase 10
-169.4 s and phase 11 67.8 s. Inside a 20-minute budget, above half of it.
+Machine time: 864.2 s of run time on one H100 with every phase, builds
+included (PERF.md); phase 9 took 104.1 s of it, phase 10 165.1 s, phase
+11 73.1 s and phase 12 83.2 s. Inside a 20-minute budget, above half of
+it.
 """
 
 from __future__ import annotations
@@ -3339,6 +3368,459 @@ def phase_11(dev):
     return launches
 
 
+# ---------------------------------------------------------------- phase 12
+
+CONFORM_SEEDS = (0, 1)
+# the canon of conformance_certificate's entries, in its order
+CONFORM_CANON = ("sybil_graft_flood", "ihave_spam", "iwant_spam",
+                 "censorship", "eclipse_publisher", "cold_boot_join",
+                 "slow_peer_mimicry", "identity_rotation", "adaptive",
+                 "faults", "churn", "opportunistic_graft", "gossip_fragments")
+PLAN_N = PARITY_N
+# (name, answer_queue_mode, the engine the route must take)
+PLAN_ROUTES = (("prefix", "parallel_prefix", "prefix"),
+               ("serial", "serial", "serial"))
+# (name, per-edge loss, loss model)
+PLAN_LOSSES = (("lossless", 0.0, "tcp"), ("tcp 1%", 0.01, "tcp"),
+               ("message 1%", 0.01, "message"))
+TRACE_PARITY_N = 64
+TRACE_N = EXACT_N
+TRACE_HB = 20
+TRACE_WARMUP_HB = 10
+
+
+class _SimStates:
+    """Records every sim-side state the conformance walks compare (the
+    argument of analysis.conformance._diff_states, per round and for the
+    runner-coherence finals) as host numpy, in call order."""
+
+    def __enter__(self):
+        from dst_libp2p_test_node_tpu_torch import interop
+        from dst_libp2p_test_node_tpu_torch.analysis import conformance
+
+        self.states = []
+        self._orig = conformance._diff_states
+
+        def _diff_states(sim_state, spec_st, scenario, seed, step,
+                         prefix=""):
+            self.states.append(((scenario, seed, step, prefix),
+                                interop.state_to_numpy(sim_state)))
+            return self._orig(sim_state, spec_st, scenario, seed, step,
+                              prefix=prefix)
+
+        conformance._diff_states = _diff_states
+        return self
+
+    def __exit__(self, *exc):
+        from dst_libp2p_test_node_tpu_torch.analysis import conformance
+
+        conformance._diff_states = self._orig
+
+
+def _plan_bytes(plan):
+    return {k: v.cpu().numpy() for k, v in plan.items() if v is not None}
+
+
+def _publish_bytes(res, state, plan=None):
+    from dst_libp2p_test_node_tpu_torch import interop
+
+    d = {"res/" + f.name: getattr(res, f.name).cpu().numpy()
+         for f in dataclasses.fields(res)}
+    d.update({"state/" + k: v
+              for k, v in interop.state_to_numpy(state).items()})
+    if plan is not None:
+        d.update({"plan/" + k: v for k, v in _plan_bytes(plan).items()})
+    return d
+
+
+def _sim_publish(sim, params=None, loss=0.0, loss_mode=None, **extra):
+    """One disseminate from the Simulator's state with its edge tables, as
+    Simulator.publish calls it (publisher cfg.publisher_id, no mix), at a
+    per-edge `loss` other than the topology's when given."""
+    from dst_libp2p_test_node_tpu_torch.ops.disseminate import disseminate
+
+    cfg = sim.cfg
+    a = sim.arrays
+    loss_kw = dict(loss_stage=sim._loss, loss_edge=sim._loss_edge)
+    if loss:
+        s1 = sim._lat.shape[0]
+        loss_kw = dict(loss_stage=torch.full((s1, s1), loss,
+                                             dtype=torch.float32,
+                                             device=sim.device))
+    return disseminate(
+        sim.state, a["conns"], a["rev"], sim._stage, sim._lat, sim._bw,
+        publisher=cfg.publisher_id,
+        t0_ms=float(sim.state.t_ms) + sim._hb_carry_ms,
+        params=params or sim.params, payload_bytes=cfg.topo.msg_size_bytes,
+        fragments=cfg.topo.num_frags, with_gossip=cfg.with_gossip,
+        loss_mode=loss_mode or cfg.loss_mode, lat_edge=sim._lat_edge,
+        ans_tables=sim._ans_tables, valid_edge=sim._valid_edge,
+        **loss_kw, **extra)
+
+
+def _trace_cli(dev, n, out, hb, warm, profile_dir=None):
+    """The `trace` command in this process; returns its summary."""
+    from dst_libp2p_test_node_tpu_torch import cli
+
+    argv = ["trace", "-n", str(n), "--heartbeats", str(hb), "--warmup-hb",
+            str(warm), "--out", out, "--device", str(dev)]
+    if profile_dir:
+        argv += ["--profile-dir", profile_dir]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    check(rc == 0, f"trace on {dev} exited {rc}")
+    return json.loads(buf.getvalue())
+
+
+def _trace_files(out):
+    files = {}
+    for name in ("trace.perfetto.json", "rounds.csv"):
+        with open(os.path.join(out, name), "rb") as f:
+            files[name] = f.read()
+    with np.load(os.path.join(out, "rounds.npz")) as z:
+        files.update({"npz/" + k: z[k] for k in z.files})
+    return files
+
+
+def phase_conformance_parity(dev):
+    """12(a): the full conformance canon (8 scenarios + adaptive, faults,
+    churn, opportunistic graft, gossip_fragments) at seeds 0 and 1 on the
+    card and on the CPU: certificates equal entry by entry, every sim
+    state the walks compare bitwise equal; both mutants classified sim_bug
+    on the card; the seed-0 certificate on the card (12(d)'s reference);
+    disseminate(return_plan=True) at 2,048 peers on the prefix and serial
+    routes, lossless and at 1% tcp and message loss: plan, result and state
+    leaves bitwise CUDA = CPU; `trace` at 64 peers: its files CUDA = CPU.
+    Returns the seed-0 certificate."""
+    from dst_libp2p_test_node_tpu_torch.analysis import conformance as conf
+    from dst_libp2p_test_node_tpu_torch.config.env import GossipSubParams
+    from dst_libp2p_test_node_tpu_torch.config.topology import TopoParams
+    from dst_libp2p_test_node_tpu_torch.ops import disseminate as dis
+    from dst_libp2p_test_node_tpu_torch.runtime.simulator import (
+        ExperimentConfig, Simulator)
+
+    cpu = torch.device("cpu")
+    certs, walks, walls = [], [], []
+    for d in (dev, cpu):
+        t0 = time.time()
+        with _SimStates() as rec:
+            certs.append(conf.conformance_certificate(
+                seeds=CONFORM_SEEDS, device=d))
+        walls.append(time.time() - t0)
+        walks.append(rec.states)
+    gpu, host = certs
+    names = [e["scenario"] for e in gpu["entries"]]
+    check(tuple(names) == CONFORM_CANON, f"12(a) canon entries {names}")
+    for eg, ec in zip(gpu["entries"], host["entries"]):
+        check(eg == ec, f"12(a) {eg['scenario']}: the certificate entry "
+              f"differs between CUDA ({eg}) and the CPU ({ec})")
+    check(gpu == host, "12(a) certificates differ outside the entries")
+    check(gpu["clean"], f"12(a) certificate not clean: {gpu['sim_bugs']} "
+          "sim_bug(s)")
+    (wait,) = [d["max_abs_err"] for e in gpu["entries"]
+               if e["scenario"] == "gossip_fragments"
+               for d in e["divergences"]]
+    wg, wc = walks
+    check([k for k, _ in wg] == [k for k, _ in wc],
+          "12(a) the walks compared other rounds on the two devices")
+    for (key, sg), (_, sc) in zip(wg, wc):
+        bad = sorted(k for k in sg if sg[k].tobytes() != sc[k].tobytes())
+        check(not bad, f"12(a) {key}: sim state leaves {bad} differ "
+              "between CUDA and the CPU")
+    print(f"[conform] 12(a) canon x seeds {list(CONFORM_SEEDS)}: "
+          f"{len(names)} entries equal on CUDA ({walls[0]:.1f} s) and "
+          f"the CPU ({walls[1]:.1f} s), clean, statuses "
+          + ", ".join(f"{e['scenario']} {e['status']}"
+                      for e in gpu["entries"])
+          + f"; gossip_fragments wait {wait!r} ms; {len(wg)} sim states "
+          "bitwise equal")
+    t0 = time.time()
+    for name, mutant in conf.MUTANTS.items():
+        divs = conf.run_scenario_differential("sybil_graft_flood",
+                                              mutate=mutant, device=dev)
+        classes = {d["classification"]
+                   for d in conf.classify(divs, conf.load_waivers())}
+        check(divs and classes == {"sim_bug"},
+              f"12(a) mutant {name}: {len(divs)} divergences, {classes}")
+        print(f"[conform] 12(a) mutant {name}: {len(divs)} divergences on "
+              f"CUDA, all sim_bug (fields "
+              f"{sorted({d['field'] for d in divs})})")
+    cert0 = conf.conformance_certificate(seeds=(0,), device=dev)
+    check(cert0["clean"], "12(a) seed-0 certificate not clean")
+    print(f"[conform] 12(a) mutants and the seed-0 certificate on CUDA: "
+          f"{time.time() - t0:.1f} s")
+
+    t0 = time.time()
+    topo = TopoParams(network_size=PLAN_N, anchor_stages=5,
+                      min_bandwidth=50, max_bandwidth=150, min_latency=40,
+                      max_latency=130, msg_size_bytes=15000, num_frags=2,
+                      messages=3, delay_seconds=2.0)
+    cfg = ExperimentConfig(
+        topo=topo, seed=3, warmup_s=30.0,
+        gossipsub=GossipSubParams(flood_publish=False, d_lazy=12))
+    out = {}
+    for i, d in enumerate((dev, cpu)):
+        sim = Simulator(cfg, device=d)
+        sim.warmup()
+        for rname, mode, engine in PLAN_ROUTES:
+            params = dataclasses.replace(sim.params, answer_queue_mode=mode)
+            for lname, loss, model in PLAN_LOSSES:
+                dis.reset_engine_counts()
+                res, state, plan = _sim_publish(
+                    sim, params, loss, model, return_plan=True)
+                out[(i, rname, lname)] = (
+                    _publish_bytes(res, state, plan), dict(dis.engine_counts),
+                    {k: None if v is None else tuple(v.shape)
+                     for k, v in plan.items()})
+    for rname, _, engine in PLAN_ROUTES:
+        for lname, _, _ in PLAN_LOSSES:
+            (bg, cg, shapes), (bc, cc, _) = (out[(0, rname, lname)],
+                                             out[(1, rname, lname)])
+            _same_bytes(f"12(a) plan, {rname} route, {lname}", bc, bg)
+            check(cg == cc and cg[engine] == 1,
+                  f"12(a) plan, {rname} route, {lname}: engines {cg} on "
+                  f"CUDA, {cc} on the CPU")
+            print(f"[conform] 12(a) return_plan at {PLAN_N} peers x 2 "
+                  f"fragments, {rname} route, {lname}: plan, result and "
+                  f"state leaves bitwise CUDA = CPU; plan {shapes}")
+    print(f"[conform] 12(a) plan parity took {time.time() - t0:.1f} s")
+
+    t0 = time.time()
+    tr = []
+    for i, d in enumerate((dev, cpu)):
+        o = os.path.join(SCRATCH, f"trace12a_{i}")
+        _trace_cli(d, TRACE_PARITY_N, o, 20, 10)
+        tr.append(_trace_files(o))
+    _same_bytes(f"12(a) trace at {TRACE_PARITY_N} peers", tr[1], tr[0])
+    print(f"[conform] 12(a) trace at {TRACE_PARITY_N} peers: "
+          "trace.perfetto.json, rounds.csv and every rounds.npz member "
+          f"equal on CUDA and the CPU ({time.time() - t0:.1f} s)")
+    return cert0
+
+
+def phase_conformance_campaign(dev, cert0):
+    """12(b): one campaign on 9(c)'s network (100,000 peers x 4 fragments
+    of 15,000 B, exact, 60 s warm-up) armed as 10(c)'s `attack`:
+    eclipse_publisher with the adaptive attacker (default policy) and
+    10(b)'s fault schedule, the DHT arm off; fractions 0 / 0.1 x seeds
+    0 / 1, 20 attack and 10 recovery heartbeats (evict + px + redial),
+    conformance=True. The attached certificate must be clean and hold the
+    scenario, adaptive and faults entries, each equal to 12(a)'s seed-0
+    entry of the same name; both kernels must launch (counts zeroed just
+    before, read just after)."""
+    from dst_libp2p_test_node_tpu_torch.native import score_update as su
+    from dst_libp2p_test_node_tpu_torch.native import vmem_gather as vg
+    from dst_libp2p_test_node_tpu_torch.runtime import campaign as camp
+
+    cfg = dataclasses.replace(
+        _cfg10(CAMP_FULL_N, "eclipse_publisher", (0.0, 0.1), (0, 1), 20,
+               EXACT_WARMUP_S, faults=FAULTS10, adaptive=True,
+               msg_size=15000, frags=4, recovery=10, telemetry=False),
+        conformance=True)
+    cert_s = []
+    orig = camp._campaign_conformance
+
+    def _timed(*args, **kw):
+        t = time.time()
+        try:
+            return orig(*args, **kw)
+        finally:
+            cert_s.append(time.time() - t)
+
+    camp._campaign_conformance = _timed
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        vg.launches = 0
+        su.launches = 0
+        res = camp.run_campaign(cfg, device=dev)
+        torch.cuda.synchronize()
+        launches = {"vmem_gather": vg.launches, "score_update": su.launches}
+    finally:
+        camp._campaign_conformance = orig
+    peak = torch.cuda.max_memory_allocated(dev)
+    cert = res.conformance
+    want = {e["scenario"]: e for e in cert0["entries"]}
+    names = [e["scenario"] for e in cert["entries"]]
+    check(names == ["eclipse_publisher", "adaptive", "faults"],
+          f"12(b) certificate entries {names}")
+    check(cert["clean"], f"12(b) certificate not clean: {cert}")
+    for e in cert["entries"]:
+        check(e == want[e["scenario"]],
+              f"12(b) {e['scenario']}: {e} differs from 12(a)'s "
+              f"{want[e['scenario']]}")
+    check(res.to_dict()["conformance"] == cert,
+          "12(b) the certificate does not ride to_dict()")
+    for k, v in launches.items():
+        check(v > 0, f"12(b) the campaign never launched {k}")
+    d = res.to_dict()
+    print(f"[conform] 12(b) {CAMP_FULL_N} peers x 4 fragments, "
+          f"eclipse_publisher + adaptive + crash/partition/spike, fractions "
+          f"0/0.1 x seeds 0/1, 20 attack + 10 recovery heartbeats, "
+          f"conformance=True: wall_s {res.wall_s:.3f} (certificate "
+          f"{cert_s[0]:.3f} s), trials_per_s {res.trials_per_s:.4f}; "
+          f"certificate clean, entries {names} equal to 12(a)'s; launches "
+          f"{launches}; peak memory {peak / 2**30:.2f} GiB; {_worst(d)}")
+    for t in d["trials"]:
+        print(f"[conform] 12(b)   {_trial_line(t)}; {_resilience(t)}")
+    return launches
+
+
+def _lossy_config4():
+    """Phase 3d's lossy config 4 (packet loss 0.01, tcp, slow-peer weight
+    -1), as its `run` arguments build it."""
+    from dst_libp2p_test_node_tpu_torch.cli import (RUN_SH_PARAMS,
+                                                    _topo_from_fields)
+    from dst_libp2p_test_node_tpu_torch.config.env import (
+        gossipsub_params_from_env)
+    from dst_libp2p_test_node_tpu_torch.runtime.simulator import (
+        ExperimentConfig)
+
+    saved = {k: os.environ.get(k) for k in LOSSY_ENV}
+    os.environ.update(LOSSY_ENV)
+    try:
+        gs = gossipsub_params_from_env()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return ExperimentConfig(
+        topo=_topo_from_fields(dict(zip(RUN_SH_PARAMS, LOSSY_ARGS))),
+        gossipsub=gs, warmup_s=EXACT_WARMUP_S,
+        churn_down_per_hb=EXACT_CHURN, churn_up_per_hb=EXACT_CHURN / 2)
+
+
+def phase_plan_full(dev):
+    """12(c): one exact publish of 3d's lossy config 4 at full width
+    (100,000 peers x 4 fragments, tcp loss 0.01, slow-peer weight -1) from
+    the post-warm-up state, without and with return_plan: result and new
+    state the same bytes. Counts zeroed before the Simulator is built and
+    read after the two publishes."""
+    from dst_libp2p_test_node_tpu_torch.native import score_update as su
+    from dst_libp2p_test_node_tpu_torch.native import vmem_gather as vg
+    from dst_libp2p_test_node_tpu_torch.runtime.simulator import Simulator
+
+    cfg = _lossy_config4()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    vg.launches = 0
+    su.launches = 0
+    t0 = time.time()
+    sim = Simulator(cfg, device=dev)
+    sim.warmup()
+    torch.cuda.synchronize()
+    t1 = time.time()
+    res, state = _sim_publish(sim)
+    torch.cuda.synchronize()
+    t2 = time.time()
+    g0 = vg.launches
+    res_p, state_p, plan = _sim_publish(sim, return_plan=True)
+    torch.cuda.synchronize()
+    t3 = time.time()
+    launches = {"vmem_gather": vg.launches, "score_update": su.launches}
+    peak = torch.cuda.max_memory_allocated(dev)
+    _same_bytes("12(c) publish with return_plan", _publish_bytes(res, state),
+                _publish_bytes(res_p, state_p))
+    check(plan["survive"] is not None and plan["retx_ms"] is not None,
+          "12(c) the lossy plan carries no loss draws")
+    for k, v in launches.items():
+        check(v > 0, f"12(c) the run never launched {k}")
+    nbytes = sum(v.numel() * v.element_size() for v in plan.values()
+                 if v is not None)
+    shapes = {k: None if v is None else tuple(v.shape)
+              for k, v in plan.items()}
+    cov = float(res.received.float().mean())
+    print(f"[plan] 12(c) {EXACT_N} peers x 4 fragments, tcp loss 0.01, "
+          f"slow weight -1: set-up + warm-up {t1 - t0:.1f} s, publish "
+          f"{t2 - t1:.3f} s, with return_plan {t3 - t2:.3f} s; result and "
+          f"state bytes equal; coverage {cov:.6f}; plan {shapes}, "
+          f"{nbytes / 2**20:.1f} MiB; peak memory {peak / 2**30:.2f} GiB; "
+          f"vmem_gather launches {g0} + {vg.launches - g0} (plan publish), "
+          f"launches {launches}")
+    return launches
+
+
+def phase_conformance_cli(dev, cert0):
+    """12(d): `conform --device cuda --out X` as a process: exit 0, its
+    file equal to 12(a)'s seed-0 certificate written by write_certificate;
+    `trace -n 100000 --heartbeats 20 --warmup-hb 10 --profile-dir D` as a
+    process: exit 0, strict-JSON trace.perfetto.json, 20 rows in
+    rounds.csv, and a profiler trace in D that names the score_update
+    kernel. Returns the trace's device kernel launches (the profiler's
+    count)."""
+    from dst_libp2p_test_node_tpu_torch.analysis import conformance as conf
+    from dst_libp2p_test_node_tpu_torch.runtime import profiling
+
+    want = os.path.join(SCRATCH, "cert12_want.json")
+    conf.write_certificate(cert0, want)
+    got = os.path.join(SCRATCH, "cert12_cli.json")
+    out = os.path.join(SCRATCH, "trace12d")
+    prof = os.path.join(SCRATCH, "trace12d_prof")
+    argv = {
+        "conform": ["conform", "--device", dev.type, "--out", got],
+        "trace": ["trace", "-n", str(TRACE_N), "--heartbeats",
+                  str(TRACE_HB), "--warmup-hb", str(TRACE_WARMUP_HB),
+                  "--out", out, "--profile-dir", prof, "--device",
+                  dev.type],
+    }
+    walls = {}
+    for name, args in argv.items():
+        t0 = time.time()
+        proc = subprocess.run([sys.executable, "-m",
+                               "dst_libp2p_test_node_tpu_torch", *args],
+                              cwd=ROOT, capture_output=True, text=True,
+                              timeout=600)
+        walls[name] = time.time() - t0
+        check(proc.returncode == 0, f"12(d) {name} exited "
+              f"{proc.returncode}: {proc.stderr[-2000:]}")
+        if name == "trace":
+            summary = json.loads(proc.stdout)
+    with open(want, "rb") as f, open(got, "rb") as g:
+        check(f.read() == g.read(),
+              "12(d) conform's certificate differs from 12(a)'s seed 0")
+    _strict_json(got)
+    _strict_json(os.path.join(out, "trace.perfetto.json"))
+    with open(os.path.join(out, "rounds.csv")) as f:
+        rows = f.read().splitlines()[1:]
+    check(len(rows) == TRACE_HB, f"12(d) rounds.csv has {len(rows)} rows")
+    with open(os.path.join(prof, profiling.PROFILE_TRACE)) as f:
+        check("score_update" in f.read(),
+              "12(d) the profiler trace does not name score_update")
+    with open(os.path.join(prof, profiling.KERNEL_COUNTS)) as f:
+        kernels = json.load(f)
+    launches = {k: sum(v for name, v in kernels.items() if k in name)
+                for k in ("vmem_gather", "score_update")}
+    top = [(name[:60], k) for name, k in
+           sorted(kernels.items(), key=lambda kv: -kv[1])[:3]]
+    print(f"[conform] 12(d) conform --device cuda: exit 0 in "
+          f"{walls['conform']:.1f} s, its file equals 12(a)'s seed-0 "
+          f"certificate; trace -n {TRACE_N} --heartbeats {TRACE_HB} "
+          f"--warmup-hb {TRACE_WARMUP_HB} --profile-dir: exit 0 in "
+          f"{walls['trace']:.1f} s, strict JSON, {len(rows)} rows, "
+          f"coverage90_hb {summary['coverage90_hb']}, final mean degree "
+          f"{summary['final_mean_degree']:.4f}; the profiler saw "
+          f"{sum(kernels.values())} kernel launches of {len(kernels)} "
+          f"kernels ({launches}); most launched {top}")
+    check(launches["score_update"] > 0,
+          "12(d) the profiler saw no score_update launch")
+    return launches
+
+
+def phase_12(dev):
+    t0 = time.time()
+    os.makedirs(SCRATCH, exist_ok=True)
+    cert0 = phase_conformance_parity(dev)
+    launches = {"conformance_campaign": phase_conformance_campaign(dev,
+                                                                   cert0)}
+    launches["plan"] = phase_plan_full(dev)
+    launches["trace"] = phase_conformance_cli(dev, cert0)
+    print(f"[conform] phase 12 took {time.time() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -3372,6 +3854,7 @@ def main() -> int:
         launches_campaign = phase_9(dev)
         launches10 = phase_10(dev)
         launches11 = phase_11(dev)
+        launches12 = phase_12(dev)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -3392,6 +3875,10 @@ def main() -> int:
                  fused=dict(launches=launches11["fused"][k],
                             split_launches=launches11["split"][k]),
                  arena=dict(launches=launches11["arena"][k]),
+                 conformance_campaign=dict(
+                     launches=launches12["conformance_campaign"][k]),
+                 plan=dict(launches=launches12["plan"][k]),
+                 trace=dict(launches=launches12["trace"][k]),
                  service=dict(
                      v["service"],
                      launches=service["batched"]["launches"][k],

@@ -2,7 +2,8 @@
 workloads (`kad`, `connmanager`, `regression`, `servicedisco`), the
 resident node service (`serve`, driven by `inject`), the adversarial
 campaign (`attack`), the defense Pareto sweep (`pareto`), the protocol
-arena (`arena`) and the `topogen` and `summarize` tools, on one GPU.
+arena (`arena`), the conformance gate (`conform`), the flight-recorder
+export (`trace`) and the `topogen` and `summarize` tools, on one GPU.
 
   python -m dst_libp2p_test_node_tpu_torch run <runs> <nodes> <message_size> \\
       <num_fragment> <num_publishers> <min_bandwidth> <max_bandwidth> \\
@@ -69,6 +70,18 @@ prints the reference's Pareto report (--json: its artifact).
 referee) and prints the reference's win matrix (--json: its artifact).
 --mesh and --trial-groups (several GPUs) exit with an error naming their
 slice.
+
+  python -m dst_libp2p_test_node_tpu_torch conform [--scenario S ...] \
+      [--seeds 0 1] [--fuzz N] [--out F] [--device cpu]
+  python -m dst_libp2p_test_node_tpu_torch trace [-n PEERS] \
+      [--heartbeats H] [--warmup-hb W] [--out DIR] [--profile-dir DIR] \
+      [--device cpu]
+
+`conform` walks the engine's rounds beside the pure-numpy GossipSub v1.1
+model and prints the strict-JSON conformance certificate (--out writes
+it); it exits 0 iff the certificate is clean. `trace` records a window of
+heartbeats and writes trace.perfetto.json, rounds.npz and rounds.csv into
+--out, and with --profile-dir a torch.profiler capture of the run.
 """
 
 from __future__ import annotations
@@ -1223,6 +1236,169 @@ def cmd_arena(argv: list[str]) -> int:
     return 0
 
 
+def cmd_conform(argv: list[str]) -> int:
+    """Conformance oracle: spec-differential certification of the engine's
+    step against the pure-numpy GossipSub v1.1 reference model
+    (analysis/conformance.py), its sim side on --device.
+
+    Emits the strict-JSON certificate (stdout or --out). Exit 0 iff every
+    divergence is absent or carries a documented_choice waiver
+    (docs/CONFORMANCE.md); any sim_bug is a hard failure.
+    """
+    p = argparse.ArgumentParser(prog="conform")
+    p.add_argument("--all-scenarios", action="store_true",
+                   help="run the full canon: all 8 attack scenarios plus "
+                        "the adaptive, faults, churn and cross-fragment "
+                        "entries (default when no --scenario is given)")
+    p.add_argument("--scenario", action="append", default=None,
+                   help="restrict to specific attack scenario(s); "
+                        "repeatable. Skips the adaptive/faults/churn/"
+                        "gossip entries unless --all-scenarios is also set")
+    p.add_argument("--n", type=int, default=48,
+                   help="peers per differential instance (default 48)")
+    p.add_argument("--connect-to", type=int, default=8)
+    p.add_argument("--steps", type=int, default=8,
+                   help="attack heartbeats walked per instance")
+    p.add_argument("--warm-steps", type=int, default=4)
+    p.add_argument("--seeds", type=int, nargs="+", default=[0],
+                   help="fuzz seeds; each reseeds graph, state and cohort")
+    p.add_argument("--fuzz", type=int, default=0, metavar="N",
+                   help="append N random-parameter-grid entries: each "
+                        "samples degree bounds (0 < d_low <= d <= d_high "
+                        "<= capacity), gossip factor and score weights, "
+                        "then runs the differential under that grid, "
+                        "cycling through the attack canon")
+    p.add_argument("--fuzz-seed", type=int, default=0,
+                   help="PRNG stream for --fuzz grid sampling (default 0)")
+    p.add_argument("--out", default=None,
+                   help="certificate path (default: stdout)")
+    _device_arg(p)
+    a = p.parse_args(argv)
+    device = _resolve(p, a.device)
+
+    from .analysis.conformance import (conformance_certificate,
+                                       write_certificate)
+    from .runtime.summarize import sanitize_nonfinite
+
+    full = a.all_scenarios or a.scenario is None
+    cert = conformance_certificate(
+        scenarios=a.scenario, n=a.n, connect_to=a.connect_to,
+        seeds=tuple(a.seeds), steps=a.steps, warm_steps=a.warm_steps,
+        include_adaptive=full, include_faults=full, include_churn=full,
+        include_gossip=full, fuzz=a.fuzz, fuzz_seed=a.fuzz_seed,
+        device=device)
+    if a.out:
+        write_certificate(cert, a.out)
+    else:
+        print(json.dumps(sanitize_nonfinite(cert), indent=2,
+                         allow_nan=False))
+    for e in cert["entries"]:
+        line = f"conform: {e['scenario']:<22} {e['status']}"
+        if e["divergences"]:
+            line += f" ({len(e['divergences'])} divergence(s), " \
+                    f"{e['sim_bugs']} sim_bug(s))"
+        print(line, file=sys.stderr)
+    return 0 if cert["clean"] else 1
+
+
+def cmd_trace(argv: list[str]) -> int:
+    """Flight-recorder trace export: a self-contained mini-run (warmup
+    untraced, then a recorded window) whose per-heartbeat tel_* curves are
+    written as a perfetto-loadable Chrome-trace JSON plus .npz/CSV sidecars.
+    Strict-JSON summary on stdout, exit 0 on success."""
+    p = argparse.ArgumentParser(prog="trace")
+    p.add_argument("-n", "--network-size", type=int, default=64)
+    p.add_argument("--connect-to", type=int, default=6)
+    p.add_argument("--heartbeats", type=int, default=20,
+                   help="recorded window length in heartbeats")
+    p.add_argument("--warmup-hb", type=int, default=10,
+                   help="untraced mesh-stabilization rounds before recording")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--degree-bins", type=int, default=12)
+    p.add_argument("--out", default="trace_out",
+                   help="output directory for the trace artifacts")
+    p.add_argument("--profile-dir", default=None,
+                   help="also capture a torch.profiler trace into this dir")
+    _device_arg(p)
+    a = p.parse_args(argv)
+    device = _resolve(p, a.device)
+
+    from .ops.telemetry import TelemetryParams
+    from .runtime.campaign import attack_gossipsub
+    from .runtime.profiling import chrome_trace, profiler_trace
+    from .runtime.simulator import ExperimentConfig, Simulator
+    from .runtime.summarize import sanitize_nonfinite
+
+    cfg = ExperimentConfig(
+        topo=TopoParams(network_size=a.network_size, anchor_stages=5,
+                        min_bandwidth=50, max_bandwidth=150,
+                        min_latency=40, max_latency=130),
+        connect_to=a.connect_to,
+        # armed score params: the recorder's score quantiles / graylist
+        # fraction measure nothing against the default weights
+        gossipsub=attack_gossipsub(),
+        warmup_s=0.0,
+        seed=a.seed,
+    )
+    sim = Simulator(cfg, device=device)
+    hb_ms = float(sim.params.heartbeat_ms)
+    tp = TelemetryParams(record=True, degree_bins=a.degree_bins)
+    tp.validate()
+    with profiler_trace(a.profile_dir, device=device):
+        sim.advance(a.warmup_hb * hb_ms)      # untraced warmup
+        sim.record_telemetry(tp)
+        t0_ms = float(sim.state.t_ms)
+        sim.advance(a.heartbeats * hb_ms)     # the recorded window
+    tel = sim.last_telemetry
+    if not tel:
+        print("flight recorder produced no rounds "
+              "(heartbeats too small for the heartbeat interval?)",
+              file=sys.stderr)
+        return 1
+
+    os.makedirs(a.out, exist_ok=True)
+    ct = chrome_trace(tel, hb_ms, t0_ms=t0_ms,
+                      name=f"gossipsub n={a.network_size} seed={a.seed}")
+    trace_path = os.path.join(a.out, "trace.perfetto.json")
+    with open(trace_path, "w") as fh:
+        json.dump(sanitize_nonfinite(ct), fh, allow_nan=False)
+    npz_path = os.path.join(a.out, "rounds.npz")
+    with open(npz_path, "wb") as fh:
+        np.savez_compressed(fh, **{k: np.asarray(v) for k, v in tel.items()})
+    # CSV: one row per heartbeat, vector channels expanded per index
+    cols = []
+    for k in sorted(tel):
+        arr = np.asarray(tel[k])
+        if arr.ndim == 1:
+            cols.append((k, arr))
+        else:
+            cols.extend((f"{k}_{j}", arr[:, j]) for j in range(arr.shape[1]))
+    steps = int(cols[0][1].shape[0])
+    csv_path = os.path.join(a.out, "rounds.csv")
+    with open(csv_path, "w") as fh:
+        fh.write("hb," + ",".join(k for k, _ in cols) + "\n")
+        for i in range(steps):
+            fh.write(f"{i}," + ",".join(
+                format(float(v[i]), "g") for _, v in cols) + "\n")
+
+    cov = np.asarray(tel["tel_mesh_coverage"])
+    hits = np.nonzero(cov >= 0.9)[0]
+    summary = {
+        "network_size": a.network_size,
+        "heartbeats": steps,
+        "heartbeat_ms": hb_ms,
+        "channels": sorted(tel),
+        "coverage90_hb": int(hits[0]) + 1 if hits.size else -1,
+        "final_mean_degree": float(np.asarray(tel["tel_mean_degree"])[-1]),
+        "trace_json": trace_path,
+        "rounds_npz": npz_path,
+        "rounds_csv": csv_path,
+        "profile_dir": a.profile_dir,
+    }
+    print(json.dumps(sanitize_nonfinite(summary), indent=2, allow_nan=False))
+    return 0
+
+
 COMMANDS = {
     "run": cmd_run,
     "kad": cmd_kad,
@@ -1234,6 +1410,8 @@ COMMANDS = {
     "attack": cmd_attack,
     "pareto": cmd_pareto,
     "arena": cmd_arena,
+    "conform": cmd_conform,
+    "trace": cmd_trace,
     "topogen": cmd_topogen,
     "summarize": cmd_summarize,
 }
@@ -1244,7 +1422,10 @@ def main(argv: list[str] | None = None) -> int:
     if not argv or argv[0] not in COMMANDS:
         print("usage: python -m dst_libp2p_test_node_tpu_torch "
               "{" + ",".join(COMMANDS) + "} ... [--device cpu]\n"
-              "  run <14 positionals> [--delivery-mode exact|bounded] ...",
+              "  run <14 positionals> [--delivery-mode exact|bounded] ...\n"
+              "  conform [--scenario S ...] [--seeds 0 1] [--out F]\n"
+              "  trace [-n PEERS] [--heartbeats H] [--out DIR] "
+              "[--profile-dir DIR]",
               file=sys.stderr)
         return 2
     return COMMANDS[argv[0]](argv[1:])

@@ -63,8 +63,10 @@ message, counted in `engine_counts`), so the result equals a cold start.
 
 `censor_edge` (ops/adversary.censor_mask) is an adversarial per-edge
 drop mask folded into `survive` like the graylist gate: delivery only,
-and not counted in `lost_tx`. A peer-sharded mesh and `return_plan` raise
-NotImplementedError naming the slice that brings them (ROADMAP A).
+and not counted in `lost_tx`. `return_plan` adds the message's sampled
+plan as a third output (the seam of the independent discrete-event
+cross-check); it changes no result byte. A peer-sharded mesh raises
+NotImplementedError naming the slice that brings it (ROADMAP A13).
 
 `run_fused_rounds` chains R rounds of a heartbeat burst (through the
 public heartbeat runners) and one publish at the carried clock, the
@@ -277,13 +279,11 @@ def _next_heartbeat(t, phase, hb_ms: float):
     return (torch.floor(_div(t - phase, hb_ms)) + 1.0) * hb_ms + phase
 
 
-def _check_slice(*, mesh, return_plan, loss_mode):
+def _check_slice(*, mesh, loss_mode):
     if loss_mode not in ("message", "tcp"):
         raise ValueError(f"unknown loss_mode {loss_mode!r}")
     if mesh is not None:
         raise _later("a peer-sharded mesh", "multi-GPU")
-    if return_plan:
-        raise _later("return_plan (the DES cross-check seam)", "tooling")
 
 
 def disseminate(
@@ -312,9 +312,19 @@ def disseminate(
     censor_edge=None,
 ):
     """Propagate one message through the mesh; returns (DisseminationResult,
-    new_state). The signature is the reference's; the arguments outside
-    this slice raise NotImplementedError."""
-    _check_slice(mesh=mesh, return_plan=return_plan, loss_mode=loss_mode)
+    new_state), and with `return_plan` also the message's sampled plan
+    (below). The signature is the reference's; `mesh` raises
+    NotImplementedError.
+
+    The plan is what this call drew and the model inputs it read, under the
+    reference's keys: "tgt" (N, C) data send set (before the queue drop),
+    "rprio" (N, C) send-order priorities, "g_tgt_w" (W, N, C) per-round
+    gossip targets, "survive" (F, N, C) per-fragment delivery mask, (N, C)
+    graylist-only, or None, "retx_ms" (F, N, C) tcp stall or None,
+    "hb_phase", "uplink" and "rx_free" (N,) phases and pre-message
+    occupancy, "rx_ms", "can_send" and "tx_ms" (N,), "lat_edge" (N, C) and
+    "t_pubs" (F,) per-fragment publish times."""
+    _check_slice(mesh=mesh, loss_mode=loss_mode)
     n, c = conns.shape
     dev = conns.device
     f32 = torch.float32
@@ -1177,6 +1187,23 @@ def disseminate(
                                     state.fanout_mask),
             fanout_expire=torch.where(is_pub, t0_ms + ttl,
                                       state.fanout_expire))
+    if return_plan:
+        plan = {
+            "tgt": tgt,
+            "rprio": rprio,
+            "g_tgt_w": g_tgt_w,
+            "survive": survive,
+            "retx_ms": retx_ms,
+            "hb_phase": hb_phase,
+            "uplink": uplink,
+            "rx_free": state.rx_free_ms,
+            "rx_ms": rx_ms,
+            "can_send": can_send,
+            "tx_ms": tx_ms,
+            "lat_edge": lat_edge,
+            "t_pubs": t_pubs,
+        }
+        return result, new_state, plan
     return result, new_state
 
 

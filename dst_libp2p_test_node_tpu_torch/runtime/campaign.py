@@ -44,9 +44,11 @@ front. `run_arena_campaign` races GossipSub against the episub tree
 protocol's windows resolved through the registry (ops/protocol.py), and
 scores who wins each objective.
 
-Peer meshes, trial meshes and the DCN engine (ROADMAP A13) and the
-conformance certificate (A14) raise NotImplementedError naming their
-slice.
+`conformance=True` attaches the small-N conformance certificate of the
+campaign's scenario (analysis/conformance.py, its sim side on the
+campaign's device) to the result. Peer meshes, trial meshes and the DCN
+engine, with the DCN rank files that carry rank 0's certificate, come
+with ROADMAP A13 and raise NotImplementedError naming their slice.
 """
 
 from __future__ import annotations
@@ -215,8 +217,6 @@ class CampaignConfig:
                 f"crash_window end {self.faults.crash_window[1]} exceeds "
                 f"attack_heartbeats {self.attack_heartbeats}: the restart "
                 "would never fire")
-        if self.conformance:
-            raise _later("the conformance certificate", "tooling (A14)")
         if adv.eclipse:
             if self.experiment.gossipsub.flood_publish:
                 raise ValueError(
@@ -882,6 +882,8 @@ def run_campaign(cfg: CampaignConfig, mesh=None, trial_mesh=None, dcn=None,
                 trials.extend(res1)
             else:
                 _quarantine(f, [s], err1)
+    conformance = (_campaign_conformance(cfg, adv, sim.device)
+                   if cfg.conformance else None)
     return CampaignResult(
         scenario=cfg.scenario,
         network_size=sim.params.n,
@@ -891,8 +893,41 @@ def run_campaign(cfg: CampaignConfig, mesh=None, trial_mesh=None, dcn=None,
         degraded=bool(quarantined) or retries_total > 0,
         quarantined_trials=quarantined,
         retries_total=retries_total,
+        conformance=conformance,
         phase_walls=walls,
     )
+
+
+def _campaign_conformance(cfg: CampaignConfig, adv: AdversaryParams,
+                          device) -> dict:
+    """Small-N conformance certificate for the campaign's scenario
+    (CampaignConfig.conformance), its sim side on the campaign's device:
+    the scenario differential, plus the adaptive-controller and
+    fault-family differentials when the campaign arms them. Cost is one
+    N=48 instance per entry, and the result rides the summary artifact via
+    to_dict()."""
+    from ..analysis.conformance import (certificate_entry, load_waivers,
+                                        run_adaptive_differential,
+                                        run_faults_differential,
+                                        run_scenario_differential)
+
+    waivers = load_waivers()
+    meta = dict(seeds=[0], n=48, steps=8)
+    entries = [certificate_entry(
+        cfg.scenario, run_scenario_differential(cfg.scenario, device=device),
+        waivers, **meta)]
+    if adv.adaptive.enabled:
+        entries.append(certificate_entry(
+            "adaptive", run_adaptive_differential(cfg.scenario,
+                                                  device=device),
+            waivers, **meta))
+    if cfg.faults.enabled:
+        entries.append(certificate_entry(
+            "faults", run_faults_differential(device=device), waivers,
+            **meta))
+    sim_bugs = sum(e["sim_bugs"] for e in entries)
+    return {"entries": entries, "sim_bugs": sim_bugs,
+            "clean": sim_bugs == 0}
 
 
 # ------------------------------------------------------------ defense sweep

@@ -177,9 +177,9 @@ def test_later_slices_raise_by_name(campaigns):
                            (dict(dcn=True), "multi-GPU")):
         with pytest.raises(NotImplementedError, match=slice_name):
             tc.run_campaign(cfg, device="cpu", **kw)
-    bad = _cfg("torch", recovery=0, conformance=True)
-    with pytest.raises(NotImplementedError, match="tooling"):
-        tc.run_campaign(bad, device="cpu")
+    # the conformance certificate is ported now (the conformance slice;
+    # tests/port/test_torch_conformance.py runs it): the config validates
+    _cfg("torch", recovery=0, conformance=True).validate()
     # ported with this campaign's slice: the same config gives the
     # reference's fields, or its error
     from dst_libp2p_test_node_tpu.ops import adversary as jadv

@@ -6,9 +6,10 @@ runtime.kad_runtime, runtime.sd_runtime and runtime.regression_runtime,
 and the service's runtime.metrics, runtime.supervise,
 runtime.node_service, runtime.publisher and runtime.traffic, and the
 campaign's ops.adversary, ops.repair, ops.telemetry, ops.faults,
-ops.dht_adversary and runtime.campaign, and the arena's ops.protocol and
-ops.episub named), and chip_smoke.py, import in a fresh interpreter
-where `import jax` and `import flax` fail."""
+ops.dht_adversary and runtime.campaign, the arena's ops.protocol and
+ops.episub, and the conformance gate's ops.spec, analysis.conformance
+and runtime.profiling named), and chip_smoke.py, import in a fresh
+interpreter where `import jax` and `import flax` fail."""
 
 import os
 import subprocess
@@ -42,7 +43,8 @@ for name in ("ops.mix", "runtime.multitopic", "runtime.checkpoint",
              "runtime.publisher", "runtime.traffic", "ops.adversary",
              "ops.repair", "ops.telemetry", "ops.faults",
              "ops.dht_adversary", "runtime.campaign", "ops.protocol",
-             "ops.episub"):
+             "ops.episub", "ops.spec", "analysis.conformance",
+             "runtime.profiling"):
     assert port.__name__ + "." + name in names, name
 sys.exit(1 if bad else 0)
 """
