@@ -204,7 +204,8 @@ not printed):
                run_defense_sweep of 2 bands x 2 weights, equal outside
                wall_s. (b) three campaigns on 9(c)'s network (100,000
                peers x 4 fragments, exact, 60 s warm-up), each fractions
-               0 / 0.1 x seeds 0 / 1, 20 attack and 10 recovery heartbeats
+               0 / 0.1 x seed 0 (seeds 0 / 1 until phase 13 joined), 20
+               attack and 10 recovery heartbeats
                (evict + px + redial), checkpoints on: faults (graft flood,
                crash 2:8, partition 4:12 at 0.5, spike 0:6 of 500 ms,
                recorder on), adaptive (eclipse), dht (eclipse, lookup
@@ -261,6 +262,26 @@ not printed):
                20 --warmup-hb 10 --profile-dir` as a process: exit 0,
                strict JSON, 20 CSV rows, the profiler trace naming the
                score_update kernel.
+ 13. the tooling: (a) every contract of the registry
+               (analysis/registry.py: 20 entry points at the reference's
+               audit shapes) on the card and on the CPU: every output leaf
+               the same bytes, the feedback checks, memory budgets and
+               runtime checks clean on both. (b) microbench in-process:
+               the rooflines of the 20 contracts (wall, byte bound, share,
+               peak memory, host syncs, retraces within budget) and the
+               sweep of both kernels' launch parameter (vmem_gather's
+               blocks per SM up to its occupancy, score_update's threads
+               per block) at 100k, 670k and 1M x 40, every candidate held
+               against the plain version, each candidate's time, the
+               winner and its share of the bound, the default launch
+               within phase 2's spread; --install into a temporary
+               DST_TUNED_JSON. Counts zeroed just before and read just
+               after. (c) 3b(c)'s config-4 exact publish from one warm
+               state without and with the installed table: the same
+               delays and state bytes, both walls. (d) `lint` as a
+               process: exit 0, clean; `microbench --no-sweep --only
+               disseminate/` as a process: its strict-JSON artifact (the
+               packed A/B at 100,000 peers), its wall.
 
 Then one JSON line with every kernel's numbers: at 1M x 40 with
 `launches` from phase 4's config-5 run, under `exact` at 100k x 40 with
@@ -271,17 +292,18 @@ resumed run (`resume`), 7(b)'s regression run (`roles`), 9(c)'s first
 campaign (`campaign`), 10(b)'s three campaigns (`faults`, `adaptive`,
 `dht`), 11(b)'s fused chain (`fused`, with the split chain's beside it)
 and arena (`arena`), 12(b)'s campaign (`conformance_campaign`), 12(c)'s
-run (`plan`) and 12(d)'s trace process (`trace`, as its profiler counted
-them), and under
+run (`plan`), 12(d)'s trace process (`trace`, as its profiler counted
+them) and 13(b)'s microbench (`microbench`), and under
 `service` the 670k x 40 numbers with `launches` from 8(b)'s batched run
 (and its sequential run's). Then the total run time, and last the line
 {"ok": true, "device": {...}}. Without CUDA it exits 1 and prints no
 result; run alone, without the package beside it, it exits 2.
 
-Machine time: 864.2 s of run time on one H100 with every phase, builds
-included (PERF.md); phase 9 took 104.1 s of it, phase 10 165.1 s, phase
-11 73.1 s and phase 12 83.2 s. Inside a 20-minute budget, above half of
-it.
+Machine time: 890.4 and 884.3 s of run time in two runs on one H100 with
+every phase, builds included (PERF.md); phase 8 took 196.1-196.5 s of
+it, phase 9 94.5-100.8 s, phase 10 127.2-132.1 s, phase 11 62.1-72.6 s,
+phase 12 89.1-90.6 s and phase 13 59.8-65.2 s. Runs of similar work
+swing about 10% between machines. Inside a 20-minute budget.
 """
 
 from __future__ import annotations
@@ -2298,6 +2320,9 @@ CAMP6_N = 2048
 # _run_simple: 100k peers, 4 fragments of 15,000 B, 3 messages 2 s apart,
 # a 60 s warm-up; the campaign path has no churn knob)
 CAMP_FULL_N = EXACT_N
+# 10(b)'s seeds: seed 0 alone since phase 13 joined the smoke (seeds 0 and
+# 1 before: 2 trials a campaign, 4 before; PERF.md section 4 lists the cut)
+CAMP10_SEEDS = (0,)
 
 
 def _campaign_cfg(n, scenario, fractions, seeds, attack_hb, warmup_s,
@@ -2878,7 +2903,7 @@ def _campaign10_full(dev, tag, cfg):
     peak = torch.cuda.max_memory_allocated(dev)
     d = res.to_dict()
     print(f"[campaign10] 10(b) {tag}: {CAMP_FULL_N} peers x 4 fragments, "
-          f"{cfg.scenario}, fractions 0/0.1 x seeds 0/1, "
+          f"{cfg.scenario}, fractions 0/0.1 x seeds {CAMP10_SEEDS}, "
           f"{cfg.attack_heartbeats} attack + {cfg.recovery_heartbeats} "
           f"recovery heartbeats: wall_s {res.wall_s:.3f}, trials_per_s "
           f"{res.trials_per_s:.4f}; launches {launches}; peak memory "
@@ -2899,7 +2924,8 @@ def _campaign10_full(dev, tag, cfg):
 def phase_campaign10_full(dev):
     """10(b): three campaigns on config 4's network (9(c)'s: 100,000 peers
     x 4 fragments of 15,000 B, exact, 60 s warm-up, no churn), each at
-    fractions 0 / 0.1, seeds 0 / 1, 20 attack and 10 recovery heartbeats
+    fractions 0 / 0.1, seed 0 (CAMP10_SEEDS), 20 attack and 10 recovery
+    heartbeats
     (evict + px + redial), checkpoints on: faults (graft flood under
     FAULTS10, recorder on), adaptive (eclipse, the default policy), dht
     (eclipse with lookup eclipse + rtable poison, healing at recovery
@@ -2913,13 +2939,13 @@ def phase_campaign10_full(dev):
     common = dict(msg_size=15000, frags=4, recovery=10)
     cfgs = {
         "faults": _cfg10(CAMP_FULL_N, "sybil_graft_flood", (0.0, 0.1),
-                         (0, 1), 20, EXACT_WARMUP_S, faults=FAULTS10,
+                         CAMP10_SEEDS, 20, EXACT_WARMUP_S, faults=FAULTS10,
                          ckpt=ck["faults"], **common),
         "adaptive": _cfg10(CAMP_FULL_N, "eclipse_publisher", (0.0, 0.1),
-                           (0, 1), 20, EXACT_WARMUP_S, adaptive=True,
+                           CAMP10_SEEDS, 20, EXACT_WARMUP_S, adaptive=True,
                            ckpt=ck["adaptive"], telemetry=False, **common),
-        "dht": _cfg10(CAMP_FULL_N, "eclipse_publisher", (0.0, 0.1), (0, 1),
-                      20, EXACT_WARMUP_S, dht=dict(
+        "dht": _cfg10(CAMP_FULL_N, "eclipse_publisher", (0.0, 0.1),
+                      CAMP10_SEEDS, 20, EXACT_WARMUP_S, dht=dict(
                           lookup_eclipse=True, rtable_poison=True,
                           heal_hb=5), ckpt=ck["dht"], telemetry=False,
                       **common),
@@ -3821,6 +3847,252 @@ def phase_12(dev):
     return launches
 
 
+# ---------------------------------------------------------------- phase 13
+
+# phase 2's time of each kernel with today's launch at each main-path
+# shape, the spread over PRs 2-12 (PERF.md section 6), in ms
+PHASE2_SPREAD_MS = {
+    ("vmem_gather", EXACT_N): (0.0355, 0.0498),
+    ("vmem_gather", SVC_ROWS): (0.2048, 0.2075),
+    ("vmem_gather", FULL_N): (0.2996, 0.3136),
+    ("score_update", EXACT_N): (0.0327, 0.0529),
+    ("score_update", SVC_ROWS): (0.1927, 0.1948),
+    ("score_update", FULL_N): (0.2847, 0.2900),
+}
+# slack around that spread (and this run's phase 2 time) that the sweep's
+# default launch must land inside: the sweep takes the least of 3 means
+# of 20 launches, phase 2 the lesser of 2
+PHASE2_SLACK = 0.10
+
+
+def _phase2_ms(kernels, name, rows):
+    k = kernels[name]
+    return {EXACT_N: k["exact"], SVC_ROWS: k["service"], FULL_N: k}[rows][
+        "ms"]
+
+
+def phase_registry_parity(dev):
+    """13(a): every registered contract's spec on the card and on the CPU:
+    every output leaf the same bytes; the feedback checks (and the memory
+    budgets on the card) and the runtime invariants hold on both."""
+    from dst_libp2p_test_node_tpu_torch.analysis.contracts import (
+        numpy_leaves)
+    from dst_libp2p_test_node_tpu_torch.analysis.jaxpr_audit import (
+        audit_contracts, run_checkify, run_spec)
+    from dst_libp2p_test_node_tpu_torch.analysis.registry import (
+        default_contracts)
+
+    t0 = time.time()
+    gpu, cpu = default_contracts(dev), default_contracts("cpu")
+    check([c.name for c in gpu] == [c.name for c in cpu] and len(gpu) == 20,
+          "13(a): the registry is not the 20 contracts on both devices")
+    n_leaves = 0
+    for g, c in zip(gpu, cpu):
+        got = numpy_leaves(run_spec(g.build()))
+        want = numpy_leaves(run_spec(c.build()))
+        check(sorted(got) == sorted(want), f"13(a) {g.name}: leaf sets "
+              f"differ ({sorted(set(got) ^ set(want))[:4]})")
+        bad = [k for k in want if got[k].dtype != want[k].dtype
+               or got[k].shape != want[k].shape
+               or got[k].tobytes() != want[k].tobytes()]
+        check(not bad, f"13(a) {g.name}: CUDA != CPU at {bad[:6]}")
+        n_leaves += len(want)
+    violations = (audit_contracts(gpu) + audit_contracts(cpu)
+                  + run_checkify(gpu) + run_checkify(cpu))
+    check(not violations, f"13(a) contract findings: {violations[:3]}")
+    print(f"[tooling] 13(a) {len(gpu)} contracts on the card and on the CPU: "
+          f"{n_leaves} output leaves the same bytes; feedback, memory "
+          f"budgets and runtime checks clean on both ({time.time() - t0:.1f}"
+          f" s)")
+
+
+def phase_microbench(dev, kernels, table):
+    """13(b): microbench in-process (rooflines of the 20 contracts, the
+    sweep of both kernels at the three main-path shapes, --install into
+    `table`), counts zeroed just before and read just after. Every
+    candidate was held against the plain version by the sweep; prints each
+    candidate's time, the winner and its share of the bound, the default
+    launch beside phase 2, and the rooflines."""
+    from dst_libp2p_test_node_tpu_torch.native import score_update as su
+    from dst_libp2p_test_node_tpu_torch.native import tuned
+    from dst_libp2p_test_node_tpu_torch.native import vmem_gather as vg
+    from dst_libp2p_test_node_tpu_torch.runtime import microbench as mb
+
+    os.environ["DST_TUNED_JSON"] = table
+    tuned.invalidate_cache()
+    art_path = os.path.join(SCRATCH, "microbench13.json")
+    torch.cuda.synchronize()
+    vg.launches = 0
+    su.launches = 0
+    t0 = time.time()
+    art = mb.run(["--device", dev.type, "--no-packed", "--install",
+                  "--reps", "3", "--out", art_path])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {"vmem_gather": vg.launches, "score_update": su.launches}
+    _strict_json(art_path)
+    check([s["n_rows"] for s in art["kernel_sweep"]] == list(mb.SWEEP_ROWS),
+          "13(b): the sweep did not cover the three main-path shapes")
+    print(f"[tooling] 13(b) microbench: {wall:.1f} s, launches {launches}; "
+          f"gather candidates 1-{max(mb.gather_candidates(dev))} blocks "
+          f"per SM (the kernel's occupancy), every candidate equal to the "
+          f"plain version")
+    off = []
+    for sw in art["kernel_sweep"]:
+        rows = sw["n_rows"]
+        for name, e in sw["kernels"].items():
+            param = e["param"]
+            cands = ", ".join(f"{v} {w * 1e3:.4f}"
+                              for v, w in e["candidates"].items())
+            best, default = e[f"best_{param}"], e["default_wall_s"] * 1e3
+            lo, hi = PHASE2_SPREAD_MS[(name, rows)]
+            p2 = _phase2_ms(kernels, name, rows)
+            best_ms = e["best_wall_s"] * 1e3
+            print(f"[tooling] 13(b) {name} at {rows}x{sw['cap']}, ms by "
+                  f"{param}: {cands}; winner {best} {best_ms:.4f} ms "
+                  f"({e['best_share']:.1%} of the "
+                  f"{e['bound_s'] * 1e3:.4f} ms bound); default "
+                  f"{e['default']} {default:.4f} ms, phase 2 {p2:.4f} ms, "
+                  f"PRs 2-12 {lo}-{hi} ms "
+                  f"({'inside' if lo <= default <= hi else 'outside'})")
+            lo, hi = min(lo, p2), max(hi, p2)
+            if not (lo * (1 - PHASE2_SLACK) <= default
+                    <= hi * (1 + PHASE2_SLACK)):
+                off.append(f"{name} at {rows}: {default:.4f} ms, phase 2 "
+                           f"{lo}-{hi} ms")
+    check(not off, f"13(b) default launches off phase 2's spread: {off}")
+    print(f"[tooling] 13(b) tuned table {art['tuned']} installed at "
+          f"{os.path.relpath(art['tuned_installed'], ROOT)}")
+    roof = art["rooflines"]
+    check(len(roof) == 20, f"13(b): {len(roof)} rooflines, want 20")
+    for name, e in roof.items():
+        check("error" not in e, f"13(b) roofline {name}: {e.get('error')}")
+        check(e["retraces"] <= e["retrace_budget"],
+              f"13(b) {name} retraced {e['retraces']} times on a warm call")
+        print(f"[tooling] 13(b) roofline {name}: wall {e['wall_s'] * 1e3:.3f}"
+              f" ms, bound {e['bound_s'] * 1e6:.3f} us ({e['hbm_bytes']:.0f}"
+              f" B), share {e['share']:.3e}, peak {e['peak_memory_bytes']}"
+              f" B, host syncs {e['host_syncs']}, retraces {e['retraces']} "
+              f"(budget {e['retrace_budget']}), new segments "
+              f"{e['new_segments']}")
+    return launches
+
+
+def phase_tuned_publish(dev, table):
+    """13(c): config 4's exact publish (3b(c)'s) from one warm state,
+    without the installed table, with it, and without it again: the same
+    delays and state bytes; prints both walls and their launches."""
+    from dst_libp2p_test_node_tpu_torch.native import tuned
+    from dst_libp2p_test_node_tpu_torch.native import vmem_gather as vg
+    from dst_libp2p_test_node_tpu_torch.runtime.simulator import Simulator
+
+    cfg = _config4_cfg()
+    os.environ.pop("DST_TUNED_JSON", None)
+    tuned.invalidate_cache()
+    sim = Simulator(cfg, device=dev)
+    sim.warmup()
+    s0 = sim.state
+    rng0 = sim._msg_rng.bit_generator.state
+
+    def publish(with_table):
+        if with_table:
+            os.environ["DST_TUNED_JSON"] = table
+        else:
+            os.environ.pop("DST_TUNED_JSON", None)
+        tuned.invalidate_cache()
+        sim.state = dataclasses.replace(
+            s0, **{f.name: getattr(s0, f.name).clone()
+                   for f in dataclasses.fields(s0)})
+        sim._msg_rng.bit_generator.state = rng0
+        sim.records = []
+        torch.cuda.synchronize()
+        g0 = vg.launches
+        t0 = time.time()
+        rec = sim.publish(cfg.publisher_id)
+        torch.cuda.synchronize()
+        return rec, sim.state, time.time() - t0, vg.launches - g0
+
+    try:
+        publish(False)                                     # warm
+        with_t = publish(True)
+        without = publish(False)
+    finally:
+        os.environ.pop("DST_TUNED_JSON", None)
+        tuned.invalidate_cache()
+    _same_records("13(c) config 4 publish with the tuned table",
+                  [without[0]], [with_t[0]])
+    _same_state("13(c) config 4 publish with the tuned table", without[1],
+                with_t[1])
+    check(with_t[3] > 0, "13(c): the publish never launched vmem_gather")
+    with open(table) as f:
+        installed = json.load(f)
+    print(f"[tooling] 13(c) config 4 exact publish ({EXACT_N} peers x 4 "
+          f"fragments) with the table {installed}: {with_t[2]:.3f} s, "
+          f"{with_t[3]} gathers; without: {without[2]:.3f} s, {without[3]} "
+          f"gathers; delays and state the same bytes")
+
+
+def phase_tooling_cli(dev):
+    """13(d): `lint` and `microbench --no-sweep --only disseminate/` as
+    processes on the card: lint exits 0 with clean true; microbench writes
+    its strict-JSON artifact (rooflines of the publish contracts and the
+    packed A/B at 100,000 peers)."""
+    env = {k: v for k, v in os.environ.items() if k != "DST_TUNED_JSON"}
+    report = os.path.join(SCRATCH, "lint13.json")
+    art = os.path.join(SCRATCH, "microbench13d.json")
+    argv = {"lint": ["lint", "--out", report],
+            "microbench": ["microbench", "--no-sweep", "--only",
+                           "disseminate/", "--out", art]}
+    walls = {}
+    for name, args in argv.items():
+        t0 = time.time()
+        proc = subprocess.run([sys.executable, "-m",
+                               "dst_libp2p_test_node_tpu_torch", *args],
+                              cwd=ROOT, capture_output=True, text=True,
+                              timeout=600, env=env)
+        walls[name] = time.time() - t0
+        check(proc.returncode == 0, f"13(d) {name} exited "
+              f"{proc.returncode}: {proc.stdout[-1500:]} "
+              f"{proc.stderr[-1500:]}")
+    rep = _strict_json(report)
+    check(rep["clean"] is True and rep["checked_entrypoints"] == 20,
+          f"13(d) lint: clean {rep['clean']}, "
+          f"{rep['checked_entrypoints']} entry points")
+    mb = _strict_json(art)
+    check(sorted(mb["rooflines"]) == ["disseminate/bounded",
+                                      "disseminate/cold",
+                                      "disseminate/exact_serial",
+                                      "disseminate/warm"],
+          f"13(d) microbench rooflines {sorted(mb['rooflines'])}")
+    ab = mb["packed_state_ab"]
+    print(f"[tooling] 13(d) lint: exit 0 in {walls['lint']:.1f} s, clean, "
+          f"{rep['checked_files']} files, {rep['checked_entrypoints']} entry "
+          f"points; microbench --no-sweep --only disseminate/: exit 0 in "
+          f"{walls['microbench']:.1f} s on {mb['device_name']}; packed A/B "
+          f"at {ab['n_peers']} peers: off {ab['publish_off_s']:.4f} s, on "
+          f"{ab['publish_on_s']:.4f} s, receiver side {ab['receiver_side']},"
+          f" op logs identical {ab['op_log_identical']}, launch logs "
+          f"identical {ab['launch_log_identical']} (records off / off again "
+          f"/ on {ab['launch_records']}, repeatable "
+          f"{ab['launch_log_repeatable']}), program_identical "
+          f"{ab['program_identical']}, delays identical "
+          f"{ab['delays_identical']}")
+    check(ab["delays_identical"] or not ab["program_identical"],
+          "13(d) packed A/B: the same program gave other delays")
+
+
+def phase_13(dev, kernels):
+    t0 = time.time()
+    os.makedirs(SCRATCH, exist_ok=True)
+    table = os.path.join(SCRATCH, "tuned13.json")
+    phase_registry_parity(dev)
+    launches = phase_microbench(dev, kernels, table)
+    phase_tuned_publish(dev, table)
+    phase_tooling_cli(dev)
+    print(f"[tooling] phase 13 took {time.time() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -3855,6 +4127,7 @@ def main() -> int:
         launches10 = phase_10(dev)
         launches11 = phase_11(dev)
         launches12 = phase_12(dev)
+        launches13 = phase_13(dev, kernels)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -3879,6 +4152,7 @@ def main() -> int:
                      launches=launches12["conformance_campaign"][k]),
                  plan=dict(launches=launches12["plan"][k]),
                  trace=dict(launches=launches12["trace"][k]),
+                 microbench=dict(launches=launches13[k]),
                  service=dict(
                      v["service"],
                      launches=service["batched"]["launches"][k],
@@ -3886,12 +4160,12 @@ def main() -> int:
                          service["sequential"]["launches"][k])))
             for k, v in kernels.items()]
     print(card)      # again, near the end: the first lines scroll away
-    print(json.dumps({"kernels": line}))
+    print(json.dumps({"kernels": line}, allow_nan=False))
     print(f"[total] {time.time() - started:.1f} s of run time, builds "
           f"included")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": torch.cuda.device_count()}}, allow_nan=False))
     return 0
 
 

@@ -3,7 +3,9 @@ workloads (`kad`, `connmanager`, `regression`, `servicedisco`), the
 resident node service (`serve`, driven by `inject`), the adversarial
 campaign (`attack`), the defense Pareto sweep (`pareto`), the protocol
 arena (`arena`), the conformance gate (`conform`), the flight-recorder
-export (`trace`) and the `topogen` and `summarize` tools, on one GPU.
+export (`trace`), the contract lint (`lint`), the microbench and launch
+tuning harness (`microbench`) and the `topogen` and `summarize` tools, on
+one GPU.
 
   python -m dst_libp2p_test_node_tpu_torch run <runs> <nodes> <message_size> \\
       <num_fragment> <num_publishers> <min_bandwidth> <max_bandwidth> \\
@@ -76,6 +78,22 @@ slice.
   python -m dst_libp2p_test_node_tpu_torch trace [-n PEERS] \
       [--heartbeats H] [--warmup-hb W] [--out DIR] [--profile-dir DIR] \
       [--device cpu]
+
+  python -m dst_libp2p_test_node_tpu_torch lint [paths] [--no-ast] \
+      [--no-jaxpr] [--checkify] [--only PREFIX] [--out F] \
+      [--format json|github] [--device cpu]
+  python -m dst_libp2p_test_node_tpu_torch microbench [--only PREFIX] \
+      [--no-rooflines] [--no-sweep] [--no-packed] [--install] \
+      [--sweep-rows N,...] [--packed-n N] [--out F] [--device cpu]
+
+`lint` runs the AST lint (GA-A005) over the port and chip_smoke.py and
+every registered entry point's contract (analysis/registry.py) on the
+device, and prints the reference's strict-JSON report; it exits 0 iff
+clean. --sharding and the --predict-rung / --rung-* flags exit with an
+error naming the multi-GPU slice. `microbench` prints (or writes with
+--out) the rooflines of the registry, the kernels' launch-parameter sweep
+and the packed_state A/B; --install writes the sweep's winners to the
+tuning table (native/tuned.py).
 
 `conform` walks the engine's rounds beside the pure-numpy GossipSub v1.1
 model and prints the strict-JSON conformance certificate (--out writes
@@ -1399,6 +1417,106 @@ def cmd_trace(argv: list[str]) -> int:
     return 0
 
 
+# the lint flags of the multi-GPU slice: set, each exits with an error
+# naming it (never silently ignored)
+_LATER_LINT_FLAGS = (
+    ("sharding", "--sharding"), ("predict_rung", "--predict-rung"),
+    ("rung_dcn", "--rung-dcn"), ("rung_scenario", "--rung-scenario"),
+    ("rung_out", "--rung-out"),
+)
+
+
+def cmd_lint(argv: list[str]) -> int:
+    """graft-audit on the port: the AST lint (GA-A005) over the port's
+    sources and the contract engine over every registered entry point
+    (analysis/registry.py), run on --device. Emits the strict-JSON
+    violation report (the reference's shape) on stdout or --out. Exit 0
+    iff clean."""
+    p = argparse.ArgumentParser(prog="lint")
+    p.add_argument("paths", nargs="*",
+                   help="files/dirs for the AST engine (default: the port "
+                        "package and chip_smoke.py)")
+    p.add_argument("--no-ast", action="store_true",
+                   help="skip the AST lint engine")
+    p.add_argument("--no-jaxpr", action="store_true",
+                   help="skip the contract engine (runs no entry point)")
+    p.add_argument("--checkify", action="store_true",
+                   help="also run the contracts' runtime checks (value "
+                        "invariants asserted in plain torch)")
+    p.add_argument("--only", default=None, metavar="PREFIX",
+                   help="restrict the contract engine to contracts whose "
+                        "name starts with PREFIX (e.g. disseminate/)")
+    p.add_argument("--out", default=None, metavar="PATH",
+                   help="write the strict-JSON report to PATH instead of "
+                        "stdout (github annotations still print to stdout)")
+    p.add_argument("--format", choices=("json", "github"), default="json",
+                   help="'github' additionally emits ::error/::notice "
+                        "workflow-command lines")
+    later = p.add_argument_group("later slices")
+    later.add_argument("--sharding", action="store_true")
+    later.add_argument("--predict-rung", nargs="?", const=1048576, type=int,
+                       default=None, metavar="PEERS")
+    later.add_argument("--rung-dcn", type=int, default=None)
+    later.add_argument("--rung-scenario", choices=("attack", "arena"),
+                       default=None)
+    later.add_argument("--rung-out", default=None)
+    _device_arg(p)
+    a = p.parse_args(argv)
+    for attr, flag in _LATER_LINT_FLAGS:
+        if getattr(a, attr) not in (None, False):
+            p.error(f"{flag} is not ported yet: it comes with the multi-GPU "
+                    "(A13) slice (ROADMAP A)")
+    device = _resolve(p, a.device)
+
+    from .analysis.ast_lint import lint_paths
+    from .analysis.jaxpr_audit import audit_contracts, run_checkify
+    from .analysis.registry import default_contracts
+    from .analysis.report import github_annotations, render_report
+
+    pkg = os.path.dirname(os.path.abspath(__file__))
+    repo_root = os.path.dirname(pkg)
+    violations = []
+    checked_files = 0
+    checked_entrypoints = 0
+    if not a.no_ast:
+        smoke = os.path.join(repo_root, "chip_smoke.py")
+        targets = a.paths or [pkg] + ([smoke] if os.path.exists(smoke)
+                                      else [])
+        ast_violations, checked_files = lint_paths(targets, repo_root)
+        violations.extend(ast_violations)
+    if not a.no_jaxpr:
+        contracts = default_contracts(device)
+        if a.only:
+            contracts = [c for c in contracts if c.name.startswith(a.only)]
+        checked_entrypoints = len(contracts)
+        violations.extend(audit_contracts(contracts))
+        if a.checkify:
+            violations.extend(run_checkify(contracts))
+
+    if a.format == "github":
+        for line in github_annotations(violations):
+            print(line)
+    report = render_report(violations, checked_files=checked_files,
+                           checked_entrypoints=checked_entrypoints)
+    if a.out:
+        with open(a.out, "w") as fh:
+            fh.write(report + "\n")
+    else:
+        print(report)
+    return 1 if violations else 0
+
+
+def cmd_microbench(argv: list[str]) -> int:
+    """Microbenchmark + launch tuning harness (runtime/microbench.py):
+    rooflines per registered entry point, the kernels' launch-parameter
+    sweep and the packed_state A/B, on --device. Strict-JSON artifact,
+    exit 0 on success."""
+    from .runtime.microbench import run
+
+    run(argv)
+    return 0
+
+
 COMMANDS = {
     "run": cmd_run,
     "kad": cmd_kad,
@@ -1412,6 +1530,8 @@ COMMANDS = {
     "arena": cmd_arena,
     "conform": cmd_conform,
     "trace": cmd_trace,
+    "lint": cmd_lint,
+    "microbench": cmd_microbench,
     "topogen": cmd_topogen,
     "summarize": cmd_summarize,
 }
@@ -1425,7 +1545,11 @@ def main(argv: list[str] | None = None) -> int:
               "  run <14 positionals> [--delivery-mode exact|bounded] ...\n"
               "  conform [--scenario S ...] [--seeds 0 1] [--out F]\n"
               "  trace [-n PEERS] [--heartbeats H] [--out DIR] "
-              "[--profile-dir DIR]",
+              "[--profile-dir DIR]\n"
+              "  lint [paths] [--no-ast] [--no-jaxpr] [--checkify] "
+              "[--only P] [--out F]\n"
+              "  microbench [--only P] [--no-sweep] [--no-packed] "
+              "[--install] [--out F]",
               file=sys.stderr)
         return 2
     return COMMANDS[argv[0]](argv[1:])

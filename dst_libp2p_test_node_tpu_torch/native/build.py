@@ -43,6 +43,10 @@ _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 # nvcc's output (including -Xptxas -v register/spill lines) per kernel
 build_logs: dict[str, str] = {}
+# one-time work since import: nvcc processes started and libraries loaded
+# (runtime/profiling.count_retraces reads their sum)
+nvcc_builds = 0
+library_loads = 0
 
 
 def nvcc_path() -> str:
@@ -73,6 +77,7 @@ def build(names=None) -> dict[str, str]:
     todo = [n for n in names if not os.path.exists(paths[n])]
     if not todo:
         return paths
+    global nvcc_builds
     nvcc = nvcc_path()
     procs = {}
     for n in todo:
@@ -81,6 +86,7 @@ def build(names=None) -> dict[str, str]:
                os.path.join(CSRC_DIR, KERNELS[n])]
         procs[n] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        nvcc_builds += 1
     failed = []
     for n, (tmp, proc) in procs.items():
         out, _ = proc.communicate()
@@ -96,11 +102,13 @@ def build(names=None) -> dict[str, str]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of one kernel, built first if needed."""
+    global library_loads
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
             lib = ctypes.CDLL(build([name])[name])
             _loaded[name] = lib
+            library_loads += 1
         return lib
 
 

@@ -43,14 +43,18 @@ __global__ void score_update_kernel(const float* __restrict__ fmd,
   }
 }
 
+// `threads` per block (a launch argument: 256 unless the wrapper's
+// override or the tuning table says otherwise; whole warps, 32 to 1024).
 extern "C" int score_update_launch(const float* fmd, const float* slow,
                                    const float* scales, float* f_out,
                                    float* s_out, float* score_out,
                                    int64_t total, float fmd_weight,
                                    float slow_weight, float fmd_cap,
-                                   float decay_to_zero, void* stream) {
+                                   float decay_to_zero, int threads,
+                                   void* stream) {
+  if (threads < 32 || threads > 1024 || threads % 32 != 0)
+    return (int)cudaErrorInvalidConfiguration;
   if (total == 0) return 0;
-  const int threads = 256;
   int64_t blocks = (total + threads - 1) / threads;
   if (blocks > 0x7FFFFFFF) blocks = 0x7FFFFFFF;  // grid-stride beyond this
   score_update_kernel<<<(unsigned)blocks, threads, 0,

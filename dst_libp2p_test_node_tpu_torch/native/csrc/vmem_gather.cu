@@ -17,7 +17,10 @@
 // land within 12% of 0.30 ms.
 //
 // The design, part by part:
-// 1. Persistent blocks (kBlocksPerSm per SM) walk tiles of the flattened
+// 1. Persistent blocks (blocks_per_sm per SM, a launch argument: 2 unless
+//    the wrapper's override or the tuning table says otherwise; at most the
+//    occupancy that kSmemBytes and kThreads leave, which
+//    vmem_gather_max_blocks_per_sm reports) walk tiles of the flattened
 //    B*N*C index stream. One elected thread keeps a ring of kStages tiles in
 //    flight with the TMA's 1-D bulk copy (cp.async.bulk ...
 //    mbarrier::complete_tx), each stage guarded by an mbarrier, so the index
@@ -53,7 +56,6 @@ namespace {
 constexpr int kThreads = 256;     // every thread is a consumer
 constexpr int kTile = 2048;       // int32 indices per tile (8 KB)
 constexpr int kStages = 3;        // ring of tiles in shared memory
-constexpr int kBlocksPerSm = 2;   // persistent blocks per SM
 constexpr int kVecs = kTile / 4 / kThreads;  // int4 vectors / thread / tile
 static_assert(kTile % (4 * kThreads) == 0, "whole vectors per thread");
 constexpr int kRingBytes = kStages * kTile * 4;
@@ -263,35 +265,62 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
+// Per device, queried once: the SM count and the most blocks of this
+// kernel one SM holds at once (its shared memory, threads and registers).
+static int sm_count[kMaxDevices];
+static int max_blocks_per_sm[kMaxDevices];
+
+static cudaError_t device_limits(int* dev) {
+  cudaError_t err = cudaGetDevice(dev);
+  if (err != cudaSuccess) return err;
+  if (*dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (sm_count[*dev] == 0) {
+    int sms, occ;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, *dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(vmem_gather_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kSmemBytes);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &occ, vmem_gather_kernel, kThreads, kSmemBytes);
+    if (err != cudaSuccess) return err;
+    max_blocks_per_sm[*dev] = occ;
+    sm_count[*dev] = sms;
+  }
+  return cudaSuccess;
+}
+
+// The largest blocks_per_sm the current device can keep resident.
+extern "C" int vmem_gather_max_blocks_per_sm(int* out) {
+  int dev;
+  cudaError_t err = device_limits(&dev);
+  if (err != cudaSuccess) return (int)err;
+  *out = max_blocks_per_sm[dev];
+  return 0;
+}
+
 // t (n_src floats, or batch rows of t_stride = n_src floats), src and out
-// (batch * per_batch elements, src 16-byte aligned), on `stream`. Returns
-// the CUDA error code of the launch (0 on success).
+// (batch * per_batch elements, src 16-byte aligned), on `stream`, with
+// blocks_per_sm persistent blocks per SM (1 to the occupancy limit).
+// Returns the CUDA error code of the launch (0 on success).
 extern "C" int vmem_gather_launch(const float* t, const int32_t* src,
                                   float* out, int64_t batch,
                                   int64_t per_batch, int64_t n_src,
-                                  int64_t t_stride, void* stream) {
+                                  int64_t t_stride, int blocks_per_sm,
+                                  void* stream) {
   const int64_t total = batch * per_batch;
   if (total == 0) return 0;
   if (reinterpret_cast<uintptr_t>(src) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(out) % 16 != 0 || n_src <= 0)
     return (int)cudaErrorInvalidValue;
   int dev;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = device_limits(&dev);
   if (err != cudaSuccess) return (int)err;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  static int sm_count[kMaxDevices];  // per device, queried once
-  if (sm_count[dev] == 0) {
-    int sms;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(vmem_gather_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 kSmemBytes);
-    if (err != cudaSuccess) return (int)err;
-    sm_count[dev] = sms;
-  }
+  if (blocks_per_sm < 1 || blocks_per_sm > max_blocks_per_sm[dev])
+    return (int)cudaErrorInvalidConfiguration;
   const int64_t n_tiles = (total + kTile - 1) / kTile;
-  const int64_t grid = min64(n_tiles, (int64_t)kBlocksPerSm * sm_count[dev]);
+  const int64_t grid = min64(n_tiles, (int64_t)blocks_per_sm * sm_count[dev]);
   const int hi = (int)min64(n_src - 1, INT32_MAX);
   vmem_gather_kernel<<<(unsigned)grid, kThreads, kSmemBytes,
                        (cudaStream_t)stream>>>(t, src, out, total, per_batch,

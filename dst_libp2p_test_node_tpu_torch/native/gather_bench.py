@@ -5,8 +5,9 @@
 
 Builds the kernel of csrc/vmem_gather.cu as it stands and variants of it,
 each made by a textual edit of that source (VARIANTS below), plus, with
---earlier, an earlier source with the same C launcher and an edit of it that
-drops its per-element 64-bit division. Every library is held bitwise
+--earlier, an earlier source whose C launcher takes the same arguments
+(blocks_per_sm included) and an edit of it that drops its per-element
+64-bit division. Every library is held bitwise
 against `vmem_gather_ref` at ragged and full shapes, then all are timed at
 the main path's shape, 1M peers x 40 slots, with CUDA events (the mean
 of ITERS calls), in turns (forward then backward order; the lower mean of
@@ -18,7 +19,9 @@ t is what the random reads cost beyond L1). Prints one line per number and
 a JSON object as the last line.
 
 The variants are measurement only: the package builds csrc/vmem_gather.cu
-unedited.
+unedited. Every library launches with the wrapper's default blocks per SM;
+the blocks-per-SM sweep is the microbench harness's (runtime/
+microbench.py sweep_kernels), since that number is a launch argument.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ import sys
 import torch
 
 from . import build
-from .vmem_gather import vmem_gather_ref
+from .vmem_gather import DEFAULT_BLOCKS_PER_SM, vmem_gather_ref
 
 FULL_N, FULL_C = 1_000_000, 40
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
@@ -117,8 +120,6 @@ VARIANTS = {
     "stages4": _const("kStages", 3, 4),
     "tile1024": _const("kTile", 2048, 1024),
     "tile4096": _const("kTile", 2048, 4096),
-    "blocks1": _const("kBlocksPerSm", 2, 1),
-    "blocks4": _const("kBlocksPerSm", 2, 4),
 }
 
 # the earlier kernel without its per-element 64-bit division when batch is 1
@@ -166,7 +167,7 @@ def build_all(sources: dict[str, str]) -> dict[str, ctypes.CDLL]:
         lib.vmem_gather_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_void_p]
         libs[name] = lib
     return libs
 
@@ -179,7 +180,7 @@ def gather(lib, t, src):
     err = lib.vmem_gather_launch(
         t.data_ptr(), src.data_ptr(), out.data_ptr(), batch,
         src.numel() // batch, n_src, n_src if t.dim() == 2 else 0,
-        torch.cuda.current_stream().cuda_stream)
+        DEFAULT_BLOCKS_PER_SM, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"launch failed: cuda error {err}")
     return out
@@ -283,7 +284,8 @@ def main(argv=None) -> int:
           f"random into a {SMALL_T}-entry t {yard['random_small_t']:.4f} ms; "
           f"bound {bound:.4f} ms")
     print(json.dumps({"card": smi, "shape": [FULL_N, FULL_C],
-                      "bound_ms": bound, "ms": times, "yardsticks_ms": yard}))
+                      "bound_ms": bound, "ms": times, "yardsticks_ms": yard},
+                     allow_nan=False))
     return 0
 
 

@@ -14,6 +14,11 @@ cannot build or launch the kernel raises.
 
 `scales` is a (2,) float32 tensor [fmd_scale, slow_scale] on the counters'
 device (the heartbeat scan's carried decay scalars).
+
+The one launch parameter is the threads per block: `threads=` when the
+caller passes it, else the tuning table's entry (native/tuned.py), else
+DEFAULT_THREADS. An override must be a whole number of warps, 32 to 1024,
+or the call raises; every value gives the same bytes.
 """
 
 from __future__ import annotations
@@ -22,11 +27,13 @@ import ctypes
 
 import torch
 
-from . import build
+from . import build, tuned
 
 NAME = "score_update"
 # kernel launches since the last reset (see native/vmem_gather.py)
 launches = 0
+DEFAULT_THREADS = 256
+MIN_THREADS, MAX_THREADS, WARP = 32, 1024, 32
 
 
 def score_update_ref(fmd, slow_penalty, scales, params):
@@ -47,11 +54,24 @@ def _lib() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 6 + [
         ctypes.c_int64, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-        ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     return lib
 
 
-def score_update(fmd, slow_penalty, scales, params):
+def launch_threads(threads=None) -> int:
+    """The threads per block a launch uses (see module doc)."""
+    if threads is not None:
+        if not tuned.usable(threads, MIN_THREADS, MAX_THREADS, WARP):
+            raise ValueError(f"score_update threads={threads!r}: want a "
+                             f"multiple of {WARP} in [{MIN_THREADS}, "
+                             f"{MAX_THREADS}]")
+        return threads
+    got = tuned.tuned_launch(NAME, MIN_THREADS, MAX_THREADS, WARP)
+    return DEFAULT_THREADS if got is None else got
+
+
+def score_update(fmd, slow_penalty, scales, params, *,
+                 threads: int | None = None):
     """(f, s, score) for the (N, C) float32 counters (see module doc)."""
     for x in (fmd, slow_penalty, scales):
         if x.dtype != torch.float32 or not x.is_contiguous():
@@ -62,6 +82,7 @@ def score_update(fmd, slow_penalty, scales, params):
         raise ValueError(f"bad shapes: fmd {tuple(fmd.shape)}, slow "
                          f"{tuple(slow_penalty.shape)}, scales "
                          f"{tuple(scales.shape)}")
+    block = launch_threads(threads)
     if fmd.device.type == "cpu":
         return score_update_ref(fmd, slow_penalty, scales, params)
     if fmd.device.type != "cuda":
@@ -74,7 +95,7 @@ def score_update(fmd, slow_penalty, scales, params):
             fmd.data_ptr(), slow_penalty.data_ptr(), scales.data_ptr(),
             f.data_ptr(), s.data_ptr(), score.data_ptr(), fmd.numel(),
             params.fmd_weight, params.slow_weight, params.fmd_cap,
-            params.decay_to_zero,
+            params.decay_to_zero, block,
             torch.cuda.current_stream(fmd.device).cuda_stream)
     build.check_launch(lib, NAME, err)
     launches += 1

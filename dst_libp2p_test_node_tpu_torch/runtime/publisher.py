@@ -16,7 +16,15 @@ Peer selection mirrors the reference surface: `id` pins one publisher
 after every message (run.sh:35, publisher_rotation), and `burst` posts
 back-to-back request groups so the resident service's batched dispatcher
 sees multi-request pump rounds. Pure stdlib; nothing here touches a
-tensor.
+tensor, apart from the batched dispatch below.
+
+The batched dispatch is the reference's (its runtime/publisher.py:115, a
+lax.scan over padded seed columns) as the port runs it: `publish_columns`
+runs one disseminate per active column from one t0, the state carried
+from column to column; Simulator.publish_batch builds its records from
+those columns. `publish_batch_scan` stacks the same columns into the
+reference's ys, the padding columns zero: the registry's
+publisher/batch_scan contract.
 """
 
 from __future__ import annotations
@@ -103,3 +111,65 @@ def inject(
         if peer_selection == "rotation":
             idx = (idx + 1) % len(targets)
     return res
+
+
+# the per-column results the batch stacks (the reference's ys keys)
+_BATCH_YS = ("delay_ms", "received", "sends", "copies_rx", "ihave_sent",
+             "iwant_sent", "answer_wait_max_ms", "converged")
+
+
+def publish_columns(state, conns, rev, stage, lat_ms, bw, rows, active,
+                    t0_ms, params, payload_bytes, fragments, with_gossip,
+                    loss_stage, loss_mode, lat_edge, loss_edge, ans_tables,
+                    valid_edge, with_fanout):
+    """Publish from each active column's row in order, all at `t0_ms`.
+
+    `rows` is the (B,) publisher-row column and `active` the (B,) padding
+    mask, host arrays. Returns (results, new_state): one
+    DisseminationResult per column, None in the padding columns, which
+    leave the state untouched."""
+    from ..ops.disseminate import disseminate
+
+    results = []
+    for row, live in zip(rows, active):
+        if not bool(live):
+            results.append(None)
+            continue
+        res, state = disseminate(
+            state, conns, rev, stage, lat_ms, bw, publisher=int(row),
+            t0_ms=t0_ms, params=params, payload_bytes=payload_bytes,
+            fragments=fragments, with_gossip=with_gossip, mesh=None,
+            loss_stage=loss_stage, loss_mode=loss_mode, lat_edge=lat_edge,
+            loss_edge=loss_edge, ans_tables=ans_tables,
+            valid_edge=valid_edge, with_fanout=with_fanout)
+        results.append(res)
+    return results, state
+
+
+def publish_batch_scan(state, conns, rev, stage, lat_ms, bw, rows, active,
+                       t0_ms, params, payload_bytes, fragments, with_gossip,
+                       loss_stage, loss_mode, lat_edge, loss_edge, ans_tables,
+                       valid_edge, with_fanout):
+    """`publish_columns` with the per-column results stacked as the
+    reference's ys. Returns (ys, new_state): each ys leaf stacked along
+    the batch axis, zero in the padding columns. The reference's
+    `topic_blocks` (its multi-topic fold) has no caller here:
+    MultiTopicSimulator.publish_batch publishes one message at a time."""
+    import torch
+
+    results, state = publish_columns(
+        state, conns, rev, stage, lat_ms, bw, rows, active, t0_ms, params,
+        payload_bytes, fragments, with_gossip, loss_stage, loss_mode,
+        lat_edge, loss_edge, ans_tables, valid_edge, with_fanout)
+    n, dev = conns.shape[0], conns.device
+    f32, i32 = torch.float32, torch.int32
+    dtypes = {"delay_ms": f32, "received": torch.bool, "sends": i32,
+              "copies_rx": i32, "ihave_sent": i32, "iwant_sent": i32}
+    zeros = {k: torch.zeros((n,), dtype=d, device=dev)
+             for k, d in dtypes.items()}
+    zeros["answer_wait_max_ms"] = torch.zeros((), dtype=f32, device=dev)
+    zeros["converged"] = torch.zeros((), dtype=torch.bool, device=dev)
+    cols = [zeros if res is None else {k: getattr(res, k) for k in _BATCH_YS}
+            for res in results]
+    ys = {k: torch.stack([c[k] for c in cols]) for k in _BATCH_YS}
+    return ys, state

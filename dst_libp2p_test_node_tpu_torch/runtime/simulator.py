@@ -14,7 +14,7 @@ A lossy topology (packet_loss > 0) runs the loss model cfg.loss_mode names.
 `set_subscribed` sets topic membership; an unsubscribed publisher takes the
 v1.1 fanout path. With cfg.uses_mix every publish first relays through the
 mix network (ops/mix.py). `publish_batch` injects several messages at one
-sim time, one publish() each; `run(checkpoint_path=)` snapshots the
+sim time through the batched dispatch (runtime/publisher.py); `run(checkpoint_path=)` snapshots the
 experiment (runtime/checkpoint.py), and a run loaded from the snapshot
 continues its schedule. `record_telemetry` arms the flight recorder
 (ops/telemetry.py) for later advances, `publish(censor_edge=)` threads an
@@ -371,20 +371,51 @@ class Simulator:
     def publish_batch(self, publishers, msg_size: int | None = None,
                       pad_to: int | None = None) -> list[MessageRecord]:
         """Inject len(publishers) messages at the current sim time, in
-        order: one publish() each. publish() does not move the clock, so
-        every message starts at the same t0, as in the reference's batched
-        dispatch, and the records and the state equal that dispatch's.
-        All publishers must share one fanout bucket (all subscribed or
-        all not), as there. `pad_to` keeps the reference's signature: its
-        padding columns change nothing, so it is not used."""
+        order, through the batched dispatch (runtime/publisher.
+        publish_columns): every message starts at the same t0, the state
+        carried from one to the next, so the records and the state equal
+        the reference's batched dispatch. All publishers must share one
+        fanout bucket (all subscribed or all not), as there. Mix routing
+        keeps the per-publish path, as there. `pad_to` keeps the
+        reference's signature: its padding columns change nothing, so it
+        is not used."""
         pubs = [int(p) for p in publishers]
-        if self.mix_params is None and len(
-                {bool(self._subscribed_np[p]) for p in pubs}) > 1:
+        if not pubs:
+            return []
+        if self.mix_params is not None:
+            return [self.publish(p, msg_size=msg_size) for p in pubs]
+        subbed = {bool(self._subscribed_np[p]) for p in pubs}
+        if len(subbed) != 1:
             raise ValueError(
                 "publish_batch requires a uniform fanout bucket: mixed "
                 "subscribed/unsubscribed publishers in one batch — group "
                 "them first (NodeService._group_batch does)")
-        return [self.publish(p, msg_size=msg_size) for p in pubs]
+        from .publisher import publish_columns
+
+        cfg = self.cfg
+        size = msg_size if msg_size is not None else cfg.topo.msg_size_bytes
+        a = self.arrays
+        t0_ms = float(self.state.t_ms) + self._hb_carry_ms
+        results, self.state = publish_columns(
+            self.state, a["conns"], a["rev"], self._stage, self._lat,
+            self._bw, pubs, [True] * len(pubs), t0_ms, self.params, size,
+            cfg.topo.num_frags, cfg.with_gossip, self._loss, cfg.loss_mode,
+            self._lat_edge, self._loss_edge, self._ans_tables,
+            self._valid_edge, not subbed.pop())
+        recs = []
+        for pub, res in zip(pubs, results):
+            if cfg.msgid_mode == "go":
+                msg_id = max(int(t0_ms * 1e6), self._last_msg_id + 1)
+                self._last_msg_id = msg_id
+            else:
+                msg_id = int(self._msg_rng.integers(0, 2**63,
+                                                    dtype=np.int64))
+            recs.append(record_from_result(
+                res, msg_id=msg_id, publisher=pub, t0_ms=t0_ms,
+                drop_self=([pub] if not cfg.self_trigger
+                           or not self._subscribed_np[pub] else None)))
+        self.records.extend(recs)
+        return recs
 
     def _mix_relay(self, origin: int, size: int, t0_ms: float):
         """Relay one message through the mix network (occupancy-coupled);

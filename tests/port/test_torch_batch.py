@@ -1,5 +1,6 @@
-"""The port's batched publish (Simulator.publish_batch and
-MultiTopicSimulator.publish_batch, one publish() per message from one t0)
+"""The port's batched publish (Simulator.publish_batch through
+runtime/publisher.publish_columns, MultiTopicSimulator.publish_batch one
+publish() per message, both from one t0)
 against the reference's, bitwise: the records and every state leaf after
 the batch, at integer and at fractional latencies, in bounded and exact
 mode, with nim and go message ids, padded wider than the batch, across a

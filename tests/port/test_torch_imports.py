@@ -7,9 +7,12 @@ and the service's runtime.metrics, runtime.supervise,
 runtime.node_service, runtime.publisher and runtime.traffic, and the
 campaign's ops.adversary, ops.repair, ops.telemetry, ops.faults,
 ops.dht_adversary and runtime.campaign, the arena's ops.protocol and
-ops.episub, and the conformance gate's ops.spec, analysis.conformance
-and runtime.profiling named), and chip_smoke.py, import in a fresh
-interpreter where `import jax` and `import flax` fail."""
+ops.episub, the conformance gate's ops.spec, analysis.conformance
+and runtime.profiling, and the tooling's native.tuned,
+analysis.contracts, analysis.registry, analysis.report,
+analysis.ast_lint, analysis.jaxpr_audit and runtime.microbench named),
+and chip_smoke.py, import in a fresh interpreter where `import jax` and
+`import flax` fail."""
 
 import os
 import subprocess
@@ -44,7 +47,9 @@ for name in ("ops.mix", "runtime.multitopic", "runtime.checkpoint",
              "ops.repair", "ops.telemetry", "ops.faults",
              "ops.dht_adversary", "runtime.campaign", "ops.protocol",
              "ops.episub", "ops.spec", "analysis.conformance",
-             "runtime.profiling"):
+             "runtime.profiling", "native.tuned", "analysis.contracts",
+             "analysis.registry", "analysis.report", "analysis.ast_lint",
+             "analysis.jaxpr_audit", "runtime.microbench"):
     assert port.__name__ + "." + name in names, name
 sys.exit(1 if bad else 0)
 """
