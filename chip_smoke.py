@@ -146,9 +146,10 @@ not printed):
                both devices. (b) the ETH2 mainnet mix (blocks 18,000 B,
                aggregates 3,000 B, sync 1,200 B, 64 attestation subnets of
                600 B: 67 topics) at 10,000 peers (670k rows x 40), connect_to
-               10, a 15 s warm-up, 12 ticks of 1 s with 8 requests against
+               10, a 15 s warm-up, 5 ticks of 1 s with 8 requests against
                batches of 4 and a queue of 16, over HTTP: batched and
-               killed at tick 6 (checkpoint every 2 rounds), then the same
+               killed at tick 2 (checkpoint every 2 rounds; 12 ticks and
+               tick 6 until phase 14 joined), then the same
                schedule sequential. Prints set-up, warm-up, drive and
                publish walls, requests/s, sojourn p50/p99, shed rate, depth,
                dissemination by traffic class, the checkpoint's size and
@@ -229,8 +230,9 @@ not printed):
                same bytes, walls, peer-rounds/s and launches (zeroed just
                before and read just after each); then the arena probe
                (benign + sybil_graft_flood against the default adaptive
-               policy, fraction 0.25, seeds 0 and 1, 20 attack heartbeats,
-               3 messages, flood publish off), gated as the reference
+               policy, fraction 0.25, seed 0 (seeds 0 and 1 until phase
+               14 joined), 20 attack heartbeats, 3 messages, flood
+               publish off), gated as the reference
                gates it (benign coverage >= 0.95 for both protocols,
                episub's benign bandwidth below GossipSub's), with its
                rows, launches, peak memory and the host syncs of one
@@ -282,6 +284,24 @@ not printed):
                process: exit 0, clean; `microbench --no-sweep --only
                disseminate/` as a process: its strict-JSON artifact (the
                packed A/B at 100,000 peers), its wall.
+ 14. the trial grid and the DCN campaign: (a) kad.evict_failed at
+               max_fails 20 (the backoff through xlamath.exp2_f32) on a
+               10,000-peer DHT table with its fail counters preset, on the
+               card and on the CPU: every leaf bitwise. (b) 9(c)'s
+               campaign again (a fresh checkpoint directory) on a trial
+               grid of two rank processes sharing the card: every trial
+               field equal to 9(c)'s result (kept from phase 9, not
+               rerun); the caller's launches (the benign cell) plus the
+               ranks' equal to 9(c)'s, both kernels launched in each rank;
+               prints trials/s both ways, each rank's start-up seconds and
+               the card's idle share over the grid run (1 - nvidia-smi's
+               utilization.gpu, sampled every 200 ms). (c)
+               scripts/dcn_campaign_torch.py at config 6's 2,048 peers:
+               two torch.distributed processes on the card, merged,
+               bit-identical to the single-process run.
+               (d) 9(b)'s `attack` process again with --trial-groups 0
+               (one group on one card): its JSON equal to 9(b)'s outside
+               the walls.
 
 Then one JSON line with every kernel's numbers: at 1M x 40 with
 `launches` from phase 4's config-5 run, under `exact` at 100k x 40 with
@@ -293,17 +313,20 @@ campaign (`campaign`), 10(b)'s three campaigns (`faults`, `adaptive`,
 `dht`), 11(b)'s fused chain (`fused`, with the split chain's beside it)
 and arena (`arena`), 12(b)'s campaign (`conformance_campaign`), 12(c)'s
 run (`plan`), 12(d)'s trace process (`trace`, as its profiler counted
-them) and 13(b)'s microbench (`microbench`), and under
+them), 13(b)'s microbench (`microbench`) and 14(b)'s grid (`trial_grid`:
+the ranks' sum, each rank's and the caller's), and under
 `service` the 670k x 40 numbers with `launches` from 8(b)'s batched run
 (and its sequential run's). Then the total run time, and last the line
 {"ok": true, "device": {...}}. Without CUDA it exits 1 and prints no
 result; run alone, without the package beside it, it exits 2.
 
-Machine time: 890.4 and 884.3 s of run time in two runs on one H100 with
-every phase, builds included (PERF.md); phase 8 took 196.1-196.5 s of
-it, phase 9 94.5-100.8 s, phase 10 127.2-132.1 s, phase 11 62.1-72.6 s,
-phase 12 89.1-90.6 s and phase 13 59.8-65.2 s. Runs of similar work
-swing about 10% between machines. Inside a 20-minute budget.
+Machine time: 898.8 and 899.5 s of run time in two runs on one H100 with
+every phase, builds included (PERF.md), after 8(b) and 11(b)'s arena
+probe were cut to make room for phase 14; phase 8 took 108.3-110.4 s
+of it, phase 9 101.4-104.4 s, phase 10 145.3-151.3 s, phase 11
+60.0-61.9 s, phase 12 90.5-100.2 s, phase 13 56.9-61.4 s and phase 14
+59.7-60.7 s. Runs of similar work swing about 10% between machines.
+Inside a 20-minute budget.
 """
 
 from __future__ import annotations
@@ -366,10 +389,13 @@ LOSSY_ENV = {"GOSSIPSUB_SLOW_PEER_PENALTY_WEIGHT": "-1"}
 SVC_N = 10_000
 SVC_SUBNETS = 64
 SVC_ROWS = SVC_N * (3 + SVC_SUBNETS)
+# (5 ticks, killed at tick 2, since phase 14 joined the smoke: 12 ticks
+# and tick 6 before; PERF.md section 4 lists the cut)
 SVC_LOAD = dict(n_peers=SVC_N, subnets=SVC_SUBNETS, connect_to=10,
-                warmup_s=15.0, seed=0, ticks=12, per_tick=8, tick_ms=1000.0,
+                warmup_s=15.0, seed=0, ticks=5, per_tick=8, tick_ms=1000.0,
                 msg_scale=1.0, max_queue_depth=16, max_batch=4,
                 via_http=True)
+SVC_KILL_TICK = 2
 # phase 8(a): the same load generator at 64 peers, CUDA against the CPU
 SVC_PARITY = dict(n_peers=64, subnets=4, connect_to=6, warmup_s=10.0,
                   seed=0, ticks=12, per_tick=4, tick_ms=150.0,
@@ -2052,16 +2078,16 @@ def phase_roles(dev):
 
 # ---------------------------------------------------------------- phase 8
 
-def _load(dev, tag, kill, **kw):
-    """One run_service_load with the schedule `kw`, killed at tick 6 and
-    warm-restarted from its checkpoint when `kill`."""
+def _load(dev, tag, kill, kill_at=6, **kw):
+    """One run_service_load with the schedule `kw`, killed at tick
+    `kill_at` and warm-restarted from its checkpoint when `kill`."""
     from dst_libp2p_test_node_tpu_torch.runtime.traffic import (
         run_service_load)
 
     os.makedirs(SCRATCH, exist_ok=True)
     ck = os.path.join(SCRATCH, f"{tag}_svc.npz")
-    extra = (dict(kill_at_tick=6, checkpoint_path=ck, checkpoint_every=2)
-             if kill else {})
+    extra = (dict(kill_at_tick=kill_at, checkpoint_path=ck,
+                  checkpoint_every=2) if kill else {})
     out = run_service_load(**kw, **extra, device=dev)
     json.dumps(out, allow_nan=False)          # the report is strict JSON
     return out
@@ -2127,8 +2153,8 @@ def _service_line(tag, r, launches, peak):
 
 def phase_service(dev):
     """8(b): the ETH2 mainnet topic mix (67 topics) at 10,000 peers (670k
-    stacked rows x 40 slots) through run_service_load over HTTP, 12 ticks
-    of 1 s at 2x overload, batched and killed at tick 6, then the same
+    stacked rows x 40 slots) through run_service_load over HTTP, 5 ticks
+    of 1 s at 2x overload, batched and killed at tick 2, then the same
     schedule sequential. Counts zeroed at the start of each run."""
     from dst_libp2p_test_node_tpu_torch.native import score_update as su
     from dst_libp2p_test_node_tpu_torch.native import vmem_gather as vg
@@ -2141,7 +2167,8 @@ def phase_service(dev):
         vg.launches = 0
         su.launches = 0
         t0 = time.time()
-        r = _load(dev, f"svc_{tag}", kill, **SVC_LOAD, dispatch_mode=mode)
+        r = _load(dev, f"svc_{tag}", kill, kill_at=SVC_KILL_TICK,
+                  **SVC_LOAD, dispatch_mode=mode)
         wall = time.time() - t0
         launches = {"vmem_gather": vg.launches, "score_update": su.launches}
         peak = torch.cuda.max_memory_allocated(dev)
@@ -2615,7 +2642,8 @@ def phase_campaign_full(dev):
     rebind_graph runs at 100k), flight recorder and checkpoints on. Counts
     zeroed just before and read just after. A second run_campaign on the
     same directory resumes every attacked trial and gives the same result
-    outside the walls. Returns the first run's launches."""
+    outside the walls. Returns the first run's launches and its result
+    (phase 14(b) holds the trial grid against it)."""
     from dst_libp2p_test_node_tpu_torch.native import score_update as su
     from dst_libp2p_test_node_tpu_torch.native import vmem_gather as vg
     from dst_libp2p_test_node_tpu_torch.runtime.campaign import run_campaign
@@ -2667,7 +2695,7 @@ def phase_campaign_full(dev):
           f"({syncs['attack'][1]:.3f} s profiled), recovery window "
           f"{syncs['recovery'][0]} in {cfg.recovery_heartbeats} "
           f"({syncs['recovery'][1]:.3f} s profiled)")
-    return launches
+    return launches, res
 
 
 def phase_service_telemetry(dev):
@@ -2720,10 +2748,10 @@ def phase_9(dev):
     os.makedirs(SCRATCH, exist_ok=True)
     phase_campaign_parity(dev)
     phase_config6(dev)
-    launches = phase_campaign_full(dev)
+    launches, res9c = phase_campaign_full(dev)
     phase_service_telemetry(dev)
     print(f"[campaign] phase 9 took {time.time() - t0:.1f} s")
-    return launches
+    return launches, res9c
 
 
 # ---------------------------------------------------------------- phase 10
@@ -3054,6 +3082,9 @@ def phase_10(dev):
 
 # ---------------------------------------------------------------- phase 11
 
+# 11(b)'s arena probe: seed 0 alone since phase 14 joined the smoke (seeds
+# 0 and 1 before; PERF.md section 4 lists the cut)
+ARENA_SEEDS = (0,)
 FUSED_PARITY_N = 512
 ARENA_PARITY_N = 128
 ARENA_CLI_N = 2048
@@ -3263,8 +3294,9 @@ def phase_fused_arena_full(dev):
     state, the Simulator's edge tables) split and then fused, the same
     bytes, walls, peer-rounds/s and launches; then the arena (benign +
     sybil_graft_flood against the default adaptive policy, fraction
-    0.25, seeds 0 and 1, 20 attack heartbeats, 3 messages 2 s apart,
-    flood publish off: 8 trials) gated as the reference's probe gates it,
+    0.25, seed 0 (seeds 0 and 1 until phase 14 joined), 20 attack
+    heartbeats, 3 messages 2 s apart, flood publish off: 4 trials) gated
+    as the reference's probe gates it,
     with its launches, peak memory and the host syncs of one episub
     adaptive window. Returns {"split", "fused", "arena"} launches."""
     from dst_libp2p_test_node_tpu_torch.native import score_update as su
@@ -3312,7 +3344,7 @@ def phase_fused_arena_full(dev):
     del sim, chains
 
     exp = _exp11(n, 15000, 4, EXACT_WARMUP_S)
-    cfg = _arena_cfg(exp, (0, 1), 20)
+    cfg = _arena_cfg(exp, ARENA_SEEDS, 20)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     vg.launches = 0
@@ -3325,7 +3357,8 @@ def phase_fused_arena_full(dev):
     peak = torch.cuda.max_memory_allocated(dev)
     rate = len(art["trials"]) / art["wall_s"]
     print(f"[arena] 11(b) arena at {n} peers x 4 fragments (benign + "
-          f"sybil_graft_flood, adaptive, fraction 0.25, seeds 0/1, 20 "
+          f"sybil_graft_flood, adaptive, fraction 0.25, seeds "
+          f"{'/'.join(map(str, ARENA_SEEDS))}, 20 "
           f"attack heartbeats, 3 messages): {len(art['trials'])} trials, "
           f"wall_s {art['wall_s']:.3f} ({wall:.3f} s with set-up), "
           f"arena_trials_per_s {rate:.4f}; launches {out['arena']}; peak "
@@ -4093,6 +4126,220 @@ def phase_13(dev, kernels):
     return launches
 
 
+# ---------------------------------------------------------------- phase 14
+
+BACKOFF_N = 10_000
+BACKOFF_MAX_FAILS = 20
+# how often nvidia-smi samples the card's utilization during 14(b)
+UTIL_SAMPLE_MS = 200
+
+
+def phase_backoff(dev):
+    """14(a): kad.evict_failed at max_fails 20 (the backoff through
+    xlamath.exp2_f32 and one FMA) on a 10,000-peer DHT table, on the card
+    and on the CPU: every leaf bitwise. The table is warmed on the card
+    (two lookup waves), the fail counters preset over 0..19 and the clock
+    fractional, so every backoff exponent, the inexact ones from 2^13 up
+    included, is taken."""
+    from dst_libp2p_test_node_tpu_torch import interop, prng
+    from dst_libp2p_test_node_tpu_torch.ops import kad
+
+    t0 = time.time()
+    n = BACKOFF_N
+    st = kad.init_kad_state(n, seed=6, device=dev)
+    st = kad.seed_bootstraps(st, torch.arange(2, device=dev))
+    key = prng.PRNGKey(6, device=dev)
+    origins = torch.arange(2, n, device=dev)
+    stage = torch.zeros(n, dtype=torch.int32, device=dev)
+    lat = torch.full((1, 1), 10.0, device=dev)
+    for _ in range(2):
+        key, k = prng.split(key)
+        _, st = kad.find_node(st, origins, kad.random_targets(k, n - 2),
+                              stage, lat)
+    q = torch.arange(2, min(n, 2002), device=dev)
+    res, st = kad.find_node(st, q, st.keys[q], stage, lat)
+    gen = np.random.default_rng(14)
+    alive = np.ones(n, bool)
+    alive[gen.choice(n, n // 20, replace=False)] = False
+    found = res.closest.long().cpu()
+    found[:, -3:] = torch.as_tensor(np.flatnonzero(~alive)[:3])
+    leaves = interop.leaves_to_numpy(st)
+    leaves.update(
+        alive=alive,
+        rt_fails=gen.integers(0, BACKOFF_MAX_FAILS, leaves["rt_fails"].shape
+                              ).astype(leaves["rt_fails"].dtype),
+        t_ms=np.asarray(1234.567, dtype=np.float32))
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        sd = interop.dataclass_from_numpy(kad.KadState, leaves, d)
+        out = kad.evict_failed(sd, q.to(d), found.to(d),
+                               max_fails=BACKOFF_MAX_FAILS,
+                               backoff_base_ms=37.3)
+        outs.append(interop.leaves_to_numpy(out))
+    bad = interop.leaf_mismatches(outs[1], outs[0])
+    check(bad == [], f"14(a) evict_failed CUDA != CPU: {bad}")
+    retry = outs[0]["rt_retry_ms"]
+    hit = np.unique(outs[0]["rt_fails"][retry > 0])
+    check(set(range(14, BACKOFF_MAX_FAILS)) <= set(hit.tolist()),
+          f"14(a) backoff exponents taken: {hit.tolist()}")
+    print(f"[grid] 14(a) evict_failed at max_fails {BACKOFF_MAX_FAILS} on a "
+          f"{n}-peer table ({q.numel()} origins): CUDA = CPU on every leaf; "
+          f"{int((retry > 0).sum())} entries under backoff, exponents "
+          f"{hit.min() - 1}..{hit.max() - 1} ({time.time() - t0:.1f} s)")
+
+
+class _UtilSampler:
+    """nvidia-smi's utilization.gpu of card 0 sampled every UTIL_SAMPLE_MS
+    while open: idle share = 1 - mean / 100."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=utilization.gpu",
+             "--format=csv,noheader,nounits", f"-lms={UTIL_SAMPLE_MS}",
+             "-i", "0"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+            text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=30)
+        self.samples = [float(x) for x in out.split()
+                        if x.replace(".", "", 1).isdigit()]
+
+    @property
+    def idle_share(self) -> float:
+        if not self.samples:
+            return math.nan
+        return 1.0 - sum(self.samples) / len(self.samples) / 100.0
+
+
+def phase_grid(dev, res9c, launches9c):
+    """14(b): 9(c)'s static-flood campaign (100k peers x 4 fragments,
+    fractions 0 / 0.1, seeds 0 and 1, 20 + 10 heartbeats, recorder and
+    checkpoints on, a fresh directory) with a trial grid of two ranks
+    sharing the card: every trial field equal to 9(c)'s result outside
+    the walls; the ranks' launches plus the caller's (the benign cell)
+    equal to 9(c)'s, both kernels launched in each rank. Prints trials/s
+    both ways, each rank's start-up seconds and the card's idle share over
+    the grid run. Returns the launches."""
+    from dst_libp2p_test_node_tpu_torch.native import score_update as su
+    from dst_libp2p_test_node_tpu_torch.native import vmem_gather as vg
+    from dst_libp2p_test_node_tpu_torch.parallel.ranks import RankPool
+    from dst_libp2p_test_node_tpu_torch.parallel.sharding import (
+        make_trial_mesh)
+    from dst_libp2p_test_node_tpu_torch.runtime.campaign import run_campaign
+
+    ck = os.path.join(SCRATCH, "grid14")
+    shutil.rmtree(ck, ignore_errors=True)
+    cfg = _campaign_cfg(CAMP_FULL_N, "sybil_graft_flood", (0.0, 0.1),
+                        (0, 1), 20, EXACT_WARMUP_S, msg_size=15000, frags=4,
+                        recovery=10, ckpt=ck)
+    grid = make_trial_mesh(devices=[dev, dev])
+    with RankPool(grid.group_devices) as pool:
+        torch.cuda.synchronize()
+        vg.launches = 0
+        su.launches = 0
+        with _UtilSampler() as util:
+            res = run_campaign(cfg, trial_mesh=pool, device=dev)
+            torch.cuda.synchronize()
+        caller = {"vmem_gather": vg.launches, "score_update": su.launches}
+        per_rank = [dict(r) for r in pool.launches]
+        startup = list(pool.startup_s)
+        rank_s = list(pool.seconds)
+    ranks = {k: sum(r[k] for r in per_rank) for k in caller}
+    check(_campaign_fields(res) == _campaign_fields(res9c),
+          "14(b): the grid's campaign differs from 9(c)'s")
+    for k in caller:
+        check(caller[k] + ranks[k] == launches9c[k],
+              f"14(b): {k} launches: caller {caller[k]} + ranks {ranks[k]}"
+              f" != 9(c)'s {launches9c[k]}")
+        for r, lr in enumerate(per_rank):
+            check(lr[k] > 0, f"14(b): rank {r} never launched {k}")
+    att = [w for w in res.phase_walls if w["fraction"] > 0]
+    check(len(att) == 2 and not any(w["resumed"] for w in att),
+          "14(b): the attacked trials did not run on the ranks")
+    print(f"[grid] 14(b) {CAMP_FULL_N} peers x 4 fragments, 9(c)'s campaign "
+          f"on a grid of 2 ranks sharing {torch.cuda.get_device_name(0)}: "
+          f"every trial field = 9(c)'s; trials_per_s {res.trials_per_s:.4f} "
+          f"(wall_s {res.wall_s:.3f}) against 9(c)'s "
+          f"{res9c.trials_per_s:.4f} (wall_s {res9c.wall_s:.3f}); rank "
+          f"start-up {', '.join(f'{x:.1f}' for x in startup)} s, rank job "
+          f"{', '.join(f'{x:.1f}' for x in rank_s)} s; launches caller "
+          f"{caller} + ranks {per_rank} = 9(c)'s {launches9c}; card idle "
+          f"share {util.idle_share:.4f} over {len(util.samples)} samples "
+          f"of nvidia-smi utilization.gpu every {UTIL_SAMPLE_MS} ms")
+    for t, w in zip(res.to_dict()["trials"], res.phase_walls):
+        walls = ", ".join(f"{k} {v:.3f} s" for k, v in w.items()
+                          if k not in ("fraction", "seed", "resumed"))
+        print(f"[grid] 14(b)   f={t['fraction']:g} s={t['seed']}: {walls}")
+    return {"caller": caller, "ranks": ranks, "per_rank": per_rank}
+
+
+def phase_dcn(dev):
+    """14(c): scripts/dcn_campaign_torch.py at config 6's 2,048 peers: two
+    torch.distributed processes on the card, each on its own one-group
+    grid, merged, against the single-process campaign (the same seeds):
+    bit_identical, and both walls."""
+    out = os.path.join(SCRATCH, "dcn14.json")
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "scripts",
+                                      "dcn_campaign_torch.py"),
+         "--n", str(CAMP6_N), "--seeds", "2", "--workdir",
+         os.path.join(SCRATCH, "dcn14"), "--out", out, "--timeout", "600"],
+        cwd=ROOT, capture_output=True, text=True, timeout=900)
+    check(proc.returncode == 0, f"14(c) dcn_campaign_torch exited "
+          f"{proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    with open(out) as f:
+        r = json.load(f)
+    check(r["bit_identical"] is True and r["trials"] == 4,
+          f"14(c) DCN campaign: {r}")
+    print(f"[grid] 14(c) DCN campaign at {r['network_size']} peers, "
+          f"{r['nproc']} processes x {r['devs_per_proc']} group on the card: "
+          f"merged = single-process outside the walls ({r['trials']} "
+          f"trials); dcn {r['dcn_trials_per_s']:.4f} trials/s (wall "
+          f"{r['dcn_wall_s']:.3f} s), single {r['single_trials_per_s']:.4f} "
+          f"(wall {r['single_wall_s']:.3f} s) ({time.time() - t0:.1f} s)")
+
+
+def phase_grid_cli(dev):
+    """14(d): 9(b)'s `attack` process at 2,048 peers again with
+    --trial-groups 0 (one group on one card, so the caller runs it): its
+    JSON equal to 9(b)'s outside the walls."""
+    js = os.path.join(SCRATCH, "camp6_grid.json")
+    argv = ["attack", "-n", str(CAMP6_N), "--msg-size", "2000",
+            "--connect-to", "10", "--warmup-s", "30", "--fractions", "0,0.1",
+            "--seeds", "0,1", "--attack-heartbeats", "20", "--messages", "3",
+            "--delay-s", "2", "--trial-groups", "0", "--json", js]
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m",
+                           "dst_libp2p_test_node_tpu_torch", *argv],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    check(proc.returncode == 0, f"14(d) attack --trial-groups 0 exited "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    with open(js) as f:
+        d_grid = json.load(f)
+    with open(os.path.join(SCRATCH, "camp6.json")) as f:
+        d_9b = json.load(f)
+    check(_strip_walls(d_grid) == _strip_walls(d_9b),
+          "14(d): attack --trial-groups 0 differs from 9(b)'s artifact")
+    print(f"[grid] 14(d) attack --trial-groups 0 at {CAMP6_N} peers (a "
+          f"process, one group): JSON = 9(b)'s outside the walls "
+          f"({time.time() - t0:.1f} s)")
+
+
+def phase_14(dev, res9c, launches9c):
+    t0 = time.time()
+    os.makedirs(SCRATCH, exist_ok=True)
+    phase_backoff(dev)
+    launches = phase_grid(dev, res9c, launches9c)
+    phase_dcn(dev)
+    phase_grid_cli(dev)
+    print(f"[grid] phase 14 took {time.time() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -4123,11 +4370,12 @@ def main() -> int:
         phase_roles_parity(dev)
         launches_roles = phase_roles(dev)
         service = phase_8(dev)
-        launches_campaign = phase_9(dev)
+        launches_campaign, res9c = phase_9(dev)
         launches10 = phase_10(dev)
         launches11 = phase_11(dev)
         launches12 = phase_12(dev)
         launches13 = phase_13(dev, kernels)
+        launches14 = phase_14(dev, res9c, launches_campaign)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -4153,6 +4401,10 @@ def main() -> int:
                  plan=dict(launches=launches12["plan"][k]),
                  trace=dict(launches=launches12["trace"][k]),
                  microbench=dict(launches=launches13[k]),
+                 trial_grid=dict(launches=launches14["ranks"][k],
+                                 rank_launches=[
+                                     r[k] for r in launches14["per_rank"]],
+                                 caller_launches=launches14["caller"][k]),
                  service=dict(
                      v["service"],
                      launches=service["batched"]["launches"][k],

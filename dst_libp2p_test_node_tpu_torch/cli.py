@@ -70,8 +70,10 @@ prints the reference's Pareto report (--json: its artifact).
 
 `arena` races GossipSub against the episub tree (the adaptive attacker as
 referee) and prints the reference's win matrix (--json: its artifact).
---mesh and --trial-groups (several GPUs) exit with an error naming their
-slice.
+`attack`, `pareto` and `arena` take --trial-groups N: the attacked seeds
+run on a trial grid, one rank process per GPU (0: one per visible device;
+with --device cpu, N CPU ranks); `attack --mesh` (the peer mesh) exits
+with an error naming its slice.
 
   python -m dst_libp2p_test_node_tpu_torch conform [--scenario S ...] \
       [--seeds 0 1] [--fuzz N] [--out F] [--device cpu]
@@ -90,7 +92,7 @@ slice.
 every registered entry point's contract (analysis/registry.py) on the
 device, and prints the reference's strict-JSON report; it exits 0 iff
 clean. --sharding and the --predict-rung / --rung-* flags exit with an
-error naming the multi-GPU slice. `microbench` prints (or writes with
+error naming the peer mesh (A13, second half). `microbench` prints (or writes with
 --out) the rooflines of the registry, the kernels' launch-parameter sweep
 and the packed_state A/B; --install writes the sweep's winners to the
 tuning table (native/tuned.py).
@@ -360,6 +362,22 @@ def _resolve(p: argparse.ArgumentParser, device):
         return resolve_device(device)
     except RuntimeError as exc:
         p.error(str(exc))
+
+
+def _trial_grid(p: argparse.ArgumentParser, groups, device):
+    """--trial-groups N as a trial grid (None without the flag): N groups
+    over the visible CUDA devices, 0 one per device (N must divide the
+    count); on --device cpu, N CPU ranks (0: one)."""
+    if groups is None:
+        return None
+    from .parallel.sharding import check_trial_grid, make_trial_mesh
+
+    try:
+        if device.type == "cpu":
+            return make_trial_mesh(devices=["cpu"] * max(groups, 1))
+        return check_trial_grid(make_trial_mesh(groups or None))
+    except (ValueError, NotImplementedError) as e:
+        p.error(str(e))
 
 
 def _wall_line(device, t0: float, extra: str = "") -> str:
@@ -786,12 +804,6 @@ def validate_attack_flags(
                          "rate; it needs --adaptive")
 
 
-# the attack flags of later slices: set, each exits with an error naming
-# the slice (never silently ignored)
-_LATER_ATTACK_FLAGS = (
-    ("mesh", "--mesh", "multi-GPU (A13)"),
-    ("trial_groups", "--trial-groups", "multi-GPU (A13)"),
-)
 
 
 def cmd_attack(argv: list[str]) -> int:
@@ -916,10 +928,16 @@ def cmd_attack(argv: list[str]) -> int:
     p.add_argument("--dht-evict-backoff-ms", type=float, default=0.0,
                    help="exponential backoff base between retries of a "
                    "failing routing-table entry")
-    # several GPUs (an error names the slice)
+    p.add_argument("--trial-groups", type=int, default=None, metavar="N",
+                   help="deal each attacked fraction's seeds over N trial "
+                   "groups, one rank process per GPU "
+                   "(parallel/sharding.make_trial_mesh; N must divide the "
+                   "device count; 0 = one group per visible device; with "
+                   "--device cpu, N CPU ranks). Mutually exclusive with "
+                   "--mesh")
+    # the peer mesh (an error names the slice)
     later = p.add_argument_group("later slices")
     later.add_argument("--mesh", action="store_true")
-    later.add_argument("--trial-groups", type=int, default=None)
     _device_arg(p)
     a = p.parse_args(argv)
 
@@ -936,11 +954,16 @@ def cmd_attack(argv: list[str]) -> int:
         )
     except ValueError as e:
         p.error(str(e))
-    for dest, flag, slice_name in _LATER_ATTACK_FLAGS:
-        if getattr(a, dest) not in (None, False):
-            p.error(f"{flag} is not ported yet: it comes with the "
-                    f"{slice_name} slice (ROADMAP A)")
+    if a.mesh and a.trial_groups is not None:
+        p.error("--trial-groups and --mesh are mutually exclusive "
+                "(the trial grid already owns every device)")
+    if a.mesh:
+        from .parallel.sharding import PEER_MESH_SLICE
+
+        p.error(f"--mesh is not ported yet: it comes with {PEER_MESH_SLICE}"
+                " slice (ROADMAP A)")
     device = _resolve(p, a.device)
+    trial_mesh = _trial_grid(p, a.trial_groups, device)
 
     def _window(spec: str, flag: str) -> tuple[int, int]:
         try:
@@ -1026,7 +1049,7 @@ def cmd_attack(argv: list[str]) -> int:
             inject_failures=a.inject_failures),
     )
     t0 = time.time()
-    res = run_campaign(cfg, device=device)
+    res = run_campaign(cfg, trial_mesh=trial_mesh, device=device)
     d = res.to_dict()
     print(report_campaign(d), end="")
     if a.json:
@@ -1083,13 +1106,12 @@ def cmd_pareto(argv: list[str]) -> int:
                    "(<= 0) to sweep")
     p.add_argument("--json", default=None,
                    help="write the sweep artifact as strict JSON here")
-    later = p.add_argument_group("later slices")
-    later.add_argument("--trial-groups", type=int, default=None)
+    p.add_argument("--trial-groups", type=int, default=None, metavar="N",
+                   help="deal every grid point's seeds over N trial groups "
+                   "(parallel/sharding.make_trial_mesh; 0 = one per visible "
+                   "device; with --device cpu, N CPU ranks)")
     _device_arg(p)
     a = p.parse_args(argv)
-    if a.trial_groups is not None:
-        p.error("--trial-groups is not ported yet: it comes with the "
-                "multi-GPU (A13) slice (ROADMAP A)")
 
     try:
         degree_grid = tuple(
@@ -1144,7 +1166,10 @@ def cmd_pareto(argv: list[str]) -> int:
     )
     t0 = time.time()
     sweep = run_defense_sweep(cfg, degree_grid=degree_grid,
-                              weight_grid=weight_grid, device=device)
+                              weight_grid=weight_grid,
+                              trial_mesh=_trial_grid(p, a.trial_groups,
+                                                     device),
+                              device=device)
     print(report_defense_sweep(sweep), end="")
     if a.json:
         with open(a.json, "w") as f:
@@ -1185,13 +1210,12 @@ def cmd_arena(argv: list[str]) -> int:
                    "the GossipSub d_lazy derivation)")
     p.add_argument("--json", default=None,
                    help="write the arena artifact as strict JSON here")
-    later = p.add_argument_group("later slices")
-    later.add_argument("--trial-groups", type=int, default=None)
+    p.add_argument("--trial-groups", type=int, default=None, metavar="N",
+                   help="deal each attack scenario's seeds over N trial "
+                   "groups (parallel/sharding.make_trial_mesh; 0 = one per "
+                   "visible device; with --device cpu, N CPU ranks)")
     _device_arg(p)
     a = p.parse_args(argv)
-    if a.trial_groups is not None:
-        p.error("--trial-groups is not ported yet: it comes with the "
-                "multi-GPU (A13) slice (ROADMAP A)")
 
     scenarios = tuple(s.strip() for s in a.scenarios.split(",") if s.strip())
     attack_scs = [s for s in scenarios if s != "benign"]
@@ -1244,6 +1268,8 @@ def cmd_arena(argv: list[str]) -> int:
                           lazy_degree=a.lazy_degree)
     t0 = time.time()
     arena = run_arena_campaign(cfg, scenarios=scenarios, ep=ep,
+                               trial_mesh=_trial_grid(p, a.trial_groups,
+                                                      device),
                                device=device)
     print(report_arena(arena), end="")
     if a.json:
@@ -1417,8 +1443,8 @@ def cmd_trace(argv: list[str]) -> int:
     return 0
 
 
-# the lint flags of the multi-GPU slice: set, each exits with an error
-# naming it (never silently ignored)
+# the lint flags of the peer mesh: set, each exits with an error naming
+# its slice (never silently ignored)
 _LATER_LINT_FLAGS = (
     ("sharding", "--sharding"), ("predict_rung", "--predict-rung"),
     ("rung_dcn", "--rung-dcn"), ("rung_scenario", "--rung-scenario"),
@@ -1464,8 +1490,10 @@ def cmd_lint(argv: list[str]) -> int:
     a = p.parse_args(argv)
     for attr, flag in _LATER_LINT_FLAGS:
         if getattr(a, attr) not in (None, False):
-            p.error(f"{flag} is not ported yet: it comes with the multi-GPU "
-                    "(A13) slice (ROADMAP A)")
+            from .parallel.sharding import PEER_MESH_SLICE
+
+            p.error(f"{flag} is not ported yet: it comes with "
+                    f"{PEER_MESH_SLICE} slice (ROADMAP A)")
     device = _resolve(p, a.device)
 
     from .analysis.ast_lint import lint_paths

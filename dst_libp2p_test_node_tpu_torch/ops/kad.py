@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from .. import prng
+from . import xlamath
 
 KEY_WORDS = 4                    # 128-bit keys; collisions ~ N^2 / 2^129
 KEY_BITS = 32 * KEY_WORDS
@@ -389,10 +390,6 @@ def evict_failed(state: KadState, origins: torch.Tensor,
     it runs), and evicts the entry once the count reaches `max_fails`; a
     successful dial resets both. Buckets are re-packed left. max_fails=1
     is the immediate eviction of the reference's default."""
-    if max_fails > 14:
-        # the reference's float32 exp2 is exp(x * ln 2), exact only up to
-        # 2^12; larger backoff exponents are not reproduced
-        raise ValueError("max_fails above 14 is not supported")
     origins = origins.long()
     found = found.long()
     dead = ~state.alive
@@ -412,9 +409,13 @@ def evict_failed(state: KadState, origins: torch.Tensor,
     fails = torch.where(fail_event, fails + 1, fails)
     fails = torch.where(is_good, 0, fails)
     evict = fail_event & (fails >= max_fails)
-    exp2 = torch.ldexp(torch.ones_like(retry), (fails - 1).clamp_min(0))
-    retry = torch.where(fail_event & ~evict, t + backoff_base_ms * exp2,
-                        retry)
+    # the reference's float32 exp2 is exp(x * ln 2), exact only up to
+    # 2^12, and its backoff multiply-add one FMA
+    exp2 = xlamath.exp2_f32((fails - 1).to(torch.float32))
+    base = torch.tensor(backoff_base_ms, dtype=torch.float32,
+                        device=exp2.device)
+    retry = torch.where(fail_event & ~evict,
+                        xlamath.fma_f32(base, exp2, t), retry)
     retry = torch.where(is_good, 0.0, retry)
     marked = torch.where(evict, -1, table)
     fails = torch.where(evict, 0, fails)

@@ -30,6 +30,27 @@ inputs and the edge values (tests/port/test_torch_loss.py). Zero, negative,
 infinite and NaN inputs take the IEEE results jnp.log gives them, and a
 subnormal input is read as zero, as XLA's CPU backend reads it.
 
+`exp_f32` is XLA-CPU's inlined float32 `exp` (the Cephes `expf`
+reduction), read off the LLVM IR and object code that
+`XLA_FLAGS=--xla_dump_to=DIR` writes for a jitted `jnp.exp2` / `jnp.exp`:
+
+    x  = min(max(x, -87.8), 88.8)       (NaN passes through)
+    n  = min(max(floor(x*log2(e) + 0.5), -127), 127)
+    r  = x - n*C1;  r = r - n*C2        (C1 = 0.693359375, C2 = -2.12194440e-4)
+    y  = r*p0 + p1;  y = y*r + p2;  y = y*r + p3;  y = y*r + p4;  y = y*r + 0.5
+    y  = y*(r*r) + r;  y = y + 1
+    exp = y * 2^n                       (2^n built from its exponent bits)
+
+All nine multiply-adds are FMAs (vfmadd / vfnmadd in the object code, in
+the scalar and the vectorized loop alike); `r*r`, `y + 1` and the final
+scale round on their own. A result below the smallest normal reads as
+zero, as XLA's CPU backend flushes it. `exp2_f32(x)` is
+`exp_f32(x * ln 2)`, the product rounded to float32 first: that is what
+`jnp.exp2` lowers to, so it is exact only up to 2^12 (2^13 gives
+8192.0039). Both are held against `jnp.exp` / `jnp.exp2` bit for bit on
+millions of seeded float32 inputs and the edge values
+(tests/port/test_torch_backoff_exp.py).
+
 `exp2_int` is 2**j for the integer-valued j the tcp model feeds it (0..7),
 where `jnp.exp2` is exact.
 """
@@ -94,6 +115,42 @@ def log_f32(x: torch.Tensor) -> torch.Tensor:
     out = torch.where(x < 0.0, float("nan"), out)
     out = torch.where(x == inf, inf, out)
     return torch.where(torch.isnan(x), x, out)
+
+
+# exp's constants, as XLA's CPU backend emits them (all exact float32)
+_LN2 = 0.6931471824645996
+_EXP_LO, _EXP_HI = -87.80000305175781, 88.80000305175781
+_LOG2E = 1.4426950216293335
+_C1, _C2 = 0.693359375, -0.00021219444170128554
+_EXP_P = (0.00019875691214110702, 0.001398199936375022, 0.008333452045917511,
+          0.04166579619050026, 0.1666666567325592, 0.5)
+
+
+def exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """e**x of a float32 tensor with XLA-CPU's bits (module doc)."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"exp_f32 takes float32, got {x.dtype}")
+    x = torch.minimum(torch.maximum(x, _f32(_EXP_LO, x)), _f32(_EXP_HI, x))
+    n = torch.floor(fma_f32(x, _f32(_LOG2E, x), _f32(0.5, x)))
+    n = torch.minimum(torch.maximum(n, _f32(-127.0, x)), _f32(127.0, x))
+    r = fma_f32(-n, _f32(_C1, x), x)
+    r = fma_f32(-n, _f32(_C2, x), r)
+    y = fma_f32(r, _f32(_EXP_P[0], x), _f32(_EXP_P[1], x))
+    for c in _EXP_P[2:]:
+        y = fma_f32(y, r, _f32(c, x))
+    y = fma_f32(y, r * r, r) + _f32(1.0, x)
+    scale = ((torch.nan_to_num(n, nan=0.0).to(torch.int32) + 127) << 23)
+    out = y * scale.view(torch.float32)
+    min_normal = torch.tensor(_MIN_NORMAL_BITS, dtype=torch.int32,
+                              device=x.device).view(torch.float32)
+    return torch.where(out < min_normal, _f32(0.0, x), out)
+
+
+def exp2_f32(x: torch.Tensor) -> torch.Tensor:
+    """2**x of a float32 tensor with XLA-CPU's bits: exp(x * ln 2)."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"exp2_f32 takes float32, got {x.dtype}")
+    return exp_f32(x * _f32(_LN2, x))
 
 
 def exp2_int(j: torch.Tensor) -> torch.Tensor:

@@ -46,13 +46,27 @@ scores who wins each objective.
 
 `conformance=True` attaches the small-N conformance certificate of the
 campaign's scenario (analysis/conformance.py, its sim side on the
-campaign's device) to the result. Peer meshes, trial meshes and the DCN
-engine, with the DCN rank files that carry rank 0's certificate, come
-with ROADMAP A13 and raise NotImplementedError naming their slice.
+campaign's device) to the result.
+
+`trial_mesh` (parallel/sharding.make_trial_mesh, or an open
+parallel/ranks.RankPool) deals an attacked fraction's seed column over
+the grid's trial groups, one rank process each: the column is split in
+contiguous blocks of ceil(T/G) trials (the reference's padded
+P("trials") split; the padded repeats of the last trial are dropped
+before they run), each rank runs its block through the same per-trial
+path on its own Simulator, and the trials come back in seed order.
+Benign cells, the seeds' latency baselines and the certificate stay in
+the caller, computed once. A one-group grid runs in the caller, as if
+there were none. `dcn` runs the campaign over a torch.distributed
+world (one process per host, each on its own grid) and merges the
+ranks' files into one result (the reference's DCN engine). The peer
+mesh (`mesh`, and grids wider than one device per group) is a later
+slice and raises NotImplementedError naming it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -84,17 +98,13 @@ from ..ops.repair import (
     run_dht_recovery_heartbeats,
 )
 from ..ops.telemetry import TelemetryParams
+from ..parallel.ranks import RankPool
+from ..parallel.sharding import check_trial_grid, peer_mesh_later
 from .simulator import ExperimentConfig, MessageRecord, Simulator
 from .summarize import sanitize_nonfinite
 from .supervise import _call_with_timeout, _FailureInjector
 
 GRAYLIST_ENGAGED_FRAC = 0.95
-
-
-def _later(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with the {slice_name} slice "
-        "(ROADMAP A)")
 
 
 def attack_gossipsub(**overrides) -> GossipSubParams:
@@ -802,16 +812,97 @@ def _attacked_trials(sim: Simulator, cfg: CampaignConfig, fraction: float,
     return out
 
 
+# ----------------------------------------------------------------- trial grid
+
+
+@contextlib.contextmanager
+def _grid_pool(trial_mesh):
+    """The RankPool behind `trial_mesh`: the caller's own when it passes
+    one (left open), else one opened over the grid for the call (its
+    ranks start at the first grid cell) and closed after; None without a
+    grid."""
+    if trial_mesh is None or isinstance(trial_mesh, RankPool):
+        yield trial_mesh
+        return
+    grid = check_trial_grid(trial_mesh)
+    devices = grid.group_devices
+    cpu_ranks = sum(d.type == "cpu" for d in devices)
+    threads = (max(1, (os.cpu_count() or 1) // cpu_ranks) if cpu_ranks
+               else None)
+    with RankPool(devices, threads=threads) as pool:
+        yield pool
+
+
+def _deal(items: list, groups: int) -> list[list]:
+    """Contiguous blocks of ceil(T/G) items per group, the reference's
+    split of a column padded to a multiple of G by repeating its last
+    item, with the padded repeats dropped (a group may get none)."""
+    local = -(-len(items) // groups)
+    return [list(items[g * local:(g + 1) * local]) for g in range(groups)]
+
+
+def _rank_attacked_trials(payload, device):
+    """One rank's block of an attacked cell on its own Simulator:
+    (trials, phase walls)."""
+    cfg, fraction, seeds, cache, budget = payload
+    sim = Simulator(cfg.experiment, device=device)
+    walls: list = []
+    trials = _attacked_trials(sim, cfg, fraction, seeds, dict(cache), budget,
+                              walls)
+    return trials, walls
+
+
+def _grid_attacked_trials(sim: Simulator, cfg: CampaignConfig,
+                          fraction: float, seeds: list[int], cache: dict,
+                          budget: float, walls: list, pool: RankPool,
+                          deadline_s: float | None) -> list[TrialResult]:
+    """An attacked cell dealt over the grid's ranks; the seeds' baselines
+    are computed here first, once."""
+    for s in seeds:
+        _ensure_baseline(sim, cache, s)
+    blocks = _deal(seeds, pool.size)
+    outs = pool.run(_rank_attacked_trials, [
+        (cfg, fraction, b, {s: cache[s] for s in b}, budget) if b else None
+        for b in blocks], deadline_s=deadline_s)
+    trials: list[TrialResult] = []
+    for out in outs:
+        if out is not None:
+            trials.extend(out[0])
+            walls.extend(out[1])
+    return trials
+
+
 def run_campaign(cfg: CampaignConfig, mesh=None, trial_mesh=None, dcn=None,
                  device=None) -> CampaignResult:
     """Execute the sweep: every (fraction, seed) cell, on `device` (CUDA
-    unless the caller passes another). `mesh`, `trial_mesh` and `dcn`
-    (several devices) raise: they come with ROADMAP A13."""
-    for name, v in (("mesh", mesh), ("trial_mesh", trial_mesh),
-                    ("dcn", dcn)):
-        if v is not None:
-            raise _later(f"run_campaign({name}=)", "multi-GPU (A13)")
+    unless the caller passes another).
+
+    `trial_mesh`: a make_trial_mesh grid (or an open RankPool): an
+    attacked fraction's seed column (with cfg.vmap_trials and more than
+    one seed) is dealt over its rank processes (module doc). `dcn`: a
+    make_dcn_mesh grid (or True for the default one) over a
+    torch.distributed world; every process calls this on its seed slice
+    and all return the merged result (_run_campaign_dcn). `mesh` (the
+    peer mesh) raises NotImplementedError naming its slice."""
+    if dcn is not None:
+        if mesh is not None or trial_mesh is not None:
+            raise ValueError(
+                "dcn owns the full dcn x trials x peers grid; "
+                "drop mesh/trial_mesh")
+        return _run_campaign_dcn(cfg, dcn, device)
+    if mesh is not None and trial_mesh is not None:
+        raise ValueError(
+            "pass either mesh (peer-axis sharding) or trial_mesh "
+            "(trial-axis sharding), not both")
+    if mesh is not None:
+        raise peer_mesh_later("run_campaign(mesh=)")
     cfg.validate()
+    with _grid_pool(trial_mesh) as pool:
+        return _run_campaign(cfg, pool, device)
+
+
+def _run_campaign(cfg: CampaignConfig, pool: RankPool | None,
+                  device) -> CampaignResult:
     adv = cfg.adversary_params()
     t0 = time.time()
     sim = Simulator(cfg.experiment, device=device)
@@ -841,10 +932,20 @@ def run_campaign(cfg: CampaignConfig, mesh=None, trial_mesh=None, dcn=None,
         if epoch is not None:
             sim.rebind_graph(epoch["conns"], epoch["rev"], epoch["out_mask"])
 
+    def _on_grid(f: float, ss: list[int]) -> bool:
+        return (f > 0.0 and pool is not None and pool.size > 1
+                and cfg.vmap_trials and len(ss) > 1)
+
     def _cell(f: float, ss: list[int]) -> list[TrialResult]:
         if f == 0.0:
             return [_benign_trial(sim, cfg, s, cache, budget, walls)
                     for s in ss]
+        if _on_grid(f, ss):
+            # the trial timeout is the ranks' deadline: a watchdog thread
+            # would abandon a job the ranks are still running
+            return _grid_attacked_trials(
+                sim, cfg, f, ss, cache, budget, walls, pool,
+                sup.trial_timeout_s or None)
         if cfg.vmap_trials and len(ss) > 1:
             return _attacked_trials(sim, cfg, f, ss, cache, budget, walls)
         res: list[TrialResult] = []
@@ -862,8 +963,10 @@ def run_campaign(cfg: CampaignConfig, mesh=None, trial_mesh=None, dcn=None,
 
     for f in cfg.fractions:
         seeds = list(cfg.seeds)
+        cell_sup = (replace(sup, trial_timeout_s=0.0) if _on_grid(f, seeds)
+                    else sup)
         res, used, err = _supervise(
-            sup, injector, lambda f=f, ss=seeds: _cell(f, ss), _on_fail,
+            cell_sup, injector, lambda f=f, ss=seeds: _cell(f, ss), _on_fail,
             device=sim.device)
         retries_total += used
         if res is not None:
@@ -896,6 +999,177 @@ def run_campaign(cfg: CampaignConfig, mesh=None, trial_mesh=None, dcn=None,
         conformance=conformance,
         phase_walls=walls,
     )
+
+
+# ----------------------------------------------------------------- DCN engine
+
+
+DCN_RANK_FORMAT = 1
+DCN_MERGED_BASENAME = "dcn_merged.json"
+# how long one rank waits for its siblings' result files before declaring
+# the group dead
+_DCN_MERGE_TIMEOUT_S = float(os.environ.get("DCN_MERGE_TIMEOUT_S", "3600"))
+
+
+def _dcn_rank_path(cfg: CampaignConfig, rank: int) -> str:
+    return os.path.join(cfg.checkpoint_dir, f"dcn_rank{rank}.trials.json")
+
+
+def merge_dcn_rank_results(cfg: CampaignConfig, payloads: list[dict],
+                           wall_s: float | None = None) -> CampaignResult:
+    """Fold per-rank DCN payloads into one CampaignResult, trials in the
+    single-process order (cfg.fractions, then cfg.seeds). The rank set
+    must be contiguous from 0 and every seed of cfg.seeds claimed by
+    exactly one rank: a stale or overlapping rank file would double- or
+    drop-count trials."""
+    ranks = sorted(int(p["rank"]) for p in payloads)
+    if ranks != list(range(len(payloads))):
+        raise ValueError(f"rank set {ranks} is not contiguous from 0")
+    by_rank = {int(p["rank"]): p for p in payloads}
+    claimed: dict[int, int] = {}
+    for p in payloads:
+        for s in p["seeds"]:
+            if int(s) in claimed:
+                raise ValueError(
+                    f"seed {s} claimed by ranks {claimed[int(s)]} "
+                    f"and {p['rank']} — stale or overlapping rank files")
+            claimed[int(s)] = int(p["rank"])
+    missing = [int(s) for s in cfg.seeds if int(s) not in claimed]
+    if missing:
+        raise ValueError(f"seeds {missing} claimed by no rank")
+    by_cell: dict[tuple[float, int], dict] = {}
+    for p in payloads:
+        for t in p["trials"]:
+            by_cell[(float(t["fraction"]), int(t["seed"]))] = t
+    trials = [TrialResult(**by_cell[(float(f), int(s))])
+              for f in cfg.fractions for s in cfg.seeds
+              if (float(f), int(s)) in by_cell]
+    r0 = by_rank[0]
+    hb = r0["hb_budget"]
+    return CampaignResult(
+        scenario=r0["scenario"],
+        network_size=int(r0["network_size"]),
+        trials=trials,
+        # the writer nulled an infinite budget; restore it
+        hb_budget=math.inf if hb is None else float(hb),
+        wall_s=float(wall_s) if wall_s is not None
+        else max(float(p["wall_s"]) for p in payloads),
+        degraded=any(p["degraded"] for p in payloads),
+        quarantined_trials=[q for p in payloads
+                            for q in p["quarantined_trials"]],
+        retries_total=sum(int(p["retries_total"]) for p in payloads),
+        conformance=r0.get("conformance"),
+    )
+
+
+def _run_campaign_dcn(cfg: CampaignConfig, dcn_mesh,
+                      device) -> CampaignResult:
+    """One process's share of a multi-process campaign: the seed column
+    round-robin (seeds[rank::nproc]) through run_campaign on this
+    process's trial grid (supervision, checkpoints and quarantine stay
+    process-local), its result written as a strict-JSON rank file, then
+    one dcn_allreduce of the counts and the wall, which is also the
+    barrier before every rank reads every file. All ranks return the
+    merged result; rank 0 also writes it beside the rank files. The
+    conformance certificate runs on rank 0 only and rides its file.
+    Needs cfg.checkpoint_dir on a file system every process sees."""
+    from ..parallel.sharding import (
+        DCN_AXIS, dcn_allreduce, local_trial_submesh, make_dcn_mesh,
+        process_count, process_index)
+
+    if dcn_mesh is True:
+        dcn_mesh = make_dcn_mesh()
+    if DCN_AXIS not in getattr(dcn_mesh, "axis_names", ()):
+        raise ValueError(
+            "dcn expects a 3-level make_dcn_mesh grid (leading 'dcn' axis)")
+    if not cfg.checkpoint_dir:
+        raise ValueError(
+            "DCN campaigns need cfg.checkpoint_dir: the rank-0 merge rides "
+            "per-process rank files (and trial resume is the whole point "
+            "of process-local supervision)")
+    nproc = int(dcn_mesh.shape[DCN_AXIS])
+    if nproc != process_count():
+        raise ValueError(
+            f"dcn axis size {nproc} != process_count {process_count()} "
+            "— one DCN block per process is the placement contract")
+    rank = process_index()
+    if len(cfg.seeds) < nproc:
+        raise ValueError(
+            f"{len(cfg.seeds)} seeds over {nproc} processes leaves a rank "
+            "idle; give every process at least one seed")
+    os.makedirs(cfg.checkpoint_dir, exist_ok=True)
+    # start fence: each rank clears its own stale file, then all meet
+    try:
+        os.remove(_dcn_rank_path(cfg, rank))
+    except FileNotFoundError:
+        pass
+    dcn_allreduce(np.zeros(1, dtype=np.float32), op="sum")
+    t0 = time.time()
+    local_seeds = tuple(cfg.seeds)[rank::nproc]
+    local_cfg = replace(cfg, seeds=local_seeds,
+                        conformance=cfg.conformance and rank == 0)
+    local = run_campaign(local_cfg, trial_mesh=local_trial_submesh(dcn_mesh),
+                         device=device)
+    payload = {
+        "format_version": DCN_RANK_FORMAT,
+        "rank": int(rank),
+        "nproc": int(nproc),
+        "seeds": [int(s) for s in local_seeds],
+        "scenario": local.scenario,
+        "network_size": int(local.network_size),
+        "hb_budget": local.hb_budget,
+        "wall_s": local.wall_s,
+        "degraded": bool(local.degraded),
+        "retries_total": int(local.retries_total),
+        "quarantined_trials": list(local.quarantined_trials),
+        "conformance": local.conformance,
+        "trials": [t.to_dict() for t in local.trials],
+    }
+    path = _dcn_rank_path(cfg, rank)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump(sanitize_nonfinite(payload), f, allow_nan=False,
+                  sort_keys=True)
+    os.replace(tmp, path)
+    # poll for every sibling's file before the collective (a gloo
+    # all-reduce spin-waits on stragglers); the start fence removed every
+    # stale file, so existence is completion
+    deadline = time.time() + _DCN_MERGE_TIMEOUT_S
+    while not all(os.path.exists(_dcn_rank_path(cfg, r))
+                  for r in range(nproc)):
+        if time.time() > deadline:
+            missing = [r for r in range(nproc)
+                       if not os.path.exists(_dcn_rank_path(cfg, r))]
+            raise RuntimeError(
+                f"rank {rank}: ranks {missing} produced no result within "
+                f"{_DCN_MERGE_TIMEOUT_S:.0f}s — sibling process dead?")
+        time.sleep(0.05)
+    agg = dcn_allreduce(
+        np.array([len(local.trials), local.retries_total], dtype=np.float32),
+        op="sum")
+    wall = float(dcn_allreduce(
+        np.array([time.time() - t0], dtype=np.float32), op="max")[0])
+    payloads = []
+    for r in range(nproc):
+        with open(_dcn_rank_path(cfg, r)) as f:
+            payloads.append(json.load(f))
+    merged = merge_dcn_rank_results(cfg, payloads, wall_s=wall)
+    # the file merge against the collective's counts: a mismatch means a
+    # rank file of another run leaked in
+    if (len(merged.trials), merged.retries_total) != (int(agg[0]),
+                                                      int(agg[1])):
+        raise RuntimeError(
+            f"merge saw {len(merged.trials)} trials / "
+            f"{merged.retries_total} retries but the DCN all-reduce "
+            f"counted {int(agg[0])} / {int(agg[1])} — stale rank files?")
+    if rank == 0:
+        out = os.path.join(cfg.checkpoint_dir, DCN_MERGED_BASENAME)
+        tmp = f"{out}.tmp.{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump(merged.to_dict(), f, allow_nan=False, sort_keys=True,
+                      indent=2)
+        os.replace(tmp, out)
+    return merged
 
 
 def _campaign_conformance(cfg: CampaignConfig, adv: AdversaryParams,
@@ -976,9 +1250,8 @@ def run_defense_sweep(cfg: CampaignConfig,
     recovery_time_ms (unrecovered trials charged the whole window).
     Returns the reference's strict-JSON artifact: the rows, the Pareto
     front, the default's index and the points that dominate it.
-    `trial_mesh` raises: it comes with ROADMAP A13."""
-    if trial_mesh is not None:
-        raise _later("run_defense_sweep(trial_mesh=)", "multi-GPU (A13)")
+    `trial_mesh`: every point's campaign deals its attacked cells over
+    this grid (one set of rank processes serves the whole sweep)."""
     adv = cfg.adversary_params()
     if not adv.adaptive.enabled:
         raise ValueError(
@@ -1000,32 +1273,33 @@ def run_defense_sweep(cfg: CampaignConfig,
     default_index = points.index(default_knobs)
     t0 = time.time()
     rows = []
-    for dl, d, dh, w in points:
-        gs = replace(base_gs, d_low=dl, d=d, d_high=dh,
-                     slow_peer_penalty_weight=w,
-                     d_score=None, d_out=None, d_lazy=None)
-        # per-point checkpoints would collide on the same trial keys
-        cfg_p = replace(cfg, experiment=replace(cfg.experiment,
-                                                gossipsub=gs),
-                        checkpoint_dir=None)
-        res = run_campaign(cfg_p, device=device)
-        atk = [t for t in res.trials if t.fraction > 0.0]
-        cap_ms = float((cfg.recovery_heartbeats + 1) * gs.heartbeat_ms)
-        rec = [t.recovery_time_ms if t.recovery_time_ms >= 0.0 else cap_ms
-               for t in atk]
-        rows.append({
-            "d_low": dl, "d": d, "d_high": dh,
-            "slow_peer_penalty_weight": w,
-            "is_default": (dl, d, dh, w) == default_knobs,
-            "coverage": float(np.mean([t.honest_coverage for t in atk])),
-            "bandwidth_bytes": float(np.mean(
-                [t.bytes_tx_total for t in atk])),
-            "recovery_time_ms": float(np.mean(rec)),
-            "recovered_frac": float(np.mean(
-                [t.recovery_time_ms >= 0.0 for t in atk])),
-            "trials": len(atk),
-            "degraded": res.degraded,
-        })
+    with _grid_pool(trial_mesh) as pool:
+        for dl, d, dh, w in points:
+            gs = replace(base_gs, d_low=dl, d=d, d_high=dh,
+                         slow_peer_penalty_weight=w,
+                         d_score=None, d_out=None, d_lazy=None)
+            # per-point checkpoints would collide on the same trial keys
+            cfg_p = replace(cfg, experiment=replace(cfg.experiment,
+                                                    gossipsub=gs),
+                            checkpoint_dir=None)
+            res = run_campaign(cfg_p, trial_mesh=pool, device=device)
+            atk = [t for t in res.trials if t.fraction > 0.0]
+            cap_ms = float((cfg.recovery_heartbeats + 1) * gs.heartbeat_ms)
+            rec = [t.recovery_time_ms if t.recovery_time_ms >= 0.0
+                   else cap_ms for t in atk]
+            rows.append({
+                "d_low": dl, "d": d, "d_high": dh,
+                "slow_peer_penalty_weight": w,
+                "is_default": (dl, d, dh, w) == default_knobs,
+                "coverage": float(np.mean([t.honest_coverage for t in atk])),
+                "bandwidth_bytes": float(np.mean(
+                    [t.bytes_tx_total for t in atk])),
+                "recovery_time_ms": float(np.mean(rec)),
+                "recovered_frac": float(np.mean(
+                    [t.recovery_time_ms >= 0.0 for t in atk])),
+                "trials": len(atk),
+                "degraded": res.degraded,
+            })
     dirs = tuple(DEFENSE_OBJECTIVES.values())
     vals = np.array([[r[k] for k in DEFENSE_OBJECTIVES] for r in rows])
     front = pareto_front(vals, dirs)
@@ -1163,6 +1437,154 @@ def _arena_obs_extras(spec_observables, obs_j) -> dict:
     return out
 
 
+def _arena_rows(sim: Simulator, cfg: CampaignConfig, sc: str,
+                seeds: list[int], fraction: float, ep, tel):
+    """One scenario's arena cells for `seeds` on `sim`: (GossipSub rows,
+    episub rows, {seed: cohort sha}), each row list in seed order."""
+    from ..ops.episub import init_episub_ctrl, run_episub_heartbeats
+    from ..ops.protocol import get_protocol
+
+    adv0 = cfg.adversary_params()
+    protos = ("gossipsub", "episub")
+    gspec, espec = get_protocol(protos[0]), get_protocol(protos[1])
+    dev = sim.device
+    n = sim.params.n
+    hb_ms = sim.params.heartbeat_ms
+    pub = cfg.experiment.publisher_id % n
+    conns_np = np.asarray(sim.graph.conns)
+    warm_steps = int(cfg.experiment.warmup_s * 1000.0 // hb_ms)
+    steps = cfg.attack_heartbeats
+    cap_ms = float((steps + 1) * hb_ms)
+    faulted = cfg.faults.enabled
+    a = sim.arrays
+    benign = sc == "benign"
+    adv = (adv0 if benign or sc == cfg.scenario
+           else replace(adv0, scenario=sc))
+    cohorts, shas = {}, {}
+    for s in seeds:
+        att = (np.zeros(n, dtype=bool) if benign else attacker_cohort(
+            n, fraction, seed=s, conns=conns_np, publisher=pub,
+            eclipse=adv.eclipse))
+        cohorts[s] = (att, torch.as_tensor(att, device=dev))
+        shas[str(s)] = _cohort_sha(att)
+    fmasks = None
+    if faulted and not benign:
+        fmasks = {s: {k: torch.as_tensor(v, device=dev)
+                      for k, v in fault_masks(n, cfg.faults, seed=s,
+                                              publisher=pub).items()}
+                  for s in seeds}
+
+    def _finish(s, obs_j, spec_obs, records):
+        att, _ = cohorts[s]
+        cov, p50, p99 = _delivery_metrics(records, ~att)
+        rec_ms = (0.0 if obs_j is None else _arena_recovery_ms(
+            obs_j, cfg.mesh_recovery_share, hb_ms, cap_ms))
+        return {
+            "seed": s, "attackers": int(att.sum()),
+            "coverage": cov,
+            "bandwidth_bytes": float(_host(sim.state.bytes_tx).sum()),
+            "latency_p50_ms": p50, "latency_p99_ms": p99,
+            "recovery_time_ms": rec_ms,
+            "cohort_sha256": shas[str(s)],
+            **_arena_obs_extras(spec_obs, obs_j),
+        }
+
+    def _part_ctx(s):
+        # a partition still open folds into the publish masks, anchored
+        # as in _attacked_trials
+        if not (faulted and not benign and cfg.faults.partition):
+            return None, None
+        t_win0 = float(sim.state.t_ms) - steps * hb_ms
+        pws, pwe = cfg.faults.partition_window
+        part_ms = (t_win0 + pws * hb_ms, t_win0 + pwe * hb_ms)
+        return partition_edge_mask(fmasks[s]["side"],
+                                   a["conns"]), part_ms
+
+    def _censor(s):
+        return None if benign else censor_mask(cohorts[s][1], a["conns"])
+
+    # ---- GossipSub: the registry's runners
+    g_out, g_obs = [], []
+    for s in seeds:
+        _reset_trial(sim, s)
+        sim.warmup()
+        if not benign and adv.eclipse:
+            sim.state = eclipse_setup(sim.state, a["conns"],
+                                      cohorts[s][1], pub)
+        if benign:
+            g_out.append(gspec.run_heartbeats(
+                sim.state, a["conns"], a["rev"], a["out_mask"],
+                sim.params, steps))
+            g_obs.append(None)
+        else:
+            st, obs, _ = _attack_window(
+                sim, cfg, adv, cohorts[s][1],
+                fmasks[s] if fmasks else None, steps, tel)
+            g_out.append(st)
+            g_obs.append(_obs_to_host(obs))
+    g_rows = []
+    for j, s in enumerate(seeds):
+        _reset_trial(sim, s)
+        sim.state = g_out[j]
+        cross, part_ms = _part_ctx(s)
+        records = _publish_schedule(
+            sim, censor=_censor(s),
+            attacker=None if benign else cohorts[s][1],
+            adv=None if benign else adv, cross=cross,
+            partition_ms=part_ms)
+        g_rows.append({"scenario": sc, "protocol": protos[0],
+                       **_finish(s, g_obs[j], gspec.observables, records)})
+
+    # ---- episub: the same cells, cohorts and fault masks
+    e_states, e_ctrls = [], []
+    for s in seeds:
+        _reset_trial(sim, s)
+        ctrl = init_episub_ctrl(n, dev)
+        if warm_steps > 0:
+            sim.state, ctrl = run_episub_heartbeats(
+                sim.state, ctrl, a["conns"], a["rev"], a["out_mask"],
+                sim.params, ep, warm_steps)
+        if not benign and adv.eclipse:
+            sim.state = eclipse_setup(sim.state, a["conns"],
+                                      cohorts[s][1], pub)
+        e_states.append(sim.state)
+        e_ctrls.append(ctrl)
+    if benign:
+        e_out, e_cout, e_obs = [], [], [None] * len(seeds)
+        for st, ct in zip(e_states, e_ctrls):
+            st2, ct2 = run_episub_heartbeats(
+                st, ct, a["conns"], a["rev"], a["out_mask"], sim.params,
+                ep, steps)
+            e_out.append(st2)
+            e_cout.append(ct2)
+    else:
+        e_out, e_cout, e_obs = _episub_windows(
+            sim, ep, [cohorts[s][1] for s in seeds], e_states, e_ctrls,
+            adv, steps, faults=cfg.faults if faulted else None,
+            fmasks=[fmasks[s] for s in seeds] if faulted else None,
+            telemetry=tel)
+    e_rows = []
+    for j, s in enumerate(seeds):
+        _reset_trial(sim, s)
+        sim.state = e_out[j]
+        cross, part_ms = _part_ctx(s)
+        records, _ = _episub_publish(
+            sim, e_cout[j], ep, censor=_censor(s),
+            attacker=None if benign else cohorts[s][1],
+            adv=None if benign else adv, cross=cross,
+            partition_ms=part_ms)
+        e_rows.append({"scenario": sc, "protocol": protos[1],
+                       **_finish(s, e_obs[j], espec.observables, records)})
+    return g_rows, e_rows, shas
+
+
+def _rank_arena_rows(payload, device):
+    """One rank's block of an arena scenario on its own Simulator."""
+    cfg, sc, seeds, fraction, ep, tel = payload
+    sim = Simulator(cfg.experiment, device=device)
+    return _arena_rows(sim, cfg, sc, seeds, fraction, ep, tel)
+
+
 def run_arena_campaign(cfg: CampaignConfig, scenarios=None, ep=None,
                        trial_mesh=None, device=None) -> dict:
     """The protocol arena, on `device` (CUDA unless the caller passes
@@ -1177,16 +1599,15 @@ def run_arena_campaign(cfg: CampaignConfig, scenarios=None, ep=None,
     with episub heartbeats. "benign" is the reserved no-attacker row; an
     attack scenario needs the adaptive attacker armed. No repair and no
     recovery window: recovery_time_ms is read off the attack window's
-    attacker_mesh_share curve. Returns the reference's strict-JSON dict:
-    per-trial rows, per-(scenario, protocol) rows, the win matrix and the
-    identity block. `trial_mesh` raises: it comes with ROADMAP A13."""
-    from ..ops.episub import (EpisubParams, init_episub_ctrl,
-                              run_episub_heartbeats)
-    from ..ops.protocol import get_protocol
+    attacker_mesh_share curve. `trial_mesh`: an attack scenario's seeds
+    (more than one) are dealt over the grid's rank processes, each
+    running its block's cells of both protocols; the benign row stays in
+    the caller, as in the reference. Returns the reference's strict-JSON
+    dict: per-trial rows, per-(scenario, protocol) rows, the win matrix
+    and the identity block."""
+    from ..ops.episub import EpisubParams
     from .checkpoint import _graph_hash
 
-    if trial_mesh is not None:
-        raise _later("run_arena_campaign(trial_mesh=)", "multi-GPU (A13)")
     cfg.validate()
     adv0 = cfg.adversary_params()
     if cfg.experiment.gossipsub.flood_publish:
@@ -1208,146 +1629,35 @@ def run_arena_campaign(cfg: CampaignConfig, scenarios=None, ep=None,
             "arena attack scenarios require cfg.adversary.adaptive armed: "
             "the adaptive attacker is the referee both protocols face")
     protos = ("gossipsub", "episub")
-    gspec, espec = get_protocol(protos[0]), get_protocol(protos[1])
     sim = Simulator(cfg.experiment, device=device)
-    dev = sim.device
     n = sim.params.n
-    hb_ms = sim.params.heartbeat_ms
     pub = cfg.experiment.publisher_id % n
-    conns_np = np.asarray(sim.graph.conns)
-    warm_steps = int(cfg.experiment.warmup_s * 1000.0 // hb_ms)
     steps = cfg.attack_heartbeats
-    cap_ms = float((steps + 1) * hb_ms)
     if ep is None:
         # the tree roots at the publisher, the way the traffic flows
         ep = EpisubParams(root=pub)
     tel = cfg.telemetry if cfg.telemetry.enabled else None
     seeds = list(cfg.seeds)
-    faulted = cfg.faults.enabled
     t0 = time.time()
     trials: list[dict] = []
     cohort_shas: dict = {}
-    a = sim.arrays
 
-    for sc in scenarios:
-        benign = sc == "benign"
-        adv = (adv0 if benign or sc == cfg.scenario
-               else replace(adv0, scenario=sc))
-        cohorts = {}
-        for s in seeds:
-            att = (np.zeros(n, dtype=bool) if benign else attacker_cohort(
-                n, fraction, seed=s, conns=conns_np, publisher=pub,
-                eclipse=adv.eclipse))
-            cohorts[s] = (att, torch.as_tensor(att, device=dev))
-            cohort_shas.setdefault(sc, {})[str(s)] = _cohort_sha(att)
-        fmasks = None
-        if faulted and not benign:
-            fmasks = {s: {k: torch.as_tensor(v, device=dev)
-                          for k, v in fault_masks(n, cfg.faults, seed=s,
-                                                  publisher=pub).items()}
-                      for s in seeds}
-
-        def _finish(s, obs_j, spec_obs, records):
-            att, _ = cohorts[s]
-            cov, p50, p99 = _delivery_metrics(records, ~att)
-            rec_ms = (0.0 if obs_j is None else _arena_recovery_ms(
-                obs_j, cfg.mesh_recovery_share, hb_ms, cap_ms))
-            return {
-                "seed": s, "attackers": int(att.sum()),
-                "coverage": cov,
-                "bandwidth_bytes": float(_host(sim.state.bytes_tx).sum()),
-                "latency_p50_ms": p50, "latency_p99_ms": p99,
-                "recovery_time_ms": rec_ms,
-                "cohort_sha256": cohort_shas[sc][str(s)],
-                **_arena_obs_extras(spec_obs, obs_j),
-            }
-
-        def _part_ctx(s):
-            # a partition still open folds into the publish masks, anchored
-            # as in _attacked_trials
-            if not (faulted and not benign and cfg.faults.partition):
-                return None, None
-            t_win0 = float(sim.state.t_ms) - steps * hb_ms
-            pws, pwe = cfg.faults.partition_window
-            part_ms = (t_win0 + pws * hb_ms, t_win0 + pwe * hb_ms)
-            return partition_edge_mask(fmasks[s]["side"],
-                                       a["conns"]), part_ms
-
-        def _censor(s):
-            return None if benign else censor_mask(cohorts[s][1], a["conns"])
-
-        # ---- GossipSub: the registry's runners
-        g_out, g_obs = [], []
-        for s in seeds:
-            _reset_trial(sim, s)
-            sim.warmup()
-            if not benign and adv.eclipse:
-                sim.state = eclipse_setup(sim.state, a["conns"],
-                                          cohorts[s][1], pub)
-            if benign:
-                g_out.append(gspec.run_heartbeats(
-                    sim.state, a["conns"], a["rev"], a["out_mask"],
-                    sim.params, steps))
-                g_obs.append(None)
+    with _grid_pool(trial_mesh) as pool:
+        for sc in scenarios:
+            if (sc != "benign" and pool is not None and pool.size > 1
+                    and len(seeds) > 1):
+                blocks = _deal(seeds, pool.size)
+                outs = [o for o in pool.run(_rank_arena_rows, [
+                    (cfg, sc, b, fraction, ep, tel) if b else None
+                    for b in blocks]) if o is not None]
+                g_rows = [r for o in outs for r in o[0]]
+                e_rows = [r for o in outs for r in o[1]]
+                shas = {k: v for o in outs for k, v in o[2].items()}
             else:
-                st, obs, _ = _attack_window(
-                    sim, cfg, adv, cohorts[s][1],
-                    fmasks[s] if fmasks else None, steps, tel)
-                g_out.append(st)
-                g_obs.append(_obs_to_host(obs))
-        for j, s in enumerate(seeds):
-            _reset_trial(sim, s)
-            sim.state = g_out[j]
-            cross, part_ms = _part_ctx(s)
-            records = _publish_schedule(
-                sim, censor=_censor(s),
-                attacker=None if benign else cohorts[s][1],
-                adv=None if benign else adv, cross=cross,
-                partition_ms=part_ms)
-            trials.append({"scenario": sc, "protocol": protos[0],
-                           **_finish(s, g_obs[j], gspec.observables,
-                                     records)})
-
-        # ---- episub: the same cells, cohorts and fault masks
-        e_states, e_ctrls = [], []
-        for s in seeds:
-            _reset_trial(sim, s)
-            ctrl = init_episub_ctrl(n, dev)
-            if warm_steps > 0:
-                sim.state, ctrl = run_episub_heartbeats(
-                    sim.state, ctrl, a["conns"], a["rev"], a["out_mask"],
-                    sim.params, ep, warm_steps)
-            if not benign and adv.eclipse:
-                sim.state = eclipse_setup(sim.state, a["conns"],
-                                          cohorts[s][1], pub)
-            e_states.append(sim.state)
-            e_ctrls.append(ctrl)
-        if benign:
-            e_out, e_cout, e_obs = [], [], [None] * len(seeds)
-            for st, ct in zip(e_states, e_ctrls):
-                st2, ct2 = run_episub_heartbeats(
-                    st, ct, a["conns"], a["rev"], a["out_mask"], sim.params,
-                    ep, steps)
-                e_out.append(st2)
-                e_cout.append(ct2)
-        else:
-            e_out, e_cout, e_obs = _episub_windows(
-                sim, ep, [cohorts[s][1] for s in seeds], e_states, e_ctrls,
-                adv, steps, faults=cfg.faults if faulted else None,
-                fmasks=[fmasks[s] for s in seeds] if faulted else None,
-                telemetry=tel)
-        for j, s in enumerate(seeds):
-            _reset_trial(sim, s)
-            sim.state = e_out[j]
-            cross, part_ms = _part_ctx(s)
-            records, _ = _episub_publish(
-                sim, e_cout[j], ep, censor=_censor(s),
-                attacker=None if benign else cohorts[s][1],
-                adv=None if benign else adv, cross=cross,
-                partition_ms=part_ms)
-            trials.append({"scenario": sc, "protocol": protos[1],
-                           **_finish(s, e_obs[j], espec.observables,
-                                     records)})
+                g_rows, e_rows, shas = _arena_rows(sim, cfg, sc, seeds,
+                                                   fraction, ep, tel)
+            cohort_shas[sc] = shas
+            trials.extend(g_rows + e_rows)
 
     # ---- aggregates and the win matrix
     rows = []

@@ -25,8 +25,8 @@ counters, `answer_wait_max_ms` 0.0). The format carries no record's
 `converged` or `refine_passes`: a restored record has the defaults (True,
 0). `save_checkpoint(kad_state=)` adds a KadState's leaves as kad/*
 (written for offline audit; loading ignores them, as the reference's
-loader does). Snapshots of a sharded run (`mesh=`, ROADMAP A13) belong to
-a later slice and raise.
+loader does). Snapshots of a peer-sharded run (`mesh=`) belong to the
+peer mesh (ROADMAP A13, second half) and raise.
 """
 
 from __future__ import annotations
@@ -54,7 +54,7 @@ def _refuse(mesh=None) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "checkpoints of a sharded run are not ported yet: they come "
-            "with the multi-GPU slice (ROADMAP A13)")
+            "with the peer mesh (A13, second half) slice (ROADMAP A)")
 
 
 def _graph_hash(graph) -> str:

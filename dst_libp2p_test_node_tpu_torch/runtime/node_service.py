@@ -844,7 +844,8 @@ class NodeService:
         runtime/checkpoint.py) and re-admit the pending queue, counters,
         and fairness cursor from the sidecar. Replayed requests then
         produce results identical to an uninterrupted run. A peer-sharded
-        `mesh` comes with the multi-GPU slice (ROADMAP A13) and raises."""
+        `mesh` comes with the peer mesh (ROADMAP A13, second half) and
+        raises."""
         from .checkpoint import load_checkpoint, load_service_meta
 
         sim = load_checkpoint(path, mesh=mesh, device=device)

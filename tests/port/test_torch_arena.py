@@ -10,10 +10,9 @@
   - the pairing: one graph, and per (scenario, seed) cell the same cohort
     sha on both protocols' rows; the probe's gate (benign coverage >=
     0.95 for both, episub's benign bandwidth below GossipSub's);
-  - the three refusals and trial_mesh naming its slice;
-  - the `arena` command: the reference's scenario refusals,
-    --trial-groups naming its slice, --json strict and equal to an
-    in-process run."""
+  - the three refusals, and a trial_mesh that is no grid;
+  - the `arena` command: the reference's scenario refusals, --json
+    strict and equal to an in-process run."""
 
 import json
 
@@ -121,19 +120,19 @@ def test_refusals():
         with pytest.raises(ValueError) as je:
             jc.run_arena_campaign(_cfg(True, **kw))
         assert str(te.value) == str(je.value)
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(TypeError, match="make_trial_mesh"):
         tc.run_arena_campaign(_cfg(False), trial_mesh=object(),
                               device="cpu")
 
 
 def test_cli_refusals(capsys):
     for argv in (["--scenarios", "benign,not_a_scenario"],
-                 ["--scenarios", "benign"], ["--fraction", "1.5"],
-                 ["--trial-groups", "2"]):
+                 ["--scenarios", "benign"], ["--fraction", "1.5"]):
         with pytest.raises(SystemExit) as e:
             cli.cmd_arena(argv + ["--device", "cpu"])
         assert e.value.code == 2
-    assert "multi-GPU (A13)" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "not adaptive-capable" in err and "--fraction" in err
 
 
 def test_cli_json_is_strict_and_the_run(tmp_path, capsys):

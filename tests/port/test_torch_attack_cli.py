@@ -3,8 +3,8 @@ report text (wall clocks aside), --json (strict JSON, equal outside the
 wall fields) and --metrics-out (byte for byte) of the eclipse / recovery
 campaign of the verify recipe; the reference's flag checks with their
 messages; the adaptive, fault and DHT flags, once refused as later
-slices, now running to the reference's JSON (or its error); and the
-multi-GPU flags refused by name."""
+slices, now running to the reference's JSON (or its error), with
+--trial-groups among them; and --mesh refused naming the peer mesh."""
 
 import json
 
@@ -84,20 +84,21 @@ TINY = ["-n", "16", "--connect-to", "4", "--fractions", "0.25", "--seeds",
     (["--spike-ms", "5"], "faults"),
     (["--dht-poison"], "DHT adversary"),
     (["--dht-eclipse", "--dht-heal-hb", "2"], "DHT adversary"),
-    (["--mesh"], "multi-GPU"),
-    (["--trial-groups", "2"], "multi-GPU")])
+    (["--mesh"], "peer mesh"),
+    (["--trial-groups", "2"], "trial grid")])
 def test_later_slice_flags_refused(flags, slice_name, tmp_path, capsys):
-    if slice_name == "multi-GPU":
+    if slice_name == "peer mesh":
         with pytest.raises(SystemExit) as e:
             tcli.cmd_attack(["-n", "16", "--device", "cpu"] + flags)
         assert e.value.code == 2
         err = capsys.readouterr().err
-        assert "not ported yet" in err and slice_name in err
+        assert "not ported yet" in err and "A13, second half" in err
         return
-    # the adaptive, fault and DHT flags are ported: the port's `attack
-    # --json` and --metrics-out equal the reference's for the same flags,
-    # or both refuse the config with the same error (a DHT attack needs a
-    # recovery window with re-dial)
+    # the adaptive, fault and DHT flags and the trial grid are ported: the
+    # port's `attack --json` and --metrics-out equal the reference's for
+    # the same flags, or both refuse the config with the same error (a DHT
+    # attack needs a recovery window with re-dial); one seed never leaves
+    # the caller, on either grid
     outs = []
     for name, mod, extra in (("j", jcli, []), ("t", tcli, ["--device",
                                                           "cpu"])):

@@ -172,11 +172,17 @@ def test_campaign_metrics_and_interop(campaigns):
 
 def test_later_slices_raise_by_name(campaigns):
     cfg = _cfg("torch", recovery=0)
-    for kw, slice_name in ((dict(mesh=object()), "multi-GPU"),
-                           (dict(trial_mesh=object()), "multi-GPU"),
-                           (dict(dcn=True), "multi-GPU")):
-        with pytest.raises(NotImplementedError, match=slice_name):
-            tc.run_campaign(cfg, device="cpu", **kw)
+    # the peer mesh is a later slice; a trial grid must be a grid; a DCN
+    # campaign without a checkpoint directory fails as the reference's does
+    with pytest.raises(NotImplementedError, match="peer mesh"):
+        tc.run_campaign(cfg, device="cpu", mesh=object())
+    with pytest.raises(TypeError, match="make_trial_mesh"):
+        tc.run_campaign(cfg, device="cpu", trial_mesh=object())
+    with pytest.raises(ValueError) as te:
+        tc.run_campaign(cfg, device="cpu", dcn=True)
+    with pytest.raises(ValueError) as je:
+        jc.run_campaign(_cfg("jax", recovery=0), dcn=True)
+    assert str(te.value) == str(je.value)
     # the conformance certificate is ported now (the conformance slice;
     # tests/port/test_torch_conformance.py runs it): the config validates
     _cfg("torch", recovery=0, conformance=True).validate()

@@ -81,5 +81,5 @@ def test_sweep_refusals():
         with pytest.raises(ValueError, match=msg):
             tc.run_defense_sweep(cfg, device="cpu")
     cfg = tc.CampaignConfig(**{**base.__dict__, "adversary": armed})
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(TypeError, match="make_trial_mesh"):
         tc.run_defense_sweep(cfg, trial_mesh=object(), device="cpu")

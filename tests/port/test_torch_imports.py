@@ -10,9 +10,12 @@ ops.dht_adversary and runtime.campaign, the arena's ops.protocol and
 ops.episub, the conformance gate's ops.spec, analysis.conformance
 and runtime.profiling, and the tooling's native.tuned,
 analysis.contracts, analysis.registry, analysis.report,
-analysis.ast_lint, analysis.jaxpr_audit and runtime.microbench named),
-and chip_smoke.py, import in a fresh interpreter where `import jax` and
-`import flax` fail."""
+analysis.ast_lint, analysis.jaxpr_audit and runtime.microbench, and
+the trial grid's parallel.sharding and parallel.ranks named), chip_smoke.py
+and the port's scripts (scripts/dcn_smoke_torch.py and
+scripts/dcn_campaign_torch.py; the shell twins run the port's package
+only) import in a fresh interpreter where `import jax` and `import flax`
+fail."""
 
 import os
 import subprocess
@@ -22,7 +25,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 _PROBE = r"""
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["jaxlib"] = None
 sys.modules["flax"] = None
@@ -32,6 +35,9 @@ names = [port.__name__] + [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import runpy
+for script in ("dcn_smoke_torch.py", "dcn_campaign_torch.py"):
+    runpy.run_path(os.path.join("scripts", script), run_name="probe")
 bad = sorted(m for m in sys.modules
              if m == "dst_libp2p_test_node_tpu"
              or m.startswith("dst_libp2p_test_node_tpu.")
@@ -49,7 +55,8 @@ for name in ("ops.mix", "runtime.multitopic", "runtime.checkpoint",
              "ops.episub", "ops.spec", "analysis.conformance",
              "runtime.profiling", "native.tuned", "analysis.contracts",
              "analysis.registry", "analysis.report", "analysis.ast_lint",
-             "analysis.jaxpr_audit", "runtime.microbench"):
+             "analysis.jaxpr_audit", "runtime.microbench",
+             "parallel.sharding", "parallel.ranks"):
     assert port.__name__ + "." + name in names, name
 sys.exit(1 if bad else 0)
 """
@@ -66,7 +73,9 @@ def test_port_imports_without_jax():
 
 def test_port_sources_name_no_jax_import():
     pkg = os.path.join(ROOT, "dst_libp2p_test_node_tpu_torch")
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py")] + [
+        os.path.join(ROOT, "scripts", n)
+        for n in ("dcn_smoke_torch.py", "dcn_campaign_torch.py")]
     for dirpath, _, names in os.walk(pkg):
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith(".py")]
@@ -80,3 +89,13 @@ def test_port_sources_name_no_jax_import():
                     ("import dst_libp2p_test_node_tpu ",
                      "from dst_libp2p_test_node_tpu ",
                      "from dst_libp2p_test_node_tpu.")), path
+
+
+def test_shell_twins_run_the_port():
+    for name in ("run_gpu.sh", "local_smoke_torch.sh"):
+        with open(os.path.join(ROOT, "scripts", name)) as f:
+            text = f.read()
+        runs = [ln for ln in text.splitlines()
+                if "-m dst_libp2p_test_node_tpu" in ln]
+        assert runs and all("-m dst_libp2p_test_node_tpu_torch" in ln
+                            for ln in runs), name
