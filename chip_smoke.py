@@ -261,8 +261,8 @@ not printed):
                shapes and bytes, peak memory, launches. (d) `conform
                --device cuda --out` as a process: exit 0, its file the
                seed-0 certificate's bytes; `trace -n 100000 --heartbeats
-               20 --warmup-hb 10 --profile-dir` as a process: exit 0,
-               strict JSON, 20 CSV rows, the profiler trace naming the
+               10 --warmup-hb 5 --profile-dir` as a process: exit 0,
+               strict JSON, 10 CSV rows, the profiler trace naming the
                score_update kernel.
  13. the tooling: (a) every contract of the registry
                (analysis/registry.py: 20 entry points at the reference's
@@ -302,6 +302,32 @@ not printed):
                (d) 9(b)'s `attack` process again with --trial-groups 0
                (one group on one card): its JSON equal to 9(b)'s outside
                the walls.
+ 15. the peer mesh (runtime/sharded.py: Simulator(mesh=) over rank
+               processes that each hold N/P rows, joined over gloo since
+               both share the one card): (a) at 1,024 peers (exact, 2
+               fragments, tcp loss 5%, churn, the serial engine) a mesh of
+               2 ranks on the card against the port's one-process CPU run:
+               latencies, shadowlog, summaries, every record field and
+               state leaf bitwise, both kernels launched in each rank; then
+               vmem_gather at a rank's shape (N/2 rows of src against the
+               whole N-long t) bitwise against its plain version and timed
+               at 50,000 x 40 against a 100,000 t, and score_update at a
+               rank's 50,000 x 40 against its plain version, timed. (b)
+               phase 3b's config 4
+               on 2 ranks sharing the card: warm-up, message 1, a
+               checkpoint, messages 2 and 3; latencies1 and shadowlog1
+               byte-identical to 3b's, p50 / p99 / coverage / max /
+               refine passes equal to 3b's stats, each rank's launches
+               equal to 3b's; prints the wall and peer-rounds/s beside
+               3b's, all-gathers per publish and the bytes they assemble,
+               each rank's start-up and build seconds and the card's idle
+               share over the run. (c) that checkpoint byte-identical to
+               6(b)'s one-process file at the same point; 6(b)'s file
+               loaded with mesh= and run to the end gives 3b's latencies1
+               again. (d) scripts/dcn_smoke_torch.py on the card: its five
+               steps, step 5 one heartbeat and one disseminate on each
+               process's rows of a 64-peer mesh across the two processes,
+               equal to the one-process run.
 
 Then one JSON line with every kernel's numbers: at 1M x 40 with
 `launches` from phase 4's config-5 run, under `exact` at 100k x 40 with
@@ -313,20 +339,24 @@ campaign (`campaign`), 10(b)'s three campaigns (`faults`, `adaptive`,
 `dht`), 11(b)'s fused chain (`fused`, with the split chain's beside it)
 and arena (`arena`), 12(b)'s campaign (`conformance_campaign`), 12(c)'s
 run (`plan`), 12(d)'s trace process (`trace`, as its profiler counted
-them), 13(b)'s microbench (`microbench`) and 14(b)'s grid (`trial_grid`:
-the ranks' sum, each rank's and the caller's), and under
+them), 13(b)'s microbench (`microbench`), 14(b)'s grid (`trial_grid`:
+the ranks' sum, each rank's and the caller's) and 15(b)'s mesh
+(`peer_mesh`: the ranks' sum and each rank's, and each kernel's time,
+plain and library times and bound at a rank's shape), and under
 `service` the 670k x 40 numbers with `launches` from 8(b)'s batched run
 (and its sequential run's). Then the total run time, and last the line
 {"ok": true, "device": {...}}. Without CUDA it exits 1 and prints no
 result; run alone, without the package beside it, it exits 2.
 
 Machine time: 898.8 and 899.5 s of run time in two runs on one H100 with
-every phase, builds included (PERF.md), after 8(b) and 11(b)'s arena
+phases 1-14, builds included (PERF.md), after 8(b) and 11(b)'s arena
 probe were cut to make room for phase 14; phase 8 took 108.3-110.4 s
 of it, phase 9 101.4-104.4 s, phase 10 145.3-151.3 s, phase 11
 60.0-61.9 s, phase 12 90.5-100.2 s, phase 13 56.9-61.4 s and phase 14
-59.7-60.7 s. Runs of similar work swing about 10% between machines.
-Inside a 20-minute budget.
+59.7-60.7 s. With phase 15 (46.3 s alone, 59.3-69.0 s in the whole
+smoke) the whole smoke took 881.3-1,018.7 s in four runs on machines of
+different speed. Runs of similar work swing about 10% between machines.
+Held to 1,000 s (ROADMAP, Budgets), inside the 20-minute limit.
 """
 
 from __future__ import annotations
@@ -891,6 +921,7 @@ def phase_config4(dev, tag, args, env=None, lossless=None, tcp=None):
     check(rc == 0, f"{tag} run exited {rc}")
     with open(prefix + "stats1.json") as f:
         stats = json.load(f)
+    stats["peak_bytes"] = peak
     check(stats["delivery_mode"] == "exact",
           f"{tag} run took {stats['delivery_mode']} delivery mode")
     beside = ""
@@ -3444,8 +3475,9 @@ PLAN_LOSSES = (("lossless", 0.0, "tcp"), ("tcp 1%", 0.01, "tcp"),
                ("message 1%", 0.01, "message"))
 TRACE_PARITY_N = 64
 TRACE_N = EXACT_N
-TRACE_HB = 20
-TRACE_WARMUP_HB = 10
+# cut from 20 and 10 to keep the whole smoke within its time line
+TRACE_HB = 10
+TRACE_WARMUP_HB = 5
 
 
 class _SimStates:
@@ -3805,8 +3837,8 @@ def phase_plan_full(dev):
 def phase_conformance_cli(dev, cert0):
     """12(d): `conform --device cuda --out X` as a process: exit 0, its
     file equal to 12(a)'s seed-0 certificate written by write_certificate;
-    `trace -n 100000 --heartbeats 20 --warmup-hb 10 --profile-dir D` as a
-    process: exit 0, strict-JSON trace.perfetto.json, 20 rows in
+    `trace -n 100000 --heartbeats 10 --warmup-hb 5 --profile-dir D` as a
+    process: exit 0, strict-JSON trace.perfetto.json, 10 rows in
     rounds.csv, and a profiler trace in D that names the score_update
     kernel. Returns the trace's device kernel launches (the profiler's
     count)."""
@@ -4340,6 +4372,270 @@ def phase_14(dev, res9c, launches9c):
     return launches
 
 
+# --------------------------------------------------------------- phase 15
+
+# half of PARITY_N, to keep the whole smoke within its time line
+MESH_PARITY_N = PARITY_N // 2
+MESH_RANKS = 2
+
+
+def _mesh_parity_cfg(n):
+    """3b(a)'s gossip-heavy exact setting with tcp loss 5% and churn, on
+    the serial engine (the refinement a mesh takes)."""
+    from dst_libp2p_test_node_tpu_torch.config.env import GossipSubParams
+    from dst_libp2p_test_node_tpu_torch.config.topology import TopoParams
+    from dst_libp2p_test_node_tpu_torch.runtime.simulator import (
+        ExperimentConfig)
+
+    topo = TopoParams(network_size=n, anchor_stages=5, min_bandwidth=50,
+                      max_bandwidth=150, min_latency=40, max_latency=130,
+                      msg_size_bytes=15000, num_frags=2, messages=3,
+                      delay_seconds=2.0, packet_loss=0.05)
+    return ExperimentConfig(
+        topo=topo, seed=3, warmup_s=30.0, answer_queue_mode="serial",
+        churn_down_per_hb=0.005, churn_up_per_hb=0.0025,
+        gossipsub=GossipSubParams(flood_publish=False, d_lazy=12))
+
+
+def _rank_launch_delta(pool, before):
+    return [{k: r[k] - b[k] for k in r} for r, b in zip(pool.launches,
+                                                       before)]
+
+
+def phase_mesh_parity(dev, mesh):
+    """15(a): a Simulator on MESH_RANKS ranks sharing the card against the
+    port's one-process CPU run at 1,024 peers (exact, 2 fragments, tcp
+    loss 5%, churn, serial engine): latencies, shadowlog, summaries, every
+    record field and every state leaf bitwise; both kernels launched in
+    each rank. Then vmem_gather at a rank's shape (N/P rows of src against
+    an N-long t) bitwise against its plain version, and timed at config
+    4's 100k / 2 x 40 against a 100k t."""
+    import copy
+
+    from dst_libp2p_test_node_tpu_torch.native import score_update as su
+    from dst_libp2p_test_node_tpu_torch.native import vmem_gather as vg
+    from dst_libp2p_test_node_tpu_torch.ops.state import SimParams
+    from dst_libp2p_test_node_tpu_torch.runtime.simulator import Simulator
+
+    t0 = time.time()
+    cfg = _mesh_parity_cfg(MESH_PARITY_N)
+    cpu = Simulator(copy.deepcopy(cfg), device="cpu")
+    cpu.run()
+    t1 = time.time()
+    before = [dict(r) for r in mesh.pool.launches]
+    sim = Simulator(cfg, mesh=mesh)
+    sim.run()
+    launches = _rank_launch_delta(mesh.pool, before)
+    t2 = time.time()
+    for what, a, b in zip(("latencies", "shadowlog", "summaries"),
+                          _outputs(cpu), _outputs(sim)):
+        check(a == b, f"15(a) mesh and one-process CPU {what} differ")
+    _same_records("15(a) mesh records", cpu.records, sim.records)
+    _same_state("15(a) mesh state", cpu.state, sim.state)
+    for r, lr in enumerate(launches):
+        for k, v in lr.items():
+            check(v > 0, f"15(a): rank {r} never launched {k}")
+    stats = sim.collectives()
+    sim.close()
+    print(f"[mesh] 15(a) {MESH_PARITY_N} peers x 2 fragments, exact "
+          f"(serial engine), tcp 5%, churn: {MESH_RANKS} ranks on {dev} "
+          f"({mesh.backend}) = the one-process CPU run on latencies, "
+          f"shadowlog, summaries, every record field and state leaf "
+          f"({t2 - t1:.1f} s; CPU {t1 - t0:.1f} s); rank launches "
+          f"{launches}; all-gathers per rank "
+          f"{[s['all_gather'] for s in stats]}")
+
+    # the gather at a rank's shape: N/P rows of src, an N-long t
+    gen = torch.Generator(device=dev).manual_seed(15)
+    out = {}
+    for n in (999, EXACT_N):
+        rows = n // MESH_RANKS
+        t, src = _gather_inputs(n, 40, gen, dev)
+        src = src[n - rows:].contiguous()          # the last rank's rows
+        got, want = vg.vmem_gather(t, src), vg.vmem_gather_ref(t, src)
+        check(torch.equal(got, want),
+              f"15(a) vmem_gather != plain at {rows}x40 rows, t {n}")
+        if n == EXACT_N:
+            ms, plain = paired_ms(lambda: vg.vmem_gather_ref(t, src),
+                                  lambda: vg.vmem_gather(t, src))
+            lib = cuda_ms(lambda: t[src.clamp_min(0)])
+            b, by = bound_ms(src.numel() * 4 * 2 + t.numel() * 4)
+            out = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                       library_ms=lib, max_abs_err=0.0, shape=[rows, 40],
+                       t_len=n)
+    print(f"[mesh] 15(a) vmem_gather bitwise at a rank's shape (999 // 2 "
+          f"and {EXACT_N} // 2 rows x 40 against the whole t); at "
+          f"{EXACT_N // MESH_RANKS}x40 against a {EXACT_N} t: "
+          f"{out['ms']:.4f} ms vs plain {out['plain_ms']:.4f} ms, "
+          f"t[src.clamp_min(0)] {out['library_ms']:.4f} ms, bound "
+          f"{out['bound_ms']:.4f} ms ({out['bound_by']})")
+
+    # score_update on a rank's rows of config 4
+    rows = EXACT_N // MESH_RANKS
+    params = SimParams(n=rows, capacity=40, slow_weight=-10.0)
+    fmd = torch.rand((rows, 40), generator=gen, device=dev) * 3.0
+    slow = torch.rand((rows, 40), generator=gen, device=dev) * 0.5
+    scales = torch.tensor([0.9 ** 7, 0.2 ** 3], dtype=torch.float32,
+                          device=dev)
+    got = su.score_update(fmd, slow, scales, params)
+    want = su.score_update_ref(fmd, slow, scales, params)
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+          and torch.allclose(got[2], want[2], rtol=1e-5, atol=1e-6),
+          f"15(a) score_update != plain at {rows}x40")
+    ms, plain = paired_ms(
+        lambda: su.score_update_ref(fmd, slow, scales, params),
+        lambda: su.score_update(fmd, slow, scales, params))
+    b, by = bound_ms(fmd.numel() * 4 * 5 + 8, flops=fmd.numel() * 7.0)
+    score = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                 library_ms=None, shape=[rows, 40],
+                 max_abs_err=float((got[2] - want[2]).abs().max()))
+    print(f"[mesh] 15(a) score_update at a rank's {rows}x40: counters "
+          f"bitwise, {ms:.4f} ms vs plain {plain:.4f} ms, bound {b:.4f} ms "
+          f"({by})")
+    return {"vmem_gather": out, "score_update": score}
+
+
+def phase_mesh_config4(dev, mesh, stats3b, launches3b):
+    """15(b) and (c): BASELINE config 4 (phase 3b's experiment) on
+    MESH_RANKS ranks sharing the card. (b) warm-up, message 1, a
+    checkpoint, messages 2 and 3: latencies and shadowlog byte-identical
+    to 3b's files, p50 / p99 / coverage / max equal to 3b's stats, each
+    rank's launches equal to 3b's; prints wall and peer-rounds/s beside
+    3b's, all-gathers and their bytes per publish, each rank's start-up
+    and the card's idle share over the run. (c) the checkpoint's bytes
+    equal to 6(b)'s one-process save at the same point, then 6(b)'s file
+    loaded with mesh= and run to the end: 3b's latencies again."""
+    from dst_libp2p_test_node_tpu_torch.runtime.checkpoint import (
+        load_checkpoint, save_checkpoint)
+    from dst_libp2p_test_node_tpu_torch.runtime.simulator import Simulator
+
+    cfg = _config4_cfg()
+    pub = cfg.publisher_id % EXACT_N
+    before = [dict(r) for r in mesh.pool.launches]
+    torch.cuda.synchronize()
+    gathers = []
+    with _UtilSampler() as util:
+        t0 = time.time()
+        sim = Simulator(cfg, mesh=mesh)
+        t_build = time.time() - t0
+        sim.warmup()
+        t_warm = time.time() - t0 - t_build
+
+        def published():
+            g0 = sim.collectives()[0]
+            sim.publish(pub)
+            g1 = sim.collectives()[0]
+            gathers.append((g1["all_gather"] - g0["all_gather"],
+                            g1["all_gather_bytes"] - g0["all_gather_bytes"]))
+
+        published()
+        t_pause = time.time()
+        ck = os.path.join(SCRATCH, "mesh_config4.npz")
+        save_checkpoint(sim, ck)
+        t_save = time.time() - t_pause
+        for _ in range(2):
+            sim.advance(cfg.topo.delay_seconds * 1000.0)
+            published()
+        wall = time.time() - t0 - t_save
+    launches = _rank_launch_delta(mesh.pool, before)
+    prefix = os.path.join(SCRATCH, "mesh_")
+    sim.write_latencies(prefix + "latencies1")
+    sim.write_shadowlog(prefix + "shadowlog1")
+    for f in ("latencies1", "shadowlog1"):
+        check(_sha256(prefix + f) == _sha256(os.path.join(SCRATCH,
+                                                          "exact_" + f)),
+              f"15(b) the mesh's {f} differs from 3b's")
+    s = sim.summary(True)
+    delays = np.concatenate([r.delays_ms[r.received] for r in sim.records])
+    got = {"coverage": s.coverage(), "max_latency_ms": s.max_latency_ms,
+           "p50_ms": float(np.percentile(delays, 50)),
+           "p99_ms": float(np.percentile(delays, 99)),
+           "refine_passes": [r.refine_passes for r in sim.records],
+           "converged": all(r.converged for r in sim.records)}
+    for k, v in got.items():
+        check(stats3b[k] == v, f"15(b) {k} {v} != 3b's {stats3b[k]}")
+    for r, lr in enumerate(launches):
+        check(lr == launches3b, f"15(b) rank {r} launches {lr} != 3b's "
+              f"{launches3b}")
+    prs = sim.peer_rounds_per_sec(wall)
+    same_ck = _sha256(ck) == _sha256(os.path.join(SCRATCH, "config4.npz"))
+    print(f"[mesh] 15(b) config 4 ({EXACT_N} peers x 4 fragments, exact, "
+          f"churn {EXACT_CHURN}) on {MESH_RANKS} ranks sharing "
+          f"{torch.cuda.get_device_name(0)} over {mesh.backend}: latencies1 "
+          f"and shadowlog1 byte-identical to 3b's, p50 {got['p50_ms']:.3f} "
+          f"p99 {got['p99_ms']:.3f} ms = 3b's; wall {wall:.3f} s (build "
+          f"{t_build:.3f}, warm-up {t_warm:.3f}, checkpoint save {t_save:.3f} "
+          f"apart), peer-rounds/s {prs:.1f}; 3b in one process: wall "
+          f"{stats3b['wall_s']:.3f} s, peer-rounds/s "
+          f"{stats3b['peer_rounds_per_sec']:.1f}; all-gathers per publish "
+          f"per rank {[g for g, _ in gathers]}, their bytes "
+          f"{[b for _, b in gathers]}; rank start-up "
+          f"{', '.join(f'{x:.1f}' for x in mesh.pool.startup_s)} s, rank "
+          f"build {', '.join(f'{x:.1f}' for x in sim.rank_build_s)} s; "
+          f"launches per rank {launches} (3b: {launches3b}); peak "
+          f"allocated per rank "
+          f"{', '.join(f'{b / 2**30:.2f}' for b in sim.rank_peak_bytes)} "
+          f"GiB (3b in one process: {stats3b['peak_bytes'] / 2**30:.2f} "
+          f"GiB); card idle "
+          f"share {util.idle_share:.4f} over {len(util.samples)} samples "
+          f"of nvidia-smi utilization.gpu every {UTIL_SAMPLE_MS} ms")
+    check(same_ck, "15(c) the mesh's checkpoint differs from 6(b)'s "
+          "one-process save at the same point")
+    sim.close()
+    del sim
+    t0 = time.time()
+    back = load_checkpoint(os.path.join(SCRATCH, "config4.npz"), mesh=mesh)
+    t_load = time.time() - t0
+    back.run()
+    back.write_latencies(prefix + "resumed_latencies1")
+    check(_sha256(prefix + "resumed_latencies1")
+          == _sha256(os.path.join(SCRATCH, "exact_latencies1")),
+          "15(c) the resumed mesh run's latencies differ from 3b's")
+    back.close()
+    print(f"[mesh] 15(c) the mesh's checkpoint after message 1 = 6(b)'s "
+          f"one-process file byte for byte ({os.path.getsize(ck) / 2**20:.1f} "
+          f"MiB, saved in {t_save:.3f} s: one gather of the rows); 6(b)'s "
+          f"file loaded with mesh= in {t_load:.3f} s and run to the end: "
+          f"3b's latencies1 ({time.time() - t0:.1f} s)")
+    return {"ranks": {k: sum(r[k] for r in launches) for k in launches3b},
+            "per_rank": launches}
+
+
+def phase_mesh_dcn(dev):
+    """15(d): scripts/dcn_smoke_torch.py on the card, its step 5 (one
+    heartbeat and one disseminate on each process's rows of a 64-peer
+    mesh over the two processes, checked against the one-process run)."""
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "scripts", "dcn_smoke_torch.py")],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    out = proc.stdout + proc.stderr
+    check(proc.returncode == 0 and "PASS" in out
+          and out.count("sharded==single-process OK") == 2,
+          f"15(d) dcn_smoke_torch exited {proc.returncode}: {out[-2000:]}")
+    rows = [ln.split("fixpoint rows=")[1].split(" sharded")[0]
+            for ln in out.splitlines() if "fixpoint rows=" in ln]
+    print(f"[mesh] 15(d) scripts/dcn_smoke_torch.py on the card: steps 1-5 "
+          f"PASS, step 5's fixpoint rows {rows} = the one-process run "
+          f"({time.time() - t0:.1f} s)")
+
+
+def phase_15(dev, stats3b, launches3b):
+    from dst_libp2p_test_node_tpu_torch.parallel.sharding import (
+        make_peer_mesh)
+
+    t0 = time.time()
+    os.makedirs(SCRATCH, exist_ok=True)
+    with make_peer_mesh(devices=[dev] * MESH_RANKS) as mesh:
+        check(mesh.backend == "gloo", f"two ranks on one card took "
+              f"{mesh.backend}")
+        timed = phase_mesh_parity(dev, mesh)
+        launches = phase_mesh_config4(dev, mesh, stats3b, launches3b)
+    phase_mesh_dcn(dev)
+    print(f"[mesh] phase 15 took {time.time() - t0:.1f} s")
+    return dict(launches, timed=timed)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -4376,6 +4672,7 @@ def main() -> int:
         launches12 = phase_12(dev)
         launches13 = phase_13(dev, kernels)
         launches14 = phase_14(dev, res9c, launches_campaign)
+        launches15 = phase_15(dev, lossless, launches_exact)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -4405,6 +4702,10 @@ def main() -> int:
                                  rank_launches=[
                                      r[k] for r in launches14["per_rank"]],
                                  caller_launches=launches14["caller"][k]),
+                 peer_mesh=dict(
+                     launches15["timed"][k],
+                     launches=launches15["ranks"][k],
+                     rank_launches=[r[k] for r in launches15["per_rank"]]),
                  service=dict(
                      v["service"],
                      launches=service["batched"]["launches"][k],

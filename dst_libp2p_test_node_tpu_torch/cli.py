@@ -961,7 +961,7 @@ def cmd_attack(argv: list[str]) -> int:
         from .parallel.sharding import PEER_MESH_SLICE
 
         p.error(f"--mesh is not ported yet: it comes with {PEER_MESH_SLICE}"
-                " slice (ROADMAP A)")
+                " (ROADMAP A)")
     device = _resolve(p, a.device)
     trial_mesh = _trial_grid(p, a.trial_groups, device)
 
@@ -1493,7 +1493,7 @@ def cmd_lint(argv: list[str]) -> int:
             from .parallel.sharding import PEER_MESH_SLICE
 
             p.error(f"{flag} is not ported yet: it comes with "
-                    f"{PEER_MESH_SLICE} slice (ROADMAP A)")
+                    f"{PEER_MESH_SLICE} (ROADMAP A)")
     device = _resolve(p, a.device)
 
     from .analysis.ast_lint import lint_paths

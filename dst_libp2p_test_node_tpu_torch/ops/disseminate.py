@@ -65,8 +65,19 @@ message, counted in `engine_counts`), so the result equals a cold start.
 drop mask folded into `survive` like the graylist gate: delivery only,
 and not counted in `lost_tx`. `return_plan` adds the message's sampled
 plan as a third output (the seam of the independent discrete-event
-cross-check); it changes no result byte. A peer-sharded mesh raises
-NotImplementedError naming the slice that brings it (ROADMAP A13).
+cross-check); it changes no result byte.
+
+`mesh` (a rank's parallel/peer.PeerGroup; the caller drives the peer
+mesh through Simulator(mesh=), runtime/sharded.py) runs the call on the
+rank's rows, as the reference dispatches a mesh: every fixpoint
+receiver-side through parallel/exchange.converge_sharded, the serial
+engine for exact refinement (never the prefix engine), fragments
+unrolled. Writes at a global row (the publisher's t0) are done by the
+owning rank, reads of one (its tx time, its warm-start carry) are
+broadcast, the pulls and the answer folds' reads of t at the neighbors
+all-gather, and every host decision is all-reduced. The FMA site of the
+lossless mesh base stays the one-device program's for the same global
+shape (_contraction), so the rows equal the one-device run's.
 
 `run_fused_rounds` chains R rounds of a heartbeat burst (through the
 public heartbeat runners) and one publish at the carried clock, the
@@ -90,7 +101,11 @@ import torch
 from torch.profiler import record_function
 
 from .. import prng
-from ..parallel.exchange import build_recv_constants, converge_recv
+from ..parallel import peer
+from ..parallel.exchange import (
+    build_recv_constants,
+    converge_recv,
+)
 from .pull import (
     exceeds_budget,
     neighbor_pull_bool,
@@ -229,7 +244,7 @@ def loss_draws(k_loss, loss_edge, lat_edge, fragments: int,
     """One loss outcome per (fragment, directed edge) from k_loss:
     (survive, retx_ms), each (F, N, C); message mode loses a copy with
     probability p outright and has no stall (retx_ms None)."""
-    u = prng.uniform(k_loss, (fragments, *loss_edge.shape))
+    u = peer.uniform(k_loss, (fragments, *loss_edge.shape), axis=1)
     if loss_mode == "tcp":
         return tcp_retries(u, loss_edge, lat_edge)
     return u >= loss_edge, None
@@ -282,8 +297,10 @@ def _next_heartbeat(t, phase, hb_ms: float):
 def _check_slice(*, mesh, loss_mode):
     if loss_mode not in ("message", "tcp"):
         raise ValueError(f"unknown loss_mode {loss_mode!r}")
-    if mesh is not None:
-        raise _later("a peer-sharded mesh", "multi-GPU")
+    if mesh is not None and not isinstance(mesh, peer.PeerGroup):
+        raise TypeError(
+            "disseminate(mesh=) takes a rank's parallel/peer.PeerGroup; a "
+            "caller drives a peer mesh through Simulator(mesh=)")
 
 
 def disseminate(
@@ -313,8 +330,8 @@ def disseminate(
 ):
     """Propagate one message through the mesh; returns (DisseminationResult,
     new_state), and with `return_plan` also the message's sampled plan
-    (below). The signature is the reference's; `mesh` raises
-    NotImplementedError.
+    (below). The signature is the reference's; `mesh` is a rank's
+    PeerGroup (module doc), and the arrays are then its rows.
 
     The plan is what this call drew and the model inputs it read, under the
     reference's keys: "tgt" (N, C) data send set (before the queue drop),
@@ -325,6 +342,22 @@ def disseminate(
     occupancy, "rx_ms", "can_send" and "tx_ms" (N,), "lat_edge" (N, C) and
     "t_pubs" (F,) per-fragment publish times."""
     _check_slice(mesh=mesh, loss_mode=loss_mode)
+    if mesh is None and peer.active() is not None:
+        mesh = peer.active()
+    with peer.using(mesh):
+        return _disseminate(
+            state, conns, rev, stage, lat_ms, bw_up_mbit_per_stage,
+            publisher, t0_ms, params, payload_bytes, fragments, with_gossip,
+            mesh, loss_stage, with_fanout, return_plan,
+            bw_down_mbit_per_stage, loss_mode, lat_edge, loss_edge,
+            ans_tables, valid_edge, censor_edge)
+
+
+def _disseminate(state, conns, rev, stage, lat_ms, bw_up_mbit_per_stage,
+                 publisher, t0_ms, params, payload_bytes, fragments,
+                 with_gossip, mesh, loss_stage, with_fanout, return_plan,
+                 bw_down_mbit_per_stage, loss_mode, lat_edge, loss_edge,
+                 ans_tables, valid_edge, censor_edge):
     n, c = conns.shape
     dev = conns.device
     f32 = torch.float32
@@ -384,7 +417,7 @@ def disseminate(
         # like the graylist, and not a network loss
         survive = (~censor_edge if survive is None
                    else survive & ~censor_edge)
-    is_pub = torch.arange(n, device=dev) == publisher
+    is_pub = peer.row_ids(n, dev) == publisher
 
     if with_fanout:
         # fanout set: the still-valid unexpired members, topped back up to
@@ -399,7 +432,7 @@ def disseminate(
         fan_cand = valid & ~fan_active
         if thresholds_can_bind:
             fan_cand = fan_cand & pub_ok
-        fprio = torch.where(fan_cand, prng.uniform(keys[3 + lossy], (n, c)),
+        fprio = torch.where(fan_cand, peer.uniform(keys[3 + lossy], (n, c)),
                             INF)
         fan_row = fan_active | (fan_cand
                                 & (_ranks_f32(fprio) < need_fan[:, None]))
@@ -415,7 +448,7 @@ def disseminate(
         tgt = torch.where(is_pub[:, None], flood_set, tgt)
 
     # randomized send order per peer (one draw per message)
-    rprio = torch.where(tgt, prng.uniform(k_rank, (n, c)), INF)
+    rprio = torch.where(tgt, peer.uniform(k_rank, (n, c)), INF)
 
     # gossip targets: a fresh sample per mcache round of
     # max(D_lazy, gossip_factor * |candidates|) non-mesh topic peers
@@ -430,7 +463,7 @@ def disseminate(
     gkeys = prng.split(k_gossip, n_rounds)
     g_tgt_w = torch.stack([
         g_cand & _mask_count_smallest(
-            torch.where(g_cand, prng.uniform(gkeys[h], (n, c)), INF),
+            torch.where(g_cand, peer.uniform(gkeys[h], (n, c)), INF),
             g_count)
         for h in range(n_rounds)
     ])                                                  # (W, N, C)
@@ -541,7 +574,7 @@ def disseminate(
         lda_s = lat_sorted * ans_scale
         if retx_sorted[f] is not None:
             lda_s = lda_s + retx_sorted[f]
-        q_t_s = t_rx[conns_sorted.clamp_min(0).long()]
+        q_t_s = peer.all_rows(t_rx)[conns_sorted.clamp_min(0).long()]
         txp = tx_ms[:, None]
         busy = uplink
         g_sorted = torch.full((n, c), INF, device=dev)
@@ -589,7 +622,7 @@ def disseminate(
         base = t_rx + params.proc_delay_ms
         tick = _next_heartbeat(base, hb_phase, params.heartbeat_ms)
         live = can_send & (t_rx < INF)
-        q_t = t_rx[conns.clamp_min(0).long()]
+        q_t = peer.all_rows(t_rx)[conns.clamp_min(0).long()]
         ws, reqs = [], []
         for h in range(n_rounds):
             a_h, samp, req = _round_req(h, tick, live, q_t, lat_edge,
@@ -651,14 +684,16 @@ def disseminate(
         return reciprocal_pull_min(cand, conns, rev, batch_factor=fragments)
 
     # above the pull budget the fixpoints run receiver-side (the 1M-peer
-    # class and, with 4 fragments, 100k peers)
-    recv_side = exceeds_budget(f32, conns.shape, fragments)
+    # class and, with 4 fragments, 100k peers), and always on a mesh
+    recv_side_1d = exceeds_budget(f32, (peer.global_rows(n), c), fragments)
+    recv_side = recv_side_1d or mesh is not None
     exact = with_gossip and params.serialize_answers
 
     def _contraction(phase: int) -> str:
         """The mesh base's FMA (see _mesh_term) in phase 1 or 2 of the
-        unserialized fixpoint."""
-        key = ("recv" if recv_side else "send",
+        unserialized fixpoint: the one-device program's for this global
+        shape, on a mesh too."""
+        key = ("recv" if recv_side_1d else "send",
                "exact" if exact else "bounded", phase)
         return "queue" if key in _QUEUE_CONTRACTED else "lat"
 
@@ -695,13 +730,12 @@ def disseminate(
         (no-change) sweep."""
         t0 = (torch.full((n,), INF, device=dev) if t_init is None
               else t_init.clone())
-        t0[publisher] = t_pub
+        peer.write_row(t0, publisher, t_pub)
         contract = _contraction(phase)
         if recv_side:
             return converge_recv(
                 t0, _recv_cst(rank, k_p, f, frag_idx, send_mask, with_gossip,
-                              contract),
-                params.max_relax_iters)
+                              contract), params.max_relax_iters)
         # below the budget: sender-major offers, row-gather pull per sweep
         a_base = _mesh_base(rank, k_p, f, frag_idx, send_mask, contract)
         g_base = torch.where(
@@ -734,7 +768,7 @@ def disseminate(
         pulled and row-minimized): returns g_floor -> t. Its constants
         are built once per solver; each call restarts from INF."""
         t0 = torch.full((n,), INF, device=dev)
-        t0[publisher] = t_pub
+        peer.write_row(t0, publisher, t_pub)
         if recv_side:
             cst = _recv_cst(rank, k_p, f, frag_idx, send_mask, False, "lat")
             return lambda g_floor: converge_recv(
@@ -769,12 +803,12 @@ def disseminate(
         Returns (t, converged, passes)."""
         solve = _floor_solver(rank, k_p, f, frag_idx, t_pub, send_mask)
         t_g = t_seed.clone()
-        t_g[publisher] = t_pub
+        peer.write_row(t_g, publisher, t_pub)
         changed, it = True, 0
         while changed and it < params.max_relax_iters:
             g_abs, _, _ = gossip_serial_exact(t_g, f)
             t_new = solve(pull(_deliver_g(g_abs, f)).amin(dim=-1))
-            changed = bool((t_new != t_g).any())
+            changed = peer.any_(t_new != t_g)
             t_g, it = t_new, it + 1
         return t_g, not changed, it
 
@@ -870,8 +904,9 @@ def disseminate(
         tgt_f, rank1, k1 = order[f]
         if warm:
             w = state.warm_offset_ms
-            seed = torch.where((w < WARM_VALID) & (w[publisher] < WARM_VALID),
-                               t_pub + w + w[publisher] + params.heartbeat_ms,
+            w_pub = peer.read_row(w, publisher)
+            seed = torch.where((w < WARM_VALID) & (w_pub < WARM_VALID),
+                               t_pub + w + w_pub + params.heartbeat_ms,
                                INF)
             t1, inc1, ok1 = _converge_dyn(rank1, k1, f, frag_idx, t_pub,
                                           tgt_f, 1, t_init=seed)
@@ -969,7 +1004,7 @@ def disseminate(
         """The once-per-message engine dispatch of exact mode: returns the
         per-fragment 8-tuples the accounting reads, `converged` and the
         refinement passes (max over fragments)."""
-        if not bool(torch.stack([x[11] for x in fast]).any()):
+        if not peer.any_(torch.stack([x[11] for x in fast])):
             engine_counts["fast"] += 1
             return [x[:8] for x in fast], all(x[10] for x in fast), 0
         seeds, spent = [x[0] for x in fast], [0] * fragments
@@ -1066,7 +1101,7 @@ def disseminate(
 
     # publisher emits fragments back-to-back (main.nim:177-179)
     frag_ids = torch.arange(fragments, dtype=f32, device=dev)
-    t_pubs = t0_ms + frag_ids * tx_ms[publisher]
+    t_pubs = t0_ms + frag_ids * peer.read_row(tx_ms, publisher)
     order = [_phase1_order(f) for f in range(fragments)]
     # profiler spans (chip_smoke.py reads them; no cost without a profiler)
     with record_function("disseminate.fast_pipeline"):
@@ -1075,7 +1110,7 @@ def disseminate(
         if params.warm_start:
             # one host decision per message: if any fragment's certificate
             # rejects its warm seed, every fragment reruns cold
-            if bool(torch.stack([x[12] for x in fast]).any()):
+            if peer.any_(torch.stack([x[12] for x in fast])):
                 engine_counts["warm_cold_rerun"] += 1
                 fast = [phases_fast(f, frag_ids[f], t_pubs[f], False)
                         for f in range(fragments)]
@@ -1090,8 +1125,8 @@ def disseminate(
     else:
         final, converged, refine_passes = ([x[:8] for x in fast],
                                            all(x[10] for x in fast), 0)
-        answer_wait = torch.stack([x[8] for x in fast]).amax()
-        answer_interleaved = torch.stack([x[9] for x in fast]).sum(
+        answer_wait = peer.max_(torch.stack([x[8] for x in fast])).amax()
+        answer_interleaved = peer.or_(torch.stack([x[9] for x in fast])).sum(
             dtype=torch.int32)
 
     t_rx_f = torch.stack([x[0] for x in final])

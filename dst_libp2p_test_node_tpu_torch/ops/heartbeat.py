@@ -14,6 +14,12 @@ The reference's `lax.cond`s become Python `if`s on a device predicate
 Python loop. Key consumption is the reference's: five keys split per step
 whether or not a branch runs, so the PRNG stream stays in step.
 
+On a rank of the peer mesh (parallel/peer.py) the step runs on the
+rank's rows: its draws are those rows of the whole draw, its branch
+predicates are all-reduced over the ranks (every rank takes the branch the
+one-device run takes), and the pulls and the PX advert read all-gathered
+tables. Everything else is row-local.
+
 `run_heartbeats` keeps the reference's two scan-level protocols: the
 deferred decay (two carried f32 scales, materialized once after the loop
 by the score_update kernel) and, with churn off, the hoisted validity mask
@@ -26,6 +32,7 @@ import torch
 
 from .. import prng
 from ..native.score_update import score_update
+from ..parallel import peer
 from .pull import neighbor_pull_bool, reciprocal_pull_bool
 from .state import PX_POOL_WIDTH, SimParams, SimState
 
@@ -79,8 +86,8 @@ def heartbeat_step(
     # -- churn ---------------------------------------------------------------
     alive = state.alive
     if _churny(params):
-        dies = prng.uniform(k_churn_d, (n,)) < params.churn_down_per_hb
-        revives = prng.uniform(k_churn_u, (n,)) < params.churn_up_per_hb
+        dies = peer.uniform(k_churn_d, (n,)) < params.churn_down_per_hb
+        revives = peer.uniform(k_churn_u, (n,)) < params.churn_up_per_hb
         alive = torch.where(alive, ~dies, revives)
         nbr_ok = None
         valid_pre = None
@@ -125,11 +132,11 @@ def heartbeat_step(
 
     # -- GRAFT: |mesh| < D_low -> add random eligible peers up to D ----------
     need = torch.where(deg < params.d_low, params.d - deg, 0)
-    graft_fired = bool((need > 0).any())
+    graft_fired = peer.any_(need > 0)
     if graft_fired:
         eligible = (valid & ~mesh & (state.backoff_until <= t)
                     & (get_scores() >= 0.0))
-        g_prio = torch.where(eligible, prng.uniform(k_graft, (n, c)), BIG)
+        g_prio = torch.where(eligible, peer.uniform(k_graft, (n, c)), BIG)
         grafted = (_ranks(g_prio) < need[:, None]) & eligible
         graft_rx = reciprocal_pull_bool(grafted, conns, rev)
         mesh = (mesh | grafted | graft_rx) & valid
@@ -141,11 +148,11 @@ def heartbeat_step(
 
     # -- PRUNE: |mesh| > D_high -> keep D (D_score best, >= D_out outbound) --
     over = deg2 > params.d_high
-    prune_fired = bool(over.any())
+    prune_fired = peer.any_(over)
     backoff = state.backoff_until
     prune_tx_inc = prune_rx_inc = zeros_n
     if prune_fired:
-        rand_keep = prng.uniform(k_keep, (n, c))
+        rand_keep = peer.uniform(k_keep, (n, c))
         scores = get_scores()
         s_prio = torch.where(mesh, -scores + 1e-3 * rand_keep, BIG)
         top_score = (_ranks(s_prio) < params.d_score) & mesh
@@ -179,7 +186,7 @@ def heartbeat_step(
     evict_fired = False
     if params.evict:
         ev_cand = mesh & (get_scores() < params.eviction_threshold)
-        evict_fired = bool(ev_cand.any())
+        evict_fired = peer.any_(ev_cand)
         if evict_fired:
             ev_rx = reciprocal_pull_bool(ev_cand, conns, rev)
             backoff = torch.where(ev_cand | ev_rx,
@@ -193,7 +200,7 @@ def heartbeat_step(
     # -- PX on PRUNE (mesh repair, params.px): every prunee stores the
     # pruner's best-scored valid neighbors (no PRNG: slot-index tiebreak) ---
     px_pool = state.px_pool
-    if params.px and bool(got_pruned.any()):
+    if params.px and peer.any_(got_pruned):
         px_pool = _px_capture(state.px_pool, got_pruned, valid, conns,
                               get_scores(), params)
 
@@ -211,7 +218,7 @@ def heartbeat_step(
                    & (scores > median[:, None]) & low[:, None])
         og_prio = torch.where(og_elig, -scores, BIG)
         og = (_ranks(og_prio) < 2) & og_elig
-        og_fired = bool(og.any())
+        og_fired = peer.any_(og)
         if og_fired:
             rx = reciprocal_pull_bool(og, conns, rev)
             mesh = (mesh | og | rx) & valid
@@ -220,13 +227,13 @@ def heartbeat_step(
 
     # -- score decay (decayInterval == heartbeat; main.nim:272-273) ----------
     fmd, slow = state.fmd, state.slow_penalty
-    if decay_scales is None and bool(((fmd > 0) | (slow > 0)).any()):
+    if decay_scales is None and peer.any_((fmd > 0) | (slow > 0)):
         fmd = _apply_decay(fmd, params.fmd_decay, params)
         slow = _apply_decay(slow, params.slow_decay, params)
 
     # -- fanout expiry (v1.1 fanoutTTL) --------------------------------------
     fanout = state.fanout_mask
-    if bool((state.fanout_expire > 0.0).any()):
+    if peer.any_(state.fanout_expire > 0.0):
         fanout = fanout & (t < state.fanout_expire)[:, None]
 
     new_state = state.replace(
@@ -276,8 +283,8 @@ def _px_capture(pool, got_pruned, valid, conns, scores, params):
     got = got_pruned.any(dim=-1)
     i0 = torch.argmax(got_pruned.to(torch.uint8), dim=-1)
     pruner = torch.gather(conns, 1, i0[:, None])[:, 0]
-    advert = cand[pruner.clamp_min(0).long()]
-    me = torch.arange(n, dtype=advert.dtype, device=dev)
+    advert = peer.all_rows(cand)[pruner.clamp_min(0).long()]
+    me = peer.row_ids(n, dev).to(advert.dtype)
     advert = torch.where(advert == me[:, None], -1, advert)
     return torch.where(got[:, None], advert, pool)
 

@@ -10,7 +10,10 @@ chooses them, so the port takes the same path for the same shapes:
   - the row gather `vals[conns]` (an (N, C, C) intermediate) plus a one-hot
     slot select, below the budget;
   - the direct two-index gather `vals[conns, rev]`, above it.
-Both give the same values. The budget constant is the reference's, a rule
+Both give the same values. On a rank of the peer mesh (parallel/peer.py)
+the source table is all-gathered first and the same formula runs on the
+local rows of conns / rev; the budget is judged on the whole (N, C)
+shape, so every rank takes the path one device takes. The budget constant is the reference's, a rule
 written for the TPU (128-lane padding of the last axis); re-deriving it for
 the H100 is later work, and changing it would move the sender-side /
 receiver-side fixpoint switch in ops/disseminate.py with it.
@@ -19,6 +22,8 @@ receiver-side fixpoint switch in ops/disseminate.py with it.
 from __future__ import annotations
 
 import torch
+
+from ..parallel import peer
 
 INF = 3.4e38
 
@@ -40,7 +45,9 @@ def exceeds_budget(dtype, conns_shape, batch_factor: int = 1) -> bool:
 
 def _row_pull(vals, conns, rev, select, batch_factor):
     q, r = conns.clamp_min(0), rev.clamp_min(0)
-    if exceeds_budget(vals.dtype, conns.shape, batch_factor):
+    whole = (peer.global_rows(conns.shape[0]), conns.shape[-1])
+    vals = peer.all_rows(vals)
+    if exceeds_budget(vals.dtype, whole, batch_factor):
         return vals[q, r]
     rows = vals[q]                                   # (N, C, C)
     sel = torch.arange(conns.shape[-1], device=conns.device) == r[..., None]
@@ -55,16 +62,19 @@ def reciprocal_pull_bool(edge_mask, conns, rev, batch_factor: int = 1):
 
 
 def neighbor_pull_bool(per_peer, conns, rev, batch_factor: int = 1):
-    """out[q, j] = per_peer[conns[q,j]] (False on invalid slots), pulled as
-    the reciprocal pull of the slot-constant (N, C) table."""
-    table = per_peer[:, None].expand(conns.shape)
-    return reciprocal_pull_bool(table, conns, rev, batch_factor)
+    """out[q, j] = per_peer[conns[q,j]] (False on invalid slots): the
+    reciprocal pull of the slot-constant (N, C) table, read off the (N,)
+    vector itself (the same values on either formulation).
+    `batch_factor` is the reciprocal pulls' argument, unused here."""
+    valid = (conns >= 0) & (rev >= 0)
+    return peer.all_rows(per_peer)[conns.clamp_min(0)] & valid
 
 
 def neighbor_pull_min(per_peer, conns, rev, batch_factor: int = 1):
     """out[q, j] = per_peer[conns[q,j]] for floats; INF on invalid slots."""
-    table = per_peer[:, None].expand(conns.shape)
-    return reciprocal_pull_min(table, conns, rev, batch_factor)
+    valid = (conns >= 0) & (rev >= 0)
+    return torch.where(valid, peer.all_rows(per_peer)[conns.clamp_min(0)],
+                       INF)
 
 
 def reciprocal_pull_min(vals, conns, rev, batch_factor: int = 1):

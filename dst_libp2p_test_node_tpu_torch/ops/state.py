@@ -20,6 +20,7 @@ import torch
 from .. import prng
 from ..config.env import GossipSubParams
 from ..device import resolve_device
+from ..parallel import peer
 
 # Width of the per-peer PX candidate pool (SimState.px_pool). A CONSTANT, not
 # a SimParams field: the pool is a state leaf, and keying its shape on a
@@ -277,10 +278,11 @@ def leaf_names() -> tuple[str, ...]:
 
 
 def init_state(params: SimParams, seed: int = 0, device=None) -> SimState:
-    """Fresh state on `device` (CUDA unless the caller passes another)."""
+    """Fresh state on `device` (CUDA unless the caller passes another); on
+    a rank of the peer mesh, its rows of it (parallel/peer.py)."""
     params.validate()
     device = resolve_device(device)
-    n, c = params.n, params.capacity
+    n, c = peer.local_count(params.n), params.capacity
     key, k_phase = prng.split(prng.PRNGKey(seed, device))
 
     def zeros(shape, dtype):
@@ -299,7 +301,7 @@ def init_state(params: SimParams, seed: int = 0, device=None) -> SimState:
         slow_penalty=zeros((n, c), f32),
         alive=full((n,), True, torch.bool),
         subscribed=full((n,), True, torch.bool),
-        hb_phase=prng.uniform(k_phase, (n,)) * params.heartbeat_ms,
+        hb_phase=peer.uniform(k_phase, (n,)) * params.heartbeat_ms,
         uplink_free_ms=zeros((n,), f32),
         rx_free_ms=zeros((n,), f32),
         warm_offset_ms=full((n,), 3.4e38, f32),
@@ -328,12 +330,14 @@ def init_state(params: SimParams, seed: int = 0, device=None) -> SimState:
 
 def graph_arrays(graph, device=None) -> dict:
     """Move a ConnGraph's arrays to the device (CUDA unless the caller
-    passes another) once per experiment."""
+    passes another) once per experiment; on a rank of the peer mesh, its
+    rows of them."""
     device = resolve_device(device)
     return {
-        "conns": torch.as_tensor(graph.conns, device=device),
-        "rev": torch.as_tensor(graph.rev, device=device),
-        "out_mask": torch.as_tensor(graph.out_mask, device=device),
+        "conns": torch.as_tensor(peer.local(graph.conns), device=device),
+        "rev": torch.as_tensor(peer.local(graph.rev), device=device),
+        "out_mask": torch.as_tensor(peer.local(graph.out_mask),
+                                    device=device),
     }
 
 

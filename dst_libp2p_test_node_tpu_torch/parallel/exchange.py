@@ -1,4 +1,4 @@
-"""Receiver-side fixpoint of the dissemination (single device).
+"""Receiver-side fixpoint of the dissemination.
 
 The reference's parallel/exchange.py reformulates the earliest-arrival
 fixpoint so that an iteration touches only the (N,) arrival-time vector:
@@ -13,8 +13,14 @@ map. ops/disseminate.py takes this path above the pull memory budget (the
 (native/vmem_gather.py) on every sweep. With `packed` (SimParams.
 packed_state) the relative cost tables a_ms, g_ms, g_off and phase are
 stored as bfloat16 and upcast to float32 at the start of each sweep;
-u_ms, rx_c and the flags stay float32 / int8. The sharded variant
-(converge_sharded) is a later slice.
+u_ms, rx_c and the flags stay float32 / int8.
+
+On a rank of the peer mesh (parallel/peer.py; `converge_sharded` names
+that use) the rank keeps its rows of the constants (and of the optional
+frozen g_floor), and each sweep is one all-gather of the (N,) t vector,
+the vmem_gather of the local rows of src against it, the row min, and
+one all-reduce of the changed bit. `build_recv_constants` on a
+rank gathers the sender-side tables once through the same all-gather.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import torch
 
 from ..native.vmem_gather import vmem_gather
 from ..ops.xlamath import fma_f32
+from . import peer
 
 INF = 3.4e38
 
@@ -48,8 +55,15 @@ class RecvConstants:
 
 
 def _edge_gather(sender_val, conns, rev):
-    """recv[q, j] = sender_val[conns[q,j], rev[q,j]] (one-time gather)."""
-    return sender_val[conns.clamp_min(0), rev.clamp_min(0)]
+    """recv[q, j] = sender_val[conns[q,j], rev[q,j]] (one-time gather; on
+    a rank, of the all-gathered sender table)."""
+    return peer.all_rows(sender_val)[conns.clamp_min(0), rev.clamp_min(0)]
+
+
+def _node_gather(per_peer, conns):
+    """recv[q, j] = per_peer[conns[q,j]]: _edge_gather of the slot-constant
+    table, read off the (N,) vector itself."""
+    return peer.all_rows(per_peer)[conns.clamp_min(0)]
 
 
 def build_recv_constants(
@@ -92,8 +106,8 @@ def build_recv_constants(
         g_ms = torch.full_like(a_ms, INF)
         g_ok = torch.zeros_like(mesh_ok)
         g_off = torch.zeros_like(a_ms)
-    phase = _edge_gather(hb_phase[:, None].expand(conns.shape), conns, rev)
-    u_ms = _edge_gather(uplink_free[:, None].expand(conns.shape), conns, rev)
+    phase = _node_gather(hb_phase, conns)
+    u_ms = _node_gather(uplink_free, conns)
     dev = conns.device
     table = torch.bfloat16 if packed else torch.float32
     return RecvConstants(
@@ -138,20 +152,45 @@ def _inc_from(t_all: torch.Tensor, c: RecvConstants) -> torch.Tensor:
 
 def converge_recv(t0: torch.Tensor, c: RecvConstants, max_iters: int,
                   g_floor=None):
-    """Single-device receiver-side fixpoint. Returns (t_rx, inc, converged):
-    the fixpoint, the (N, C) incoming-offer matrix of the last sweep, and
+    """Receiver-side fixpoint. Returns (t_rx, inc, converged): the
+    fixpoint, the (N, C) incoming-offer matrix of the last sweep, and
     False only when the iteration cap cut the loop. Each sweep ends in one
     device-to-host sync (the change bit), the counterpart of the
-    reference's while_loop predicate."""
+    reference's while_loop predicate. On a rank of the peer mesh (an
+    active parallel/peer.PeerGroup) t0, the constants and g_floor are the
+    rank's rows: each sweep all-gathers the (N,) t vector and all-reduces
+    the change bit, so every rank leaves the loop after the same sweep."""
     t_rx = t0
     inc = torch.full(c.src.shape, INF, device=t0.device)
     changed, it = True, 0
     while changed and it < max_iters:
-        inc = _inc_from(t_rx, c)
+        inc = _inc_from(peer.all_rows(t_rx), c)
         inc_min = inc.amin(dim=-1)
         if g_floor is not None:
             inc_min = torch.minimum(inc_min, g_floor)
         t_new = torch.minimum(t_rx, torch.maximum(inc_min, c.rx_c))
-        changed = bool((t_new < t_rx).any())
+        changed = peer.any_(t_new < t_rx)
         t_rx, it = t_new, it + 1
     return t_rx, inc, not changed
+
+
+def converge_sharded(t0: torch.Tensor, c: RecvConstants, max_iters: int,
+                     mesh=None, g_floor=None):
+    """converge_recv on a rank of the peer mesh: `mesh` is the rank's
+    parallel/peer.PeerGroup (None: the active one). Returns the local
+    (t, inc) rows and the replicated `converged`; iteration counts and
+    values are converge_recv's on the whole rows."""
+    grp = peer.active() if mesh is None else mesh
+    if grp is None:
+        raise ValueError("converge_sharded needs a PeerGroup (mesh=, or "
+                         "an active one)")
+    with peer.using(grp):
+        return converge_recv(t0, c, max_iters, g_floor=g_floor)
+
+
+def place_sharded(mesh, *arrays):
+    """This rank's rows of each whole (N, ...) array (`mesh`: its
+    PeerGroup), on its device: the test harness's placement helper."""
+    out = tuple(torch.as_tensor(mesh.local(a)).to(mesh.device)
+                for a in arrays)
+    return out if len(out) > 1 else out[0]

@@ -1,15 +1,19 @@
-"""Rank processes of a trial grid (parallel/sharding.make_trial_mesh).
+"""Rank processes of a trial grid (parallel/sharding.make_trial_mesh) and
+of a peer mesh (parallel/sharding.make_peer_mesh).
 
 A grid of G trial groups runs G rank processes, one per group, each on
 its group's device; the caller's process keeps its own device for the
 work the reference keeps out of the grid (benign cells, baselines, the
 conformance certificate). Trials are independent, so nothing but host
-objects crosses between processes:
+objects crosses between a grid's processes. A peer mesh's ranks also
+exchange tensors: its jobs run collectives over the group the ranks
+joined (parallel/peer.py), gloo or, for ranks on distinct GPUs, NCCL:
 
   start    G processes started with the `spawn` method (never `fork`: the
            caller may hold a CUDA context), each limited to `threads`
-           CPU threads when given; they join one gloo group through a
-           FileStore in a temporary directory (no TCP port) and exchange a
+           CPU threads when given; they join one group (gloo unless the
+           pool names nccl) through a FileStore in a temporary directory
+           (no TCP port) and exchange a
            roll call over it, then report ready with their start-up
            seconds. Kernels are built in the caller first (native/build.py)
            when any rank is on CUDA, so ranks only load them.
@@ -19,11 +23,13 @@ objects crosses between processes:
            kernel launches and seconds for the job.
   close    every rank told to exit, joined with a deadline, killed after.
 
-Every wait on a rank has a deadline. A rank whose job raises makes
-`run` raise RankError with the rank's number and its traceback, after
-every rank has answered (no result is assembled from the others); a rank
-that dies or misses the deadline makes it raise at once, and the pool is
-closed (the next `run` starts it again).
+Every wait on a rank has a deadline, and so has every collective (the
+group's timeout). A rank whose job raises makes `run` raise RankError
+with the rank's number and its traceback, after every rank has answered
+(no result is assembled from the others); a rank that dies (inside a
+collective too: the others are then stuck in it) or misses the deadline
+makes it raise at once, and the pool is closed, its stuck ranks killed
+(the next `run` starts it again).
 """
 
 from __future__ import annotations
@@ -55,7 +61,8 @@ def _launch_counts() -> dict:
 
 
 def _rank_main(rank: int, world: int, device: str, store_path: str,
-               threads, conn, t_spawn: float, deadline_s: float) -> None:
+               threads, conn, t_spawn: float, deadline_s: float,
+               backend: str = "gloo") -> None:
     """One rank: join the group, then serve jobs until told to stop."""
     import torch.distributed as dist
 
@@ -67,7 +74,7 @@ def _rank_main(rank: int, world: int, device: str, store_path: str,
             torch.cuda.set_device(dev)
             torch.zeros(1, device=dev)          # the context, up front
         dist.init_process_group(
-            "gloo", store=dist.FileStore(store_path, world), rank=rank,
+            backend, store=dist.FileStore(store_path, world), rank=rank,
             world_size=world,
             timeout=datetime.timedelta(seconds=deadline_s))
         roll = [None] * world
@@ -113,11 +120,15 @@ class RankPool:
     device) each rank sent over the gloo group; `launches` / `seconds`:
     each rank's kernel launches and job seconds summed over its jobs."""
 
-    def __init__(self, devices, threads: int | None = None):
+    def __init__(self, devices, threads: int | None = None,
+                 backend: str = "gloo"):
         self.devices = [torch.device(d) for d in devices]
         if not self.devices:
             raise ValueError("a RankPool needs at least one device")
+        if backend not in ("gloo", "nccl"):
+            raise ValueError(f"backend {backend!r} not in (gloo, nccl)")
         self.threads = threads
+        self.backend = backend
         self.startup_s: list[float] = []
         self.roll: list = []
         self.launches = [{"vmem_gather": 0, "score_update": 0}
@@ -154,7 +165,7 @@ class RankPool:
             p = ctx.Process(
                 target=_rank_main, name=f"trial-rank-{r}", daemon=True,
                 args=(r, self.size, str(dev), store, self.threads, child, t0,
-                      RANK_DEADLINE_S))
+                      RANK_DEADLINE_S, self.backend))
             p.start()
             child.close()
             self._procs.append(p)
@@ -196,7 +207,7 @@ class RankPool:
         while pending:
             left = deadline - time.monotonic()
             if left <= 0:
-                self.close()
+                self.close(grace_s=2.0)
                 raise RankError(
                     f"ranks {sorted(pending)} missed the {deadline_s:.0f} s "
                     f"deadline of {what}")
@@ -218,7 +229,8 @@ class RankPool:
                         continue
                 if not self._procs[r].is_alive():
                     code = self._procs[r].exitcode
-                    self.close()
+                    # the other ranks may wait in a collective with it
+                    self.close(grace_s=2.0)
                     raise RankError(
                         f"rank {r} ({self.devices[r]}) exited with code "
                         f"{code} during {what}")
@@ -230,8 +242,8 @@ class RankPool:
                 f"{tb}" for r, tb in sorted(errors.items())))
         return outs
 
-    def close(self) -> None:
-        """Stop every rank (told, joined with a deadline, then killed)."""
+    def close(self, grace_s: float = 30.0) -> None:
+        """Stop every rank (told, joined within `grace_s`, then killed)."""
         if self._procs is None:
             return
         for conn in self._conns:
@@ -239,7 +251,7 @@ class RankPool:
                 conn.send(None)
             except (BrokenPipeError, OSError):
                 pass
-        deadline = time.monotonic() + 30.0
+        deadline = time.monotonic() + grace_s
         for p in self._procs:
             p.join(max(0.0, deadline - time.monotonic()))
             if p.is_alive():

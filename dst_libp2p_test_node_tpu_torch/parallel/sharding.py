@@ -17,12 +17,20 @@ visible GPU, and a group count must divide the device count. `devices=`
 may list a device more than once and may list "cpu": that is how a grid
 of G ranks runs on one card or on the CPU.
 
-A grid whose groups are wider than one device (peers_per_group > 1, the
-reference's nested windows) can be built, but the campaign refuses it:
-the peer mesh is a later slice, as are the functions of the reference
-module that place peer rows (make_peer_mesh, peer_sharding,
-place_simulation, shard_simulation, the nested_* shardings,
-place_trial_batch, reshard_rows), which raise here.
+The peer half (the 1-D "peers" mesh) is a PeerMesh: the devices of one
+rank process each, the torch.distributed backend they join (NCCL when
+every rank has a distinct CUDA device, gloo otherwise; `backend=`
+overrides), and the rank pool (parallel/ranks.py) that runs them.
+Simulator(mesh=) and MultiTopicSimulator(mesh=) drive it
+(runtime/sharded.py). The placers split host arrays into the ranks' row
+blocks: peer_sharding / replicated name the two layouts, reshard_rows
+splits one leaf, place_simulation checks the reference's divisibility
+rule and shard_simulation splits a whole simulation.
+
+A trial grid whose groups are wider than one device (peers_per_group > 1,
+the reference's nested windows) can be built, but the campaign refuses
+it, and nested_sharding / nested_batch_shardings / place_trial_batch
+raise: the nested windows are the next slice (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -37,12 +45,12 @@ TRIAL_AXIS = "trials"
 DCN_AXIS = "dcn"
 PEER_AXIS = "peers"
 
-PEER_MESH_SLICE = "the peer mesh (A13, second half)"
+PEER_MESH_SLICE = "the peer mesh's next slice (A13, second half)"
 
 
 def peer_mesh_later(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet: it comes with {PEER_MESH_SLICE} slice "
+        f"{what} is not ported yet: it comes with {PEER_MESH_SLICE} "
         "(ROADMAP A)")
 
 
@@ -244,21 +252,179 @@ def dcn_allreduce(vec, op: str = "sum") -> np.ndarray:
     return t.numpy()[:size]
 
 
+class PeerMesh:
+    """The 1-D peer mesh: one rank process per entry of `devices` (a
+    device may repeat: two ranks can share one card) joined over
+    `backend`. The rank pool starts on first use and serves every
+    Simulator built on this mesh until `close`."""
+
+    axis_names = (PEER_AXIS,)
+
+    def __init__(self, devices, backend: str, threads: int | None = None):
+        self.devices = tuple(torch.device(d) for d in devices)
+        if not self.devices:
+            raise ValueError("a peer mesh needs at least one device")
+        self.backend = backend
+        self.threads = threads
+        self._pool = None
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    @property
+    def shape(self) -> dict:
+        return {PEER_AXIS: self.size}
+
+    @property
+    def pool(self):
+        """The mesh's parallel/ranks.RankPool (started on first job)."""
+        if self._pool is None:
+            from .ranks import RankPool
+
+            self._pool = RankPool(self.devices, threads=self.threads,
+                                  backend=self.backend)
+        return self._pool
+
+    def close(self) -> None:
+        if self._pool is not None:
+            self._pool.close()
+
+    def __enter__(self) -> "PeerMesh":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def __repr__(self) -> str:
+        return (f"PeerMesh({[str(d) for d in self.devices]}, "
+                f"{self.backend})")
+
+
+def peer_backend(devices) -> str:
+    """NCCL when every device is a distinct CUDA device, gloo otherwise
+    (ranks sharing a card, CPU ranks): the fixed rule of make_peer_mesh."""
+    devs = [torch.device(d) for d in devices]
+    distinct = len({str(d) for d in devs}) == len(devs)
+    cuda = all(d.type == "cuda" for d in devs)
+    return "nccl" if cuda and distinct and len(devs) > 0 else "gloo"
+
+
 def make_peer_mesh(n_devices: int | None = None,
-                   platform: str | None = None):
-    raise peer_mesh_later("make_peer_mesh")
+                   platform: str | None = None, devices=None,
+                   backend: str | None = None,
+                   threads: int | None = None) -> PeerMesh:
+    """1-D peer mesh over the visible CUDA devices (or `devices`, which
+    may repeat one, or `platform="cpu"`'s n_devices CPU ranks), one rank
+    process each. The backend follows peer_backend unless `backend`
+    names one; NCCL refuses two ranks on one GPU, so there is no other
+    rule and no retry. The chosen backend is printed on stderr.
+    `threads`: CPU threads per rank."""
+    import sys
+
+    devs = _visible_devices(platform, n_devices, devices)
+    if not devs:
+        raise ValueError("no device for a peer mesh")
+    chosen = peer_backend(devs) if backend is None else backend
+    if chosen not in ("gloo", "nccl"):
+        raise ValueError(f"backend {chosen!r} not in (gloo, nccl)")
+    if chosen == "nccl" and peer_backend(devs) != "nccl":
+        raise ValueError(
+            "nccl needs every rank on a distinct CUDA device, got "
+            f"{[str(d) for d in devs]}")
+    print(f"peer mesh: {len(devs)} ranks on {[str(d) for d in devs]} "
+          f"over {chosen}", file=sys.stderr, flush=True)
+    return PeerMesh(devs, chosen, threads=threads)
 
 
-def peer_sharding(mesh):
-    raise peer_mesh_later("peer_sharding")
+def check_peer_mesh(mesh) -> PeerMesh:
+    """`mesh` as a peer mesh the Simulators can run on."""
+    if not isinstance(mesh, PeerMesh):
+        raise TypeError(
+            f"mesh must be a make_peer_mesh PeerMesh, got "
+            f"{type(mesh).__name__}")
+    return mesh
 
 
-def place_simulation(state, arrays, stage, lat, bw, loss, mesh):
-    raise peer_mesh_later("place_simulation")
+@dataclass(frozen=True)
+class RowSharding:
+    """Rows of an (N, ...) leaf split evenly over `parts` ranks."""
+
+    parts: int
+
+    def split(self, x) -> list:
+        n = x.shape[0]
+        if n % self.parts != 0:
+            raise ValueError(
+                f"peer rows {n} must divide evenly over {self.parts} "
+                "devices")
+        per = n // self.parts
+        return [x[r * per:(r + 1) * per] for r in range(self.parts)]
 
 
-def shard_simulation(state, arrays, topo, mesh):
-    raise peer_mesh_later("shard_simulation")
+@dataclass(frozen=True)
+class Replicated:
+    """The same value on each of `parts` ranks."""
+
+    parts: int
+
+    def split(self, x) -> list:
+        return [x] * self.parts
+
+
+def peer_sharding(mesh) -> RowSharding:
+    """Rows of any (N, ...) peer-major array split across the mesh."""
+    return RowSharding(check_peer_mesh(mesh).size)
+
+
+def replicated(mesh) -> Replicated:
+    return Replicated(check_peer_mesh(mesh).size)
+
+
+def reshard_rows(x, mesh) -> list:
+    """One (N, ...) leaf as the ranks' row blocks, in rank order."""
+    return peer_sharding(mesh).split(x)
+
+
+def place_simulation(state, arrays, stage, lat, bw, loss, mesh) -> list:
+    """The reference's constructor-side placement: the row-axis
+    divisibility check, then shard_simulation of the state, the graph
+    arrays and the topology (stage rows split, the stage matrices
+    replicated). Returns one (state, arrays, stage, lat, bw, loss) per
+    rank."""
+    n_rows = state.mesh_mask.shape[0]
+    if n_rows % check_peer_mesh(mesh).size != 0:
+        raise ValueError(
+            f"peer rows {n_rows} must divide evenly over {mesh.size} "
+            "devices")
+    topo = {"stage": stage, "lat": lat, "bw": bw}
+    if loss is not None:
+        topo["loss"] = loss
+    return [(st, ar, tp["stage"], tp["lat"], tp["bw"], tp.get("loss"))
+            for st, ar, tp in shard_simulation(state, arrays, topo, mesh)]
+
+
+def shard_simulation(state, arrays: dict, topo: dict, mesh) -> list:
+    """One (state, arrays, topo) per rank: every leaf whose leading axis
+    is the state's peer rows split by rows, the rest (scalars, the clock,
+    the key, the stage matrices) replicated."""
+    import dataclasses
+
+    n = state.mesh_mask.shape[0]
+    rows, rep = peer_sharding(mesh), replicated(mesh)
+
+    def split(x):
+        peer_major = getattr(x, "ndim", 0) >= 1 and x.shape[0] == n
+        return (rows if peer_major else rep).split(x)
+
+    leaves = {f.name: split(getattr(state, f.name))
+              for f in dataclasses.fields(state)}
+    arr = {k: split(v) for k, v in arrays.items()}
+    tp = {k: split(v) for k, v in topo.items()}
+    return [(state.replace(**{k: v[r] for k, v in leaves.items()}),
+             {k: v[r] for k, v in arr.items()},
+             {k: v[r] for k, v in tp.items()})
+            for r in range(mesh.size)]
 
 
 def nested_sharding(mesh):
@@ -271,7 +437,3 @@ def nested_batch_shardings(tree, mesh, n_rows):
 
 def place_trial_batch(stacked, shared, mesh, n_rows=None):
     raise peer_mesh_later("place_trial_batch")
-
-
-def reshard_rows(x, mesh):
-    raise peer_mesh_later("reshard_rows")

@@ -15,6 +15,12 @@ the CPU and on CUDA without relying on unsigned tensor support.
   uniform(key, shape)  -> f32 in [0, 1): bits = hi ^ lo of
                           threefry(key, counts = (idx >> 32, idx & MASK)),
                           then (bits >> 9) | 0x3F800000 viewed as f32, minus 1
+
+Element idx's bits depend on its flat index alone, so a row block of a
+draw is a draw of its own counters: `rows=(r0, r1)` on `random_bits`,
+`uniform` and `randint` gives rows [r0, r1) of axis `axis` of the full
+`shape` draw, bit for bit, without drawing the other rows (a rank of the
+peer mesh draws its rows this way, parallel/peer.py).
 """
 
 from __future__ import annotations
@@ -58,6 +64,28 @@ def _counts(numel: int, device):
     return idx >> 32, idx & MASK
 
 
+def _block_counts(shape: tuple, rows, axis: int, device):
+    """Flat indices into a row-major `shape` of rows [r0, r1) of `axis`
+    (every index of the other axes), in the block's own row-major order;
+    returns (hi, lo, block shape)."""
+    r0, r1 = rows
+    if not 0 <= r0 <= r1 <= shape[axis]:
+        raise ValueError(f"rows {rows} outside axis {axis} of {shape}")
+    block = shape[:axis] + (r1 - r0,) + shape[axis + 1:]
+    idx = torch.zeros(block, dtype=torch.int64, device=device)
+    stride = 1
+    for d in range(len(shape) - 1, -1, -1):
+        ar = torch.arange(block[d], dtype=torch.int64, device=device)
+        if d == axis:
+            ar = ar + r0
+        view = [1] * len(shape)
+        view[d] = block[d]
+        idx = idx + (ar * stride).view(view)
+        stride *= shape[d]
+    idx = idx.reshape(-1)
+    return idx >> 32, idx & MASK, block
+
+
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """jax.random.split: (num, 2) new keys."""
     hi, lo = _counts(num, key.device)
@@ -65,31 +93,42 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([b0, b1], dim=1)
 
 
-def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
-    """32 random bits per element (as int64), jax's partitionable layout."""
+def random_bits(key: torch.Tensor, shape, rows=None,
+                axis: int = 0) -> torch.Tensor:
+    """32 random bits per element (as int64), jax's partitionable layout;
+    with `rows=(r0, r1)` only rows [r0, r1) of `axis` of that draw."""
     shape = tuple(shape)
-    numel = 1
-    for d in shape:
-        numel *= d
-    hi, lo = _counts(numel, key.device)
+    if rows is None:
+        numel = 1
+        for d in shape:
+            numel *= d
+        hi, lo = _counts(numel, key.device)
+        block = shape
+    else:
+        hi, lo, block = _block_counts(shape, tuple(rows), axis, key.device)
     b0, b1 = threefry2x32(key[0], key[1], hi, lo)
-    return (b0 ^ b1).reshape(shape)
+    return (b0 ^ b1).reshape(block)
 
 
-def uniform(key: torch.Tensor, shape) -> torch.Tensor:
-    """jax.random.uniform(key, shape) in float32 on [0, 1)."""
-    bits = random_bits(key, shape)
+def uniform(key: torch.Tensor, shape, rows=None,
+            axis: int = 0) -> torch.Tensor:
+    """jax.random.uniform(key, shape) in float32 on [0, 1) (`rows`: a row
+    block of it, as random_bits)."""
+    bits = random_bits(key, shape, rows, axis)
     mant = ((bits >> 9) | 0x3F800000).to(torch.int32)
     return mant.view(torch.float32) - 1.0
 
 
-def randint(key: torch.Tensor, shape, minval: int, maxval: int):
+def randint(key: torch.Tensor, shape, minval: int, maxval: int, rows=None,
+            axis: int = 0):
     """jax.random.randint(key, shape, minval, maxval, dtype=int32) for
     0 <= minval < maxval < 2^31, as int32: two 32-bit draws folded into
-    [0, span) by jax's multiplier rule, in uint32 arithmetic."""
+    [0, span) by jax's multiplier rule, in uint32 arithmetic (`rows`: a
+    row block of it, as random_bits)."""
     span = max(int(maxval) - int(minval), 1)
     k1, k2 = split(key)
-    hi, lo = random_bits(k1, shape), random_bits(k2, shape)
+    hi = random_bits(k1, shape, rows, axis)
+    lo = random_bits(k2, shape, rows, axis)
     mult = (2 ** 16) % span
     mult = ((mult * mult) & MASK) % span
     off = (((hi % span) * mult) & MASK) + (lo % span)

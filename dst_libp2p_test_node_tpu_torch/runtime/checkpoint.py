@@ -25,8 +25,13 @@ counters, `answer_wait_max_ms` 0.0). The format carries no record's
 `converged` or `refine_passes`: a restored record has the defaults (True,
 0). `save_checkpoint(kad_state=)` adds a KadState's leaves as kad/*
 (written for offline audit; loading ignores them, as the reference's
-loader does). Snapshots of a peer-sharded run (`mesh=`) belong to the
-peer mesh (ROADMAP A13, second half) and raise.
+loader does).
+
+A run on a peer mesh (runtime/sharded.py) saves the gathered rows, so its
+file is byte-identical to the one-device save at the same point;
+`load_checkpoint(mesh=)` rebuilds the handle on that mesh and scatters
+the leaves to its ranks (a run does not remember its mesh: the mesh is
+the resuming host's).
 """
 
 from __future__ import annotations
@@ -48,13 +53,6 @@ FORMAT_VERSION = 10
 _READABLE = (5, 6, 7, 8, 9, FORMAT_VERSION)
 _TOPO_KEYS = ("latency_ms", "bw_up_mbit", "packet_loss", "stage_of_peer")
 _REPAIR_COUNTERS = ("starve_hb", "evictions", "px_grafts", "redials")
-
-
-def _refuse(mesh=None) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "checkpoints of a sharded run are not ported yet: they come "
-            "with the peer mesh (A13, second half) slice (ROADMAP A)")
 
 
 def _graph_hash(graph) -> str:
@@ -131,6 +129,7 @@ def save_checkpoint(sim, path: str, kad_state=None,
     `service_meta`: a strict-JSON sidecar, read only by
     load_service_meta."""
     multitopic = hasattr(sim, "topic_index")
+    state = sim.state          # on a peer mesh: one gather of the rows
     meta = {
         "version": FORMAT_VERSION,
         "kind": "multitopic" if multitopic else "single",
@@ -138,7 +137,7 @@ def save_checkpoint(sim, path: str, kad_state=None,
         "cfg": asdict(sim.cfg),
         "hb_carry_ms": sim._hb_carry_ms,
         "msg_rng_state": sim._msg_rng.bit_generator.state,
-        "t_ms": float(sim.state.t_ms),
+        "t_ms": float(state.t_ms),
     }
     arrays: dict = {}
     if multitopic:
@@ -155,7 +154,7 @@ def save_checkpoint(sim, path: str, kad_state=None,
         arrays.update(_records_arrays(sim.records))
     arrays["meta_json"] = np.frombuffer(
         json.dumps(meta, allow_nan=False).encode(), dtype=np.uint8)
-    for k, v in interop.state_to_numpy(sim.state).items():
+    for k, v in interop.state_to_numpy(state).items():
         arrays[f"state/{k}"] = v
     for k in _TOPO_KEYS:
         arrays[f"topo/{k}"] = np.asarray(getattr(sim.topology, k))
@@ -205,8 +204,12 @@ def _state_leaves(z, n: int) -> dict:
 def load_checkpoint(path: str, mesh=None, device=None):
     """Rebuild the Simulator (or MultiTopicSimulator, for a snapshot of
     kind "multitopic") that continues where `path` left off, on `device`
-    (CUDA unless the caller passes another)."""
-    _refuse(mesh=mesh)
+    (CUDA unless the caller passes another), or on the peer mesh `mesh`
+    (parallel/sharding.make_peer_mesh; `device` is then unused)."""
+    if mesh is not None:
+        from ..parallel.sharding import check_peer_mesh
+
+        check_peer_mesh(mesh)
     with np.load(path) as z:
         meta = json.loads(bytes(z["meta_json"]).decode())
         if meta["version"] not in _READABLE:
@@ -214,16 +217,16 @@ def load_checkpoint(path: str, mesh=None, device=None):
                 f"checkpoint format {meta['version']} != supported "
                 f"{FORMAT_VERSION}")
         if meta.get("kind", "single") == "multitopic":
-            return _load_multitopic(z, meta, device)
+            return _load_multitopic(z, meta, device, mesh)
         topo_p, gs, cfg_d = _config_parts(meta)
         cfg = ExperimentConfig(topo=topo_p, gossipsub=gs, **cfg_d)
         topology = Topology(topo_p, *(z[f"topo/{k}"] for k in _TOPO_KEYS))
-        sim = Simulator(cfg, topology=topology, device=device)
+        sim = Simulator(cfg, topology=topology, device=device, mesh=mesh)
         _check_graph(sim, meta)
-        sim.state = interop.state_from_numpy(
-            _state_leaves(z, cfg.topo.network_size), sim.device)
+        leaves = _state_leaves(z, cfg.topo.network_size)
+        sim.state = interop.state_from_numpy(leaves, sim.device)
         # the publish path's fanout decision reads a host mirror
-        sim._subscribed_np = sim.state.subscribed.cpu().numpy().copy()
+        sim._subscribed_np = np.asarray(leaves["subscribed"]).copy()
         sim._sub_events_np = np.asarray(z["host/sub_events"]).copy()
         sim._unsub_events_np = np.asarray(z["host/unsub_events"]).copy()
         # the constructor computed _valid_edge from its fresh state
@@ -236,14 +239,15 @@ def load_checkpoint(path: str, mesh=None, device=None):
     return sim
 
 
-def _load_multitopic(z, meta: dict, device):
+def _load_multitopic(z, meta: dict, device, mesh=None):
     from .multitopic import MultiTopicConfig, MultiTopicSimulator
 
     topo_p, gs, cfg_d = _config_parts(meta)
     cfg_d["topics"] = tuple(cfg_d["topics"])
     cfg = MultiTopicConfig(topo=topo_p, gossipsub=gs, **cfg_d)
     topology = Topology(topo_p, *(z[f"topo/{k}"] for k in _TOPO_KEYS))
-    sim = MultiTopicSimulator(cfg, topology=topology, device=device)
+    sim = MultiTopicSimulator(cfg, topology=topology, device=device,
+                              mesh=mesh)
     _check_graph(sim, meta)
     sim.state = interop.state_from_numpy(
         _state_leaves(z, sim.params.n), sim.device)

@@ -21,6 +21,12 @@ blocks (per-node max) and tiled back.
 with that probability (seeded); a peer publishing on a topic it is not
 subscribed to takes the v1.1 fanout path. `publish_batch` injects several
 (topic, publisher) messages at one sim time, topics mixed.
+
+`mesh=` (parallel/sharding.make_peer_mesh) makes it a handle on a peer
+mesh (runtime/sharded.py): the T*N virtual-peer rows are split over the
+ranks, each running this class's code on its rows; the per-node uplink /
+downlink fold across topic blocks is a cross-row max, all-gathered on a
+rank and folded there.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from ..ops.disseminate import answer_tables, disseminate, edge_tables
 from ..ops.graph import build_connection_graph
 from ..ops.heartbeat import run_heartbeats
 from ..ops.state import SimParams, init_state
+from ..parallel import peer
 from .simulator import (
     MUXER_PROC_MS,
     MessageRecord,
@@ -118,10 +125,57 @@ class MultiTopicSimulator:
     """T topics over one shared connection graph, stacked as virtual peers,
     on one device (CUDA unless the caller passes device="cpu")."""
 
+    def __new__(cls, cfg=None, topology=None, device=None, mesh=None):
+        if mesh is not None and cls is MultiTopicSimulator:
+            from .sharded import ShardedMultiTopicSimulator
+
+            return super().__new__(ShardedMultiTopicSimulator)
+        return super().__new__(cls)
+
     def __init__(self, cfg: MultiTopicConfig,
-                 topology: Topology | None = None, device=None):
+                 topology: Topology | None = None, device=None, mesh=None):
+        """`mesh`: a peer mesh; the constructor then returns a
+        runtime/sharded.ShardedMultiTopicSimulator."""
+        self.mesh = None
         cfg.validate()
         self.device = dev = resolve_device(device)
+        self._configure(cfg, topology)
+        tcount, n = len(cfg.topics), self.n_peers
+        # block-diagonal stack: per-topic copies of the same physical edges
+        # shifted by t*N; padding (-1) stays padding, and rev/out_mask are
+        # slot-local, so a plain tile suffices
+        off = (np.arange(tcount) * n)[:, None, None]
+        conns = np.where(self.graph.conns[None] >= 0,
+                         self.graph.conns[None] + off, -1
+                         ).reshape(tcount * n, -1)
+        self.arrays = {
+            "conns": torch.as_tensor(peer.local(conns), device=dev),
+            "rev": torch.as_tensor(
+                peer.local(np.tile(self.graph.rev, (tcount, 1))), device=dev),
+            "out_mask": torch.as_tensor(
+                peer.local(np.tile(self.graph.out_mask, (tcount, 1))),
+                device=dev),
+        }
+        self._stage = torch.as_tensor(
+            peer.local(np.tile(self.topology.stage_of_peer, tcount)),
+            device=dev)
+        self._lat = torch.as_tensor(self.topology.latency_ms, device=dev)
+        self._bw = torch.as_tensor(self.topology.bw_up_mbit, device=dev)
+        # the tiled stage array already indexes the stage-pair loss matrix
+        self._loss = (
+            torch.as_tensor(self.topology.packet_loss, device=dev)
+            if float(np.max(self.topology.packet_loss)) > 0.0 else None)
+        # experiment constants, built once (valid across topic blocks)
+        self._lat_edge, self._loss_edge = edge_tables(
+            self._stage, self._lat, self.arrays["conns"], self.arrays["rev"],
+            self._loss)
+        self._ans_tables = (answer_tables(self._lat_edge, self.arrays["conns"])
+                            if cfg.with_gossip else None)
+        self.state = self._initial_state()
+
+    def _configure(self, cfg: MultiTopicConfig, topology) -> None:
+        """The host side of the constructor: topology, connection graph,
+        params, the subscription draw and the host counters."""
         self.cfg = cfg
         self.topology = topology or Topology.build(cfg.topo)
         n = cfg.topo.network_size
@@ -136,42 +190,12 @@ class MultiTopicSimulator:
             tcount * n, self.graph.capacity, cfg.gossipsub,
             proc_delay_ms=proc_ms,
         )
-        # block-diagonal stack: per-topic copies of the same physical edges
-        # shifted by t*N; padding (-1) stays padding, and rev/out_mask are
-        # slot-local, so a plain tile suffices
-        off = (np.arange(tcount) * n)[:, None, None]
-        conns = np.where(self.graph.conns[None] >= 0,
-                         self.graph.conns[None] + off, -1
-                         ).reshape(tcount * n, -1)
-        self.arrays = {
-            "conns": torch.as_tensor(conns, device=dev),
-            "rev": torch.as_tensor(np.tile(self.graph.rev, (tcount, 1)),
-                                   device=dev),
-            "out_mask": torch.as_tensor(
-                np.tile(self.graph.out_mask, (tcount, 1)), device=dev),
-        }
-        self._stage = torch.as_tensor(
-            np.tile(self.topology.stage_of_peer, tcount), device=dev)
-        self._lat = torch.as_tensor(self.topology.latency_ms, device=dev)
-        self._bw = torch.as_tensor(self.topology.bw_up_mbit, device=dev)
-        # the tiled stage array already indexes the stage-pair loss matrix
-        self._loss = (
-            torch.as_tensor(self.topology.packet_loss, device=dev)
-            if float(np.max(self.topology.packet_loss)) > 0.0 else None)
-        # experiment constants, built once (valid across topic blocks)
-        self._lat_edge, self._loss_edge = edge_tables(
-            self._stage, self._lat, self.arrays["conns"], self.arrays["rev"],
-            self._loss)
-        self._ans_tables = (answer_tables(self._lat_edge, self.arrays["conns"])
-                            if cfg.with_gossip else None)
-
         rng = np.random.default_rng(np.random.SeedSequence([cfg.seed, 0x709]))
         self.subscribed_np = np.ones((tcount, n), dtype=bool)
         if cfg.subscribe_fraction < 1.0:
             # a topic with no subscribers is legal ("no peers" health)
             self.subscribed_np = (rng.random((tcount, n))
                                   < cfg.subscribe_fraction)
-        self.state = self._initial_state()
         self._hb_carry_ms = 0.0
         self.records: list[tuple[str, MessageRecord]] = []
         self._msg_rng = np.random.default_rng(cfg.seed ^ 0x6D736749)
@@ -182,11 +206,12 @@ class MultiTopicSimulator:
         tcount = len(self.cfg.topics)
         state = init_state(self.params, seed=self.cfg.seed,
                            device=self.device)
-        phase_node = state.hb_phase[: self.n_peers]
+        phase_node = peer.all_rows(state.hb_phase)[: self.n_peers]
         return state.replace(
-            subscribed=torch.as_tensor(self.subscribed_np.reshape(-1),
-                                       device=self.device),
-            hb_phase=phase_node.repeat(tcount))
+            subscribed=torch.as_tensor(
+                peer.local(self.subscribed_np.reshape(-1)),
+                device=self.device),
+            hb_phase=peer.local(phase_node.repeat(tcount)))
 
     def reset(self) -> None:
         """Rewind to the pre-warm-up state, keeping the stacked graph,
@@ -232,31 +257,11 @@ class MultiTopicSimulator:
         ti = self.topic_index(topic)
         size = (msg_size if msg_size is not None
                 else self.cfg.topo.msg_size_bytes)
-        a = self.arrays
         n = self.n_peers
-        t0_ms = float(self.state.t_ms) + self._hb_carry_ms
+        t0_ms = self._t_now() + self._hb_carry_ms
         subscribed = bool(self.subscribed_np[ti][publisher])
-        res, self.state = disseminate(
-            self.state, a["conns"], a["rev"], self._stage, self._lat,
-            self._bw, publisher=ti * n + publisher, t0_ms=t0_ms,
-            params=self.params, payload_bytes=size,
-            fragments=self.cfg.topo.num_frags,
-            with_gossip=self.cfg.with_gossip, loss_stage=self._loss,
-            loss_mode=self.cfg.loss_mode, lat_edge=self._lat_edge,
-            loss_edge=self._loss_edge, ans_tables=self._ans_tables,
-            with_fanout=not subscribed,
-        )
-        # one uplink and one downlink per physical node: fold the occupancy
-        # across topic blocks so a publish on topic B queues behind topic
-        # A's traffic
-        t_ct = len(self.cfg.topics)
-        if t_ct > 1:
-            def _fold(x):
-                return x.reshape(t_ct, n).amax(dim=0).repeat(t_ct)
-
-            self.state = self.state.replace(
-                uplink_free_ms=_fold(self.state.uplink_free_ms),
-                rx_free_ms=_fold(self.state.rx_free_ms))
+        res = self._disseminate(ti * n + publisher, t0_ms, size,
+                                not subscribed)
         rec = record_from_result(
             _BlockResult.of(res, slice(ti * n, (ti + 1) * n)),
             msg_id=int(self._msg_rng.integers(0, 2**63, dtype=np.int64)),
@@ -269,6 +274,40 @@ class MultiTopicSimulator:
         )
         self.records.append((topic, rec))
         return rec
+
+    def _t_now(self) -> float:
+        """The sim clock (ms) as a Python float."""
+        return float(self.state.t_ms)
+
+    def _disseminate(self, row: int, t0_ms: float, size: int,
+                     with_fanout: bool):
+        """One disseminate() from virtual-peer row `row`, then the
+        occupancy fold across topic blocks; returns the result."""
+        a, n = self.arrays, self.n_peers
+        res, self.state = disseminate(
+            self.state, a["conns"], a["rev"], self._stage, self._lat,
+            self._bw, publisher=row, t0_ms=t0_ms,
+            params=self.params, payload_bytes=size,
+            fragments=self.cfg.topo.num_frags,
+            with_gossip=self.cfg.with_gossip, loss_stage=self._loss,
+            loss_mode=self.cfg.loss_mode, lat_edge=self._lat_edge,
+            loss_edge=self._loss_edge, ans_tables=self._ans_tables,
+            with_fanout=with_fanout,
+        )
+        # one uplink and one downlink per physical node: fold the occupancy
+        # across topic blocks so a publish on topic B queues behind topic
+        # A's traffic (a cross-row max: on a rank, of the gathered rows)
+        t_ct = len(self.cfg.topics)
+        if t_ct > 1:
+            def _fold(x):
+                every = peer.all_rows(x)
+                return peer.local(
+                    every.reshape(t_ct, n).amax(dim=0).repeat(t_ct))
+
+            self.state = self.state.replace(
+                uplink_free_ms=_fold(self.state.uplink_free_ms),
+                rx_free_ms=_fold(self.state.rx_free_ms))
+        return res
 
     def publish_batch(self, items, msg_size: int | None = None,
                       pad_to: int | None = None) -> list[MessageRecord]:

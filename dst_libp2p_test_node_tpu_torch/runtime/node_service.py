@@ -462,7 +462,7 @@ class NodeService:
 
     def _sync_clock(self) -> None:
         """Refresh the host mirror of the sim clock (pump thread only)."""
-        self._now_ms = float(self.sim.state.t_ms) + self.sim._hb_carry_ms
+        self._now_ms = self.sim._t_now() + self.sim._hb_carry_ms
 
     def _sim_now(self) -> float:
         return self._now_ms
@@ -843,9 +843,10 @@ class NodeService:
         bit-exactly on `device` (CUDA unless the caller passes another;
         runtime/checkpoint.py) and re-admit the pending queue, counters,
         and fairness cursor from the sidecar. Replayed requests then
-        produce results identical to an uninterrupted run. A peer-sharded
-        `mesh` comes with the peer mesh (ROADMAP A13, second half) and
-        raises."""
+        produce results identical to an uninterrupted run. `mesh`: rebuild
+        it on that peer mesh instead (parallel/sharding.make_peer_mesh;
+        the pump then publishes one message at a time, as the reference's
+        mesh path does)."""
         from .checkpoint import load_checkpoint, load_service_meta
 
         sim = load_checkpoint(path, mesh=mesh, device=device)

@@ -19,8 +19,13 @@ experiment (runtime/checkpoint.py), and a run loaded from the snapshot
 continues its schedule. `record_telemetry` arms the flight recorder
 (ops/telemetry.py) for later advances, `publish(censor_edge=)` threads an
 adversarial drop mask, and `rebind_graph` adopts a graph the repair
-controller dialed (runtime/campaign.py). Meshes are a later slice
-(ROADMAP A13).
+controller dialed (runtime/campaign.py).
+
+`mesh=` (parallel/sharding.make_peer_mesh) makes the Simulator a handle
+on a peer mesh (runtime/sharded.py): each rank process holds its rows of
+every peer-major leaf and runs this class's code on them, the handle
+sends every call to the ranks and row-concatenates what they return, so
+records, latencies and summaries come out in the one-device layout.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from ..ops.heartbeat import run_heartbeats
 from ..ops.mix import MixParams, eligible_mix_count, mix_route, mix_wire_bytes
 from ..ops.pull import neighbor_pull_bool
 from ..ops.state import SimParams, graph_arrays, init_state
+from ..parallel import peer
 from .logemit import LatenciesWriter
 from .summarize import LatencySummary, report, summarize
 
@@ -150,15 +156,50 @@ def record_from_result(res, *, msg_id, publisher, t0_ms,
 
 
 class Simulator:
+    def __new__(cls, cfg=None, topology=None, device=None, mesh=None):
+        if mesh is not None and cls is Simulator:
+            from .sharded import ShardedSimulator
+
+            return super().__new__(ShardedSimulator)
+        return super().__new__(cls)
+
     def __init__(self, cfg: ExperimentConfig,
-                 topology: Topology | None = None, device=None):
+                 topology: Topology | None = None, device=None, mesh=None):
+        """`mesh`: a peer mesh (make_peer_mesh); the constructor then
+        returns a runtime/sharded.ShardedSimulator. On a rank of one
+        (an active parallel/peer group) every device leaf is the rank's
+        rows."""
+        self.mesh = None
+        self.device = dev = resolve_device(device)
+        self._configure(cfg, topology)
+        self.state = init_state(self.params, seed=cfg.seed, device=dev)
+        self.arrays = graph_arrays(self.graph, device=dev)
+        self._stage = torch.as_tensor(peer.local(self.topology.stage_of_peer),
+                                      device=dev)
+        self._lat = torch.as_tensor(self.topology.latency_ms, device=dev)
+        self._bw = torch.as_tensor(self.topology.bw_up_mbit, device=dev)
+        # per-stage-pair packet loss (topogen -l); None keeps the lossless
+        # path free of the loss draws
+        self._loss = (
+            torch.as_tensor(self.topology.packet_loss, device=dev)
+            if float(np.max(self.topology.packet_loss)) > 0.0 else None)
+        # experiment constants, built once
+        self._lat_edge, self._loss_edge = edge_tables(
+            self._stage, self._lat, self.arrays["conns"], self.arrays["rev"],
+            self._loss)
+        self._ans_tables = (answer_tables(self._lat_edge, self.arrays["conns"])
+                            if cfg.with_gossip else None)
+        self._valid_edge = None if self._churny else self._compute_valid_edge()
+
+    def _configure(self, cfg: ExperimentConfig, topology) -> None:
+        """The host side of the constructor: config checks, topology,
+        connection graph, params and the host counters."""
         cfg.topo.validate()
         cfg.gossipsub.validate()
         if cfg.msgid_mode not in ("nim", "go"):
             raise ValueError(f"unknown msgid_mode {cfg.msgid_mode!r}")
         if cfg.loss_mode not in ("message", "tcp"):
             raise ValueError(f"unknown loss_mode {cfg.loss_mode!r}")
-        self.device = resolve_device(device)
         self.cfg = cfg
         self.topology = topology or Topology.build(cfg.topo)
         n = cfg.topo.network_size
@@ -177,26 +218,8 @@ class Simulator:
             packed_state=cfg.packed_state,
             warm_start=cfg.warm_start,
         )
-        dev = self.device
-        self.state = init_state(self.params, seed=cfg.seed, device=dev)
-        self.arrays = graph_arrays(self.graph, device=dev)
-        self._stage = torch.as_tensor(self.topology.stage_of_peer, device=dev)
-        self._lat = torch.as_tensor(self.topology.latency_ms, device=dev)
-        self._bw = torch.as_tensor(self.topology.bw_up_mbit, device=dev)
-        # per-stage-pair packet loss (topogen -l); None keeps the lossless
-        # path free of the loss draws
-        self._loss = (
-            torch.as_tensor(self.topology.packet_loss, device=dev)
-            if float(np.max(self.topology.packet_loss)) > 0.0 else None)
-        # experiment constants, built once
-        self._lat_edge, self._loss_edge = edge_tables(
-            self._stage, self._lat, self.arrays["conns"], self.arrays["rev"],
-            self._loss)
-        self._ans_tables = (answer_tables(self._lat_edge, self.arrays["conns"])
-                            if cfg.with_gossip else None)
         self._churny = (cfg.churn_down_per_hb > 0.0
                         or cfg.churn_up_per_hb > 0.0)
-        self._valid_edge = None if self._churny else self._compute_valid_edge()
         self._startup_membership()
         self._msg_rng = np.random.default_rng(cfg.seed ^ 0x6D736749)
         self._last_msg_id = -1
@@ -232,14 +255,17 @@ class Simulator:
         """Rewind to the pre-warm-up state, keeping graph and topology."""
         self.state = init_state(self.params, seed=self.cfg.seed,
                                 device=self.device)
+        self._reset_host()
+        if not self._churny:
+            self._valid_edge = self._compute_valid_edge()
+
+    def _reset_host(self) -> None:
         self._startup_membership()
         self._msg_rng = np.random.default_rng(self.cfg.seed ^ 0x6D736749)
         self._last_msg_id = -1
         self._hb_carry_ms = 0.0
         self.records = []
         self.last_telemetry = {}  # the recorder stays armed across resets
-        if not self._churny:
-            self._valid_edge = self._compute_valid_edge()
 
     def set_subscribed(self, mask) -> None:
         """Set per-peer topic membership. An unsubscribed peer can still
@@ -247,7 +273,7 @@ class Simulator:
         mask = np.asarray(mask, dtype=bool)
         if mask.shape != (self.params.n,):
             raise ValueError(f"subscribed mask must be ({self.params.n},)")
-        if float(self.state.t_ms) == 0.0 and not self.records:
+        if self._t_now() == 0.0 and not self.records:
             # before the warm-up this defines the startup membership: one
             # SUBSCRIBE per joined node, nothing for the others
             self._sub_events_np = mask.astype(np.int64)
@@ -259,11 +285,14 @@ class Simulator:
             self._unsub_events_np = (
                 self._unsub_events_np + (~mask & self._subscribed_np))
         self._subscribed_np = mask
+        self._apply_subscribed(mask)
+
+    def _apply_subscribed(self, mask: np.ndarray) -> None:
         # the warm-start carry measured offsets on the old membership
         self.state = self.state.replace(
-            subscribed=torch.as_tensor(mask, device=self.device),
-            warm_offset_ms=torch.full((self.params.n,), 3.4e38,
-                                      dtype=torch.float32,
+            subscribed=torch.as_tensor(peer.local(mask), device=self.device),
+            warm_offset_ms=torch.full((peer.local_count(self.params.n),),
+                                      3.4e38, dtype=torch.float32,
                                       device=self.device))
         if not self._churny:
             self._valid_edge = self._compute_valid_edge()
@@ -276,9 +305,9 @@ class Simulator:
         keeps the epoch graph (checkpoints hash it)."""
         dev = self.device
         self.arrays = {
-            "conns": torch.as_tensor(conns, device=dev),
-            "rev": torch.as_tensor(rev, device=dev),
-            "out_mask": torch.as_tensor(out_mask, device=dev),
+            "conns": torch.as_tensor(peer.local(conns), device=dev),
+            "rev": torch.as_tensor(peer.local(rev), device=dev),
+            "out_mask": torch.as_tensor(peer.local(out_mask), device=dev),
         }
         self._lat_edge, self._loss_edge = edge_tables(
             self._stage, self._lat, self.arrays["conns"], self.arrays["rev"],
@@ -287,7 +316,8 @@ class Simulator:
                                           self.arrays["conns"])
                             if self.cfg.with_gossip else None)
         self.state = self.state.replace(warm_offset_ms=torch.full(
-            (self.params.n,), 3.4e38, dtype=torch.float32, device=dev))
+            (peer.local_count(self.params.n),), 3.4e38, dtype=torch.float32,
+            device=dev))
         if not self._churny:
             self._valid_edge = self._compute_valid_edge()
 
@@ -330,24 +360,15 @@ class Simulator:
         None keeps the benign publish."""
         cfg = self.cfg
         size = msg_size if msg_size is not None else cfg.topo.msg_size_bytes
-        a = self.arrays
-        t0_ms = float(self.state.t_ms) + self._hb_carry_ms
+        t0_ms = self._t_now() + self._hb_carry_ms
         origin = publisher
         mix_delay = 0.0
         if self.mix_params is not None:
             mix_delay, publisher = self._mix_relay(origin, size, t0_ms)
-        res, self.state = disseminate(
-            self.state, a["conns"], a["rev"], self._stage, self._lat,
-            self._bw, publisher=publisher, t0_ms=t0_ms + mix_delay,
-            params=self.params, payload_bytes=size,
-            fragments=cfg.topo.num_frags, with_gossip=cfg.with_gossip,
-            loss_stage=self._loss, loss_mode=cfg.loss_mode,
-            lat_edge=self._lat_edge, loss_edge=self._loss_edge,
-            ans_tables=self._ans_tables, valid_edge=self._valid_edge,
-            # an unsubscribed publisher takes the v1.1 fanout path
-            with_fanout=not bool(self._subscribed_np[publisher]),
-            censor_edge=censor_edge,
-        )
+        # an unsubscribed publisher takes the v1.1 fanout path
+        res = self._disseminate(
+            publisher, t0_ms + mix_delay, size,
+            not bool(self._subscribed_np[publisher]), censor_edge)
         if cfg.msgid_mode == "go":
             msg_id = max(int(t0_ms * 1e6), self._last_msg_id + 1)
             self._last_msg_id = msg_id
@@ -368,6 +389,27 @@ class Simulator:
         self.records.append(rec)
         return rec
 
+    def _t_now(self) -> float:
+        """The sim clock (ms) as a Python float."""
+        return float(self.state.t_ms)
+
+    def _disseminate(self, publisher: int, t0_ms: float, size: int,
+                     with_fanout: bool, censor_edge=None):
+        """One disseminate() call on this Simulator's state and tables;
+        returns the DisseminationResult and keeps the new state."""
+        cfg, a = self.cfg, self.arrays
+        res, self.state = disseminate(
+            self.state, a["conns"], a["rev"], self._stage, self._lat,
+            self._bw, publisher=publisher, t0_ms=t0_ms,
+            params=self.params, payload_bytes=size,
+            fragments=cfg.topo.num_frags, with_gossip=cfg.with_gossip,
+            loss_stage=self._loss, loss_mode=cfg.loss_mode,
+            lat_edge=self._lat_edge, loss_edge=self._loss_edge,
+            ans_tables=self._ans_tables, valid_edge=self._valid_edge,
+            with_fanout=with_fanout, censor_edge=censor_edge,
+        )
+        return res
+
     def publish_batch(self, publishers, msg_size: int | None = None,
                       pad_to: int | None = None) -> list[MessageRecord]:
         """Inject len(publishers) messages at the current sim time, in
@@ -376,13 +418,13 @@ class Simulator:
         carried from one to the next, so the records and the state equal
         the reference's batched dispatch. All publishers must share one
         fanout bucket (all subscribed or all not), as there. Mix routing
-        keeps the per-publish path, as there. `pad_to` keeps the
+        and a peer mesh keep the per-publish path, as there. `pad_to` keeps the
         reference's signature: its padding columns change nothing, so it
         is not used."""
         pubs = [int(p) for p in publishers]
         if not pubs:
             return []
-        if self.mix_params is not None:
+        if self.mix_params is not None or self.mesh is not None:
             return [self.publish(p, msg_size=msg_size) for p in pubs]
         subbed = {bool(self._subscribed_np[p]) for p in pubs}
         if len(subbed) != 1:
@@ -395,7 +437,7 @@ class Simulator:
         cfg = self.cfg
         size = msg_size if msg_size is not None else cfg.topo.msg_size_bytes
         a = self.arrays
-        t0_ms = float(self.state.t_ms) + self._hb_carry_ms
+        t0_ms = self._t_now() + self._hb_carry_ms
         results, self.state = publish_columns(
             self.state, a["conns"], a["rev"], self._stage, self._lat,
             self._bw, pubs, [True] * len(pubs), t0_ms, self.params, size,
@@ -528,6 +570,6 @@ class Simulator:
 
     def peer_rounds_per_sec(self, wall_seconds: float) -> float:
         """Simulated peers x heartbeat rounds per wall second."""
-        sim_rounds = float(self.state.t_ms) / self.params.heartbeat_ms
+        sim_rounds = self._t_now() / self.params.heartbeat_ms
         return self.cfg.topo.network_size * sim_rounds / max(wall_seconds,
                                                              1e-9)

@@ -13,11 +13,15 @@ localhost, the way hosts of a multi-host campaign would, and each:
   4. runs real cross-process collectives and checks them: an all_reduce
      of each process's slice of arange(64) (every process must see the
      global sum) and dcn_allreduce's sum and max, the channel the DCN
-     campaign's merge rides on.
-
-The reference smoke's step 5 (one simulation step with the fixpoint
-sharded across the process boundary, converge_sharded) waits for the
-peer mesh, the second half of ROADMAP A13, and is not run here.
+     campaign's merge rides on;
+  5. runs one simulation step with the fixpoint sharded across the
+     process boundary: a 64-peer Simulator built on each process's rows
+     of a peer mesh over the two processes (parallel/peer.PeerGroup over
+     the world group, runtime/sharded.rank_simulator), one heartbeat and
+     one exact disseminate, whose fixpoints run through converge_sharded;
+     each process checks its rows of every result and state leaf against
+     the single-process run of the same seed (answer_queue_mode "serial",
+     the refinement engine a mesh takes), bitwise.
 
 Run:  python scripts/dcn_smoke_torch.py [--device cpu]
       python scripts/dcn_smoke_torch.py --worker I (internal: one member)
@@ -89,11 +93,58 @@ def worker(process_id: int, device: str | None) -> None:
     assert got_sum.tolist() == [expect, float(NUM_PROCS)], got_sum
     assert got_max.tolist() == [float(NUM_PROCS - 1)], got_max
 
+    rows = step5(process_id, dev)
+
     print(f"worker {process_id}: global_devices={n_global} "
           f"grid={mesh.shape} all_reduce={float(total[0])} "
-          f"dcn_allreduce sum={got_sum.tolist()} max={got_max.tolist()} OK",
-          flush=True)
+          f"dcn_allreduce sum={got_sum.tolist()} max={got_max.tolist()} "
+          f"fixpoint rows={rows} sharded==single-process OK", flush=True)
     dist.destroy_process_group()
+
+
+def step5(process_id: int, dev) -> str:
+    """One heartbeat and one disseminate on this process's rows of a
+    64-peer peer mesh over the world, against the single-process run:
+    every result and state leaf's rows bitwise. Returns the rows."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from dst_libp2p_test_node_tpu_torch import interop
+    from dst_libp2p_test_node_tpu_torch.config.topology import TopoParams
+    from dst_libp2p_test_node_tpu_torch.parallel import peer
+    from dst_libp2p_test_node_tpu_torch.runtime.sharded import (
+        rank_simulator)
+    from dst_libp2p_test_node_tpu_torch.runtime.simulator import (
+        ExperimentConfig, Simulator)
+
+    cfg = ExperimentConfig(
+        topo=TopoParams(network_size=64, anchor_stages=2, min_bandwidth=50,
+                        max_bandwidth=100, min_latency=40, max_latency=80,
+                        msg_size_bytes=15000, num_frags=2),
+        connect_to=6, warmup_s=1.0, seed=5,
+        # the engine a mesh takes for exact refinement
+        answer_queue_mode="serial")
+    ref = Simulator(cfg, device=dev)
+    ref.warmup()
+    want = ref._disseminate(4, ref._t_now(), 15000, False)
+    grp = peer.PeerGroup(process_id, NUM_PROCS, 64, dev)
+    sim = rank_simulator("single", cfg, ref.topology, dev, grp)
+    with peer.using(grp):
+        sim.warmup()
+        got = sim._disseminate(4, sim._t_now(), 15000, False)
+    assert grp.stats["all_gather"] > 0 and grp.stats["all_reduce"] > 0
+    rows = slice(grp.r0, grp.r1)
+    for f in dataclasses.fields(want):
+        w, g = getattr(want, f.name), getattr(got, f.name)
+        w = w[rows] if w.dim() >= 1 else w
+        assert torch.equal(w.cpu(), g.cpu()), f"result {f.name} differs"
+    mine = interop.state_to_numpy(sim.state)
+    for k, w in interop.state_to_numpy(ref.state).items():
+        w = w if k in ("t_ms", "key") else w[rows]
+        assert np.array_equal(w, mine[k]), f"state {k} differs"
+    return f"[{grp.r0}, {grp.r1})"
 
 
 def _launch(port: int, device: str | None) -> tuple[bool, str]:

@@ -12,7 +12,11 @@ merge_dcn_rank_results, parallel/sharding.dcn_allreduce) on the CPU:
     the merged result equal to the single-process campaign
     outside the walls, the counts cross-checked against the all-reduce in
     every rank, and the rank files carrying rank 0's certificate (rank 1's
-    none), which the merged result keeps.
+    none), which the merged result keeps;
+  - scripts/dcn_smoke_torch.py: two gloo processes over localhost, its
+    step 5 (one heartbeat and one disseminate on each process's rows of
+    a 64-peer peer mesh over the two processes, the fixpoints through
+    converge_sharded) equal, row for row, to the single-process run.
 """
 
 import json
@@ -123,3 +127,20 @@ def test_two_process_dcn_campaign(tmp_path):
     single = json.loads((work / "single.json").read_text())
     assert merged["conformance"] == ranks[0]["conformance"] \
         == single["conformance"]
+
+
+def test_dcn_smoke_step5_shards_the_fixpoint(tmp_path):
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "scripts", "dcn_smoke_torch.py"),
+         "--device", "cpu"], cwd=str(tmp_path), env=env,
+        capture_output=True, text=True, timeout=280)
+    out = proc.stdout + proc.stderr
+    assert proc.returncode == 0, out
+    assert "dcn_smoke_torch: PASS" in out
+    oks = [ln for ln in out.splitlines()
+           if "sharded==single-process OK" in ln]
+    assert len(oks) == 2
+    assert "fixpoint rows=[0, 32)" in oks[0] + oks[1]
+    assert "fixpoint rows=[32, 64)" in oks[0] + oks[1]

@@ -111,7 +111,9 @@ def test_outside_the_slice_raises():
             torch.from_numpy(topo.latency_ms),
             torch.from_numpy(topo.bw_up_mbit))
     kw = dict(publisher=1, t0_ms=0.0, params=pt, payload_bytes=15000)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    # mesh= takes a rank's PeerGroup (the peer mesh is ported:
+    # tests/port/test_torch_peer_sim.py)
+    with pytest.raises(TypeError, match="PeerGroup"):
         td.disseminate(*args, **kw, mesh=object())
     # return_plan is ported now (the conformance slice;
     # tests/port/test_torch_plan.py holds it against the reference)

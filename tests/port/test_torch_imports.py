@@ -11,7 +11,8 @@ ops.episub, the conformance gate's ops.spec, analysis.conformance
 and runtime.profiling, and the tooling's native.tuned,
 analysis.contracts, analysis.registry, analysis.report,
 analysis.ast_lint, analysis.jaxpr_audit and runtime.microbench, and
-the trial grid's parallel.sharding and parallel.ranks named), chip_smoke.py
+the trial grid's parallel.sharding and parallel.ranks, and the peer
+mesh's parallel.peer and runtime.sharded named), chip_smoke.py
 and the port's scripts (scripts/dcn_smoke_torch.py and
 scripts/dcn_campaign_torch.py; the shell twins run the port's package
 only) import in a fresh interpreter where `import jax` and `import flax`
@@ -56,7 +57,8 @@ for name in ("ops.mix", "runtime.multitopic", "runtime.checkpoint",
              "runtime.profiling", "native.tuned", "analysis.contracts",
              "analysis.registry", "analysis.report", "analysis.ast_lint",
              "analysis.jaxpr_audit", "runtime.microbench",
-             "parallel.sharding", "parallel.ranks"):
+             "parallel.sharding", "parallel.ranks", "parallel.peer",
+             "runtime.sharded"):
     assert port.__name__ + "." + name in names, name
 sys.exit(1 if bad else 0)
 """

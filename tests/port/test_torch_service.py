@@ -423,7 +423,9 @@ def test_service_checkpoint_and_cross_restore(tmp_path):
     assert _det(tr.metrics_text()) == _det(jr.metrics_text())
     _drive((jr, tr), _schedule("multi")[2:])
     _same_service(jr, tr)
-    with pytest.raises(NotImplementedError, match="A13"):
+    # a mesh must be a make_peer_mesh PeerMesh (restore on a peer mesh:
+    # tests/port/test_torch_peer_checkpoint.py)
+    with pytest.raises(TypeError, match="PeerMesh"):
         tns.NodeService.restore(tp, TNodeConfig(**node), mesh=object(),
                                 device="cpu")
 

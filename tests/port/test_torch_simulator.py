@@ -125,7 +125,7 @@ def test_what_is_not_ported_raises(tmp_path):
     assert len(recs) == 2 and recs[0].received.sum() > 0
     rec = sim.publish("b", 1)
     assert rec.received.sum() > 0
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(TypeError, match="PeerMesh"):
         load_checkpoint("unused.npz", mesh=object())
     path = str(tmp_path / "ck.npz")
     save_checkpoint(sim, path, kad_state=init_kad_state(40, device="cpu"))

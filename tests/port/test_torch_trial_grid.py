@@ -6,7 +6,8 @@ sequential runs and the reference's trial-mesh campaigns:
   - the mesh rules of the reference (tests/test_trial_sharding.py:
     shape and divisibility, the full grid and its edge cases) over
     `devices=` lists, and a grid wider than one device per group refused
-    naming the peer mesh, as are the reference module's row placers;
+    naming the peer mesh's next slice, as are the nested placers (the row
+    placers are the peer mesh's and take its PeerMesh);
   - run_campaign on a 2- and a 4-rank grid (3 seeds: the 4-rank grid
     leaves one rank idle) for the reference's static, recovery, faulted
     and DHT configurations (tests/test_trial_sharding.py:55-70, 121-129,
@@ -183,10 +184,15 @@ def test_trial_mesh_full_grid_and_edge_cases():
     # groups wider than one device are the peer mesh's: refused by name
     with pytest.raises(NotImplementedError, match="A13, second half"):
         tc.run_campaign(_cfg("torch"), trial_mesh=m, device="cpu")
-    for fn, args in ((tsh.make_peer_mesh, ()), (tsh.peer_sharding, (m,)),
-                     (tsh.place_trial_batch, (None, {}, m)),
-                     (tsh.reshard_rows, (None, m))):
+    # the nested shardings are the peer mesh's next slice; the row placers
+    # are ported and take a PeerMesh, not a trial grid
+    for fn, args in ((tsh.place_trial_batch, (None, {}, m)),
+                     (tsh.nested_sharding, (m,))):
         with pytest.raises(NotImplementedError, match="peer mesh"):
+            fn(*args)
+    for fn, args in ((tsh.peer_sharding, (m,)),
+                     (tsh.reshard_rows, (np.zeros(4), m))):
+        with pytest.raises(TypeError, match="PeerMesh"):
             fn(*args)
     with pytest.raises(NotImplementedError, match="peer mesh"):
         tc.run_campaign(_cfg("torch"), mesh=object(), device="cpu")
