@@ -328,6 +328,29 @@ not printed):
                steps, step 5 one heartbeat and one disseminate on each
                process's rows of a 64-peer mesh across the two processes,
                equal to the one-process run.
+ 16. the campaign on the peer mesh (runtime/campaign.py's nested grid
+               and run_campaign(mesh=)), inside phase 15's mesh: (a) one
+               2 x 2 grid of 4 ranks sharing the card (gloo), each
+               trial's 128 rows over its group's 2 ranks, against the
+               port's one-process CPU runs: 10(a)'s composed faults with
+               the adaptive attacker, a recovery window and the recorder,
+               10(a)'s DHT two-leg campaign (every TrialResult field,
+               checkpoint file and obs sidecar bitwise) and 11(a)'s
+               faulted arena (its artifact), with 4 recovery rounds
+               (10(a): 8); the ranks start while the CPU runs and (c)
+               go. (b) run_campaign(mesh=) on phase 15's 2 ranks
+               at 9(c)'s network and full width for fraction 0.1, seed 0:
+               the trial = 9(c)'s (0.1, 0) trial outside the walls, its
+               checkpoint and obs sidecar = 9(c)'s files, both kernels
+               launched in each rank and equally often; prints the wall
+               and walls by phase beside 9(c)'s, all-gathers and their
+               bytes per window and per publish, each rank's peak
+               allocated memory beside 9(c)'s and the card's idle share.
+               (c) the flight recorder on a 2-rank ShardedSimulator at
+               2,048 peers (15(a)'s setting, a 10 s warm-up, then byte
+               counters and backlogs planted in every row and 2.5 s of
+               heartbeats): every last_telemetry curve bitwise the
+               one-process CPU run's.
 
 Then one JSON line with every kernel's numbers: at 1M x 40 with
 `launches` from phase 4's config-5 run, under `exact` at 100k x 40 with
@@ -340,9 +363,11 @@ campaign (`campaign`), 10(b)'s three campaigns (`faults`, `adaptive`,
 and arena (`arena`), 12(b)'s campaign (`conformance_campaign`), 12(c)'s
 run (`plan`), 12(d)'s trace process (`trace`, as its profiler counted
 them), 13(b)'s microbench (`microbench`), 14(b)'s grid (`trial_grid`:
-the ranks' sum, each rank's and the caller's) and 15(b)'s mesh
+the ranks' sum, each rank's and the caller's), 15(b)'s mesh
 (`peer_mesh`: the ranks' sum and each rank's, and each kernel's time,
-plain and library times and bound at a rank's shape), and under
+plain and library times and bound at a rank's shape) and 16(b)'s
+campaign on the mesh (`campaign_mesh`: the ranks' sum and each rank's),
+and under
 `service` the 670k x 40 numbers with `launches` from 8(b)'s batched run
 (and its sequential run's). Then the total run time, and last the line
 {"ok": true, "device": {...}}. Without CUDA it exits 1 and prints no
@@ -354,13 +379,15 @@ probe were cut to make room for phase 14; phase 8 took 108.3-110.4 s
 of it, phase 9 101.4-104.4 s, phase 10 145.3-151.3 s, phase 11
 60.0-61.9 s, phase 12 90.5-100.2 s, phase 13 56.9-61.4 s and phase 14
 59.7-60.7 s. With phase 15 (46.3 s alone, 59.3-69.0 s in the whole
-smoke) the whole smoke took 881.3-1,018.7 s in four runs on machines of
-different speed. Runs of similar work swing about 10% between machines.
-Held to 1,000 s (ROADMAP, Budgets), inside the 20-minute limit.
+smoke) the whole smoke took 881.3-1,018.7 s in six runs on machines of
+different speed; with phase 16, PERF.md §5 has the runs. Runs of the
+same work swing up to 16% between machines. Held to 1,100 s (ROADMAP,
+Budgets), inside the 20-minute limit.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import io
@@ -2673,8 +2700,9 @@ def phase_campaign_full(dev):
     rebind_graph runs at 100k), flight recorder and checkpoints on. Counts
     zeroed just before and read just after. A second run_campaign on the
     same directory resumes every attacked trial and gives the same result
-    outside the walls. Returns the first run's launches and its result
-    (phase 14(b) holds the trial grid against it)."""
+    outside the walls. Returns the first run's launches, its result and
+    its peak allocated memory (phases 14(b) and 16(b) hold the grid and
+    the mesh against them)."""
     from dst_libp2p_test_node_tpu_torch.native import score_update as su
     from dst_libp2p_test_node_tpu_torch.native import vmem_gather as vg
     from dst_libp2p_test_node_tpu_torch.runtime.campaign import run_campaign
@@ -2726,7 +2754,7 @@ def phase_campaign_full(dev):
           f"({syncs['attack'][1]:.3f} s profiled), recovery window "
           f"{syncs['recovery'][0]} in {cfg.recovery_heartbeats} "
           f"({syncs['recovery'][1]:.3f} s profiled)")
-    return launches, res
+    return launches, res, peak
 
 
 def phase_service_telemetry(dev):
@@ -2779,10 +2807,10 @@ def phase_9(dev):
     os.makedirs(SCRATCH, exist_ok=True)
     phase_campaign_parity(dev)
     phase_config6(dev)
-    launches, res9c = phase_campaign_full(dev)
+    launches, res9c, peak9c = phase_campaign_full(dev)
     phase_service_telemetry(dev)
     print(f"[campaign] phase 9 took {time.time() - t0:.1f} s")
-    return launches, res9c
+    return launches, res9c, peak9c
 
 
 # ---------------------------------------------------------------- phase 10
@@ -4620,26 +4648,260 @@ def phase_mesh_dcn(dev):
           f"({time.time() - t0:.1f} s)")
 
 
-def phase_15(dev, stats3b, launches3b):
-    from dst_libp2p_test_node_tpu_torch.parallel.sharding import (
-        make_peer_mesh)
-
+def phase_15(dev, mesh, stats3b, launches3b):
     t0 = time.time()
     os.makedirs(SCRATCH, exist_ok=True)
-    with make_peer_mesh(devices=[dev] * MESH_RANKS) as mesh:
-        check(mesh.backend == "gloo", f"two ranks on one card took "
-              f"{mesh.backend}")
-        timed = phase_mesh_parity(dev, mesh)
-        launches = phase_mesh_config4(dev, mesh, stats3b, launches3b)
+    check(mesh.backend == "gloo", f"two ranks on one card took "
+          f"{mesh.backend}")
+    timed = phase_mesh_parity(dev, mesh)
+    launches = phase_mesh_config4(dev, mesh, stats3b, launches3b)
     phase_mesh_dcn(dev)
     print(f"[mesh] phase 15 took {time.time() - t0:.1f} s")
     return dict(launches, timed=timed)
+
+
+# --------------------------------------------------------------- phase 16
+
+# 16(a)'s grid: GRID16 trial groups, each GRID16 ranks wide, on the card
+GRID16 = 2
+# 16(a)'s recovery rounds: half of 10(a)'s 8, for phase 16's 60 s aim
+GRID16_RECOVERY = 4
+# 16(c)'s network and warm-up (a third of 15(a)'s 30 s, for the same aim)
+RECORDER16_N = PARITY_N
+RECORDER16_WARMUP_S = 10.0
+
+
+def _grid16_cases():
+    """16(a)'s two campaigns at 10(a)'s shape: 10(a)'s composed fault
+    schedule with the adaptive attacker and a recovery window, and 10(a)'s
+    DHT two-leg campaign (both with GRID16_RECOVERY recovery rounds)."""
+    return {
+        "composed_adaptive": dict(
+            scenario="sybil_graft_flood", adaptive=True,
+            recovery=GRID16_RECOVERY,
+            faults=dict(FAULTS10, crash_frac=0.1, partition_window=(4, 40))),
+        "dht": dict(scenario="eclipse_publisher", recovery=GRID16_RECOVERY,
+                    dht=dict(lookup_eclipse=True, rtable_poison=True,
+                             sybil_cluster=True, heal_hb=3)),
+    }
+
+
+def _grid16_runs(dev, pool):
+    """16(a)'s three runs on `pool` (the grid; None: the one-process CPU
+    run): {tag: (CampaignResult, checkpoint dir)} and the arena's artifact
+    under "arena" (wall_s dropped)."""
+    from dst_libp2p_test_node_tpu_torch.runtime.campaign import (
+        run_arena_campaign, run_campaign)
+
+    device = dev if pool is not None else torch.device("cpu")
+    common = dict(fractions=(0.0, 0.2), seeds=(0, 1), attack_hb=10,
+                  warmup_s=5.0, anchor_stages=3)
+    out = {}
+    for tag, kw in _grid16_cases().items():
+        ck = os.path.join(SCRATCH, f"camp16a_{tag}_{int(pool is None)}")
+        shutil.rmtree(ck, ignore_errors=True)
+        cfg = _cfg10(CAMP_PARITY_N, ckpt=ck, **common, **kw)
+        out[tag] = (run_campaign(cfg, trial_mesh=pool, device=device), ck)
+    cfg = _arena_cfg(_exp11(ARENA_PARITY_N, 2000, 1, 8.0, messages=2,
+                            delay_s=0.5, anchor_stages=3), (0, 1), 6,
+                     FAULTS11)
+    out["arena"] = run_arena_campaign(cfg, trial_mesh=pool, device=device)
+    out["arena"].pop("wall_s")
+    return out
+
+
+def phase_grid16(dev, pool, on_cpu):
+    """16(a): one 2 x 2 grid (4 ranks sharing the card over gloo, each
+    trial's 128 peer rows split over its group's two ranks) against the
+    port's one-process CPU runs `on_cpu` of the same configs: the two
+    campaigns of _grid16_cases (fractions 0 and 0.2, seeds 0 and 1, the
+    recorder and checkpoints on) with every TrialResult field outside the
+    walls, every checkpoint file and obs sidecar bitwise; run_arena_
+    campaign with 11(a)'s faults, its artifact equal outside wall_s.
+    Returns each rank's launches."""
+    t0 = time.time()
+    on_grid = _grid16_runs(dev, pool)
+    summary = []
+    for tag in _grid16_cases():
+        (rg, ckg), (rc, ckc) = on_grid[tag], on_cpu[tag]
+        check(_campaign_fields(rg) == _campaign_fields(rc),
+              f"16(a) {tag}: the grid's TrialResults differ from the CPU "
+              "run's")
+        _same_npz_dirs(f"16(a) {tag}", ckg, ckc)
+        att = [w for w in rg.phase_walls if w["fraction"] > 0]
+        check(len(att) == 2 and all("all_gathers" in w for w in att),
+              f"16(a) {tag}: the attacked trials did not run on the grid's "
+              "ranks")
+        summary.append(f"{tag}: coverage " + ", ".join(
+            f"{t.honest_coverage:.4f}" for t in rg.trials if t.fraction > 0))
+    check(on_grid["arena"] == on_cpu["arena"],
+          "16(a) the grid's faulted arena differs from the CPU run's")
+    launches = [dict(r) for r in pool.launches]
+    print(f"[mesh16] 16(a) a {GRID16} x {GRID16} grid of 4 ranks sharing "
+          f"the card (gloo), each trial's {CAMP_PARITY_N} rows over "
+          f"{GRID16} ranks: the composed-fault adaptive campaign with "
+          f"recovery, the DHT two-leg campaign and the faulted arena = the "
+          f"one-process CPU runs in every field, checkpoint file and obs "
+          f"sidecar ({time.time() - t0:.1f} s on the grid; rank start-up "
+          f"{', '.join(f'{x:.1f}' for x in pool.startup_s)} s); launches "
+          f"per rank {launches}; " + "; ".join(summary))
+    return launches
+
+
+def _gathers16(walls, phase, per=1):
+    count, nbytes = walls.get("all_gathers", {}).get(phase, (0, 0))
+    return f"{count / per:g} ({nbytes / per / 2**20:.1f} MiB)"
+
+
+def phase_campaign_mesh16(dev, mesh, res9c, peak9c):
+    """16(b): run_campaign(cfg, mesh=) on phase 15's 2 ranks at 9(c)'s
+    network and full width (100,000 peers x 4 fragments of 15,000 B,
+    exact, a 60 s warm-up, 20 attack + 10 recovery heartbeats, evict + px
+    + redial, recorder and checkpoints on) for fraction 0.1, seed 0: the
+    trial equal to 9(c)'s (0.1, 0) trial outside the walls, its
+    checkpoint and obs sidecar byte for byte 9(c)'s, both kernels
+    launched in each rank and equally often. Prints the wall and the
+    walls by phase beside 9(c)'s, the all-gathers and their bytes per
+    window and per publish, each rank's peak allocated memory beside
+    9(c)'s and the card's idle share. Returns each rank's launches."""
+    from dst_libp2p_test_node_tpu_torch.runtime.campaign import run_campaign
+
+    ck = os.path.join(SCRATCH, "camp16b")
+    shutil.rmtree(ck, ignore_errors=True)
+    cfg = _campaign_cfg(CAMP_FULL_N, "sybil_graft_flood", (0.1,), (0,), 20,
+                        EXACT_WARMUP_S, msg_size=15000, frags=4,
+                        recovery=10, ckpt=ck)
+    before = [dict(r) for r in mesh.pool.launches]
+    torch.cuda.synchronize()
+    with _UtilSampler() as util:
+        t0 = time.time()
+        res = run_campaign(cfg, mesh=mesh, device=dev)
+        wall = time.time() - t0
+    launches = _rank_launch_delta(mesh.pool, before)
+    cell = (0.1, 0)
+    want = [t for t in _campaign_fields(res9c)["trials"]
+            if (t["fraction"], t["seed"]) == cell]
+    got = _campaign_fields(res)["trials"]
+    check(len(want) == 1 and got == want,
+          f"16(b): the mesh's trial differs from 9(c)'s: {got} != {want}")
+    for name in ("sybil_graft_flood_f0.1_s0.npz",
+                 "sybil_graft_flood_f0.1_s0.obs.npz"):
+        check(_sha256(os.path.join(ck, name))
+              == _sha256(os.path.join(SCRATCH, "camp9c", name)),
+              f"16(b): {name} differs from 9(c)'s file")
+    for k in ("vmem_gather", "score_update"):
+        check(all(lr[k] > 0 for lr in launches),
+              f"16(b): a rank never launched {k}: {launches}")
+        check(len({lr[k] for lr in launches}) == 1,
+              f"16(b): the ranks launched {k} unequally: {launches}")
+    walls = res.phase_walls[0]
+    walls9c = [w for w in res9c.phase_walls
+               if (w["fraction"], w["seed"]) == cell][0]
+    trial9c = [t for t in res9c.trials if (t.fraction, t.seed) == cell][0]
+    peaks = res.rank_stats["rank_peak_bytes"]
+    print(f"[mesh16] 16(b) 9(c)'s campaign at fraction 0.1, seed 0 on "
+          f"{len(mesh.devices)} ranks sharing "
+          f"{torch.cuda.get_device_name(0)} ({CAMP_FULL_N} peers x 4 "
+          f"fragments, 20 attack + 10 recovery heartbeats, recorder and "
+          f"checkpoints on): the trial = 9(c)'s outside the walls, its "
+          f"checkpoint and obs sidecar = 9(c)'s files; wall {wall:.3f} s, "
+          f"the trial's wall_s {res.trials[0].wall_s:.3f} against 9(c)'s "
+          f"{trial9c.wall_s:.3f}; launches per rank {launches}; "
+          f"all-gathers per rank: attack window "
+          f"{_gathers16(walls, 'attack_window')}, recovery window "
+          f"{_gathers16(walls, 'recovery_window')}, per publish "
+          f"{_gathers16(walls, 'publish', cfg.experiment.topo.messages)}; "
+          f"peak allocated per rank "
+          f"{', '.join(f'{(b or 0) / 2**30:.2f}' for b in peaks)} GiB (9(c) in "
+          f"one process: {peak9c / 2**30:.2f} GiB); card idle share "
+          f"{util.idle_share:.4f} over {len(util.samples)} samples of "
+          f"nvidia-smi utilization.gpu every {UTIL_SAMPLE_MS} ms")
+    skip = ("fraction", "seed", "resumed", "all_gathers")
+    print("[mesh16] 16(b)   walls: " + ", ".join(
+        f"{k} {v:.3f} s (9(c) {walls9c.get(k, 0.0):.3f})"
+        for k, v in walls.items() if k not in skip))
+    print("[mesh16] 16(b)   all-gathers by phase per rank: " + ", ".join(
+        f"{k} {c} ({b / 2**20:.1f} MiB)"
+        for k, (c, b) in walls.get("all_gathers", {}).items()))
+    return launches
+
+
+def phase_recorder16(dev, mesh):
+    """16(c): the flight recorder on a 2-rank ShardedSimulator at 2,048
+    peers (15(a)'s setting: exact, 2 fragments, tcp loss 5%, churn; a
+    10 s warm-up): record_telemetry and the warm-up, then fractional byte
+    counters and uplink backlogs planted in every row (what publishes
+    leave) and 2.5 s of heartbeats; every last_telemetry curve bitwise the
+    one-process CPU run's."""
+    import copy
+
+    from dst_libp2p_test_node_tpu_torch import interop
+    from dst_libp2p_test_node_tpu_torch.ops.telemetry import TelemetryParams
+    from dst_libp2p_test_node_tpu_torch.runtime.simulator import Simulator
+
+    t0 = time.time()
+    n = RECORDER16_N
+    cfg = dataclasses.replace(_mesh_parity_cfg(n),
+                              warmup_s=RECORDER16_WARMUP_S)
+    gen = np.random.default_rng(16)
+    planted = {k: gen.uniform(0, 3e5, n).astype(np.float32)
+               for k in ("bytes_tx", "bytes_rx")}
+    planted["uplink_free_ms"] = (RECORDER16_WARMUP_S * 1000.0 + gen.uniform(
+        0, 5000, n)).astype(np.float32)
+    curves = []
+    for sim in (Simulator(copy.deepcopy(cfg), device="cpu"),
+                Simulator(cfg, mesh=mesh)):
+        sim.record_telemetry(TelemetryParams(record=True))
+        sim.warmup()
+        warm = dict(sim.last_telemetry)
+        leaves = interop.state_to_numpy(sim.state)
+        sim.state = interop.state_from_numpy(dict(leaves, **planted), "cpu")
+        sim.advance(2500.0)
+        curves.append((warm, dict(sim.last_telemetry)))
+        if sim.mesh is not None:
+            sim.close()
+    for i, what in enumerate(("warm-up", "after the planted counters")):
+        want, got = curves[0][i], curves[1][i]
+        bad = interop.leaf_mismatches(want, got) + sorted(set(want)
+                                                          ^ set(got))
+        check(want and not bad, f"16(c) recorder {what}: {bad} differ")
+    check(float(curves[1][1]["tel_queue_depth_ms"][0]) > 0.0,
+          "16(c): the planted backlog left no queue depth")
+    print(f"[mesh16] 16(c) record_telemetry on {len(mesh.devices)} ranks at "
+          f"{n} peers = the one-process CPU run on every channel "
+          f"({len(curves[0][0])} curves of "
+          f"{len(curves[0][0]['tel_mesh_coverage'])} heartbeats, then "
+          f"{len(curves[0][1]['tel_mesh_coverage'])}) "
+          f"({time.time() - t0:.1f} s)")
+
+
+def phase_16(dev, mesh, res9c, peak9c):
+    from dst_libp2p_test_node_tpu_torch.parallel.ranks import RankPool
+
+    t0 = time.time()
+    os.makedirs(SCRATCH, exist_ok=True)
+    pool = RankPool([dev] * (GRID16 * GRID16), peer_width=GRID16)
+    with pool, concurrent.futures.ThreadPoolExecutor(1) as ex:
+        # 16(a)'s ranks start while its CPU runs and 16(c) go
+        started = ex.submit(pool.start)
+        on_cpu = _grid16_runs(dev, None)
+        phase_recorder16(dev, mesh)
+        started.result()
+        grid = phase_grid16(dev, pool, on_cpu)
+    launches = phase_campaign_mesh16(dev, mesh, res9c, peak9c)
+    print(f"[mesh16] phase 16 took {time.time() - t0:.1f} s")
+    return {"ranks": {k: sum(r[k] for r in launches)
+                      for k in launches[0]},
+            "per_rank": launches, "grid": grid}
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
         return 1
+    from dst_libp2p_test_node_tpu_torch.parallel.sharding import (
+        make_peer_mesh)
+
     started = time.time()
     dev = torch.device("cuda", 0)
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
@@ -4666,13 +4928,16 @@ def main() -> int:
         phase_roles_parity(dev)
         launches_roles = phase_roles(dev)
         service = phase_8(dev)
-        launches_campaign, res9c = phase_9(dev)
+        launches_campaign, res9c, peak9c = phase_9(dev)
         launches10 = phase_10(dev)
         launches11 = phase_11(dev)
         launches12 = phase_12(dev)
         launches13 = phase_13(dev, kernels)
         launches14 = phase_14(dev, res9c, launches_campaign)
-        launches15 = phase_15(dev, lossless, launches_exact)
+        # one 2-rank peer mesh serves phases 15 and 16
+        with make_peer_mesh(devices=[dev] * MESH_RANKS) as mesh:
+            launches15 = phase_15(dev, mesh, lossless, launches_exact)
+            launches16 = phase_16(dev, mesh, res9c, peak9c)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -4706,6 +4971,9 @@ def main() -> int:
                      launches15["timed"][k],
                      launches=launches15["ranks"][k],
                      rank_launches=[r[k] for r in launches15["per_rank"]]),
+                 campaign_mesh=dict(
+                     launches=launches16["ranks"][k],
+                     rank_launches=[r[k] for r in launches16["per_rank"]]),
                  service=dict(
                      v["service"],
                      launches=service["batched"]["launches"][k],

@@ -72,8 +72,11 @@ prints the reference's Pareto report (--json: its artifact).
 referee) and prints the reference's win matrix (--json: its artifact).
 `attack`, `pareto` and `arena` take --trial-groups N: the attacked seeds
 run on a trial grid, one rank process per GPU (0: one per visible device;
-with --device cpu, N CPU ranks); `attack --mesh` (the peer mesh) exits
-with an error naming its slice.
+a card with more GPUs than groups gives groups several GPUs wide, each
+trial's peer rows split over its group's ranks; with --device cpu, N CPU
+ranks). `attack --mesh` runs the campaign on the peer mesh, one rank per
+visible GPU (with --device cpu, MESH_CPU_RANKS = 2 CPU ranks), each on
+its rows of the network; the peer count must divide over the ranks.
 
   python -m dst_libp2p_test_node_tpu_torch conform [--scenario S ...] \
       [--seeds 0 1] [--fuzz N] [--out F] [--device cpu]
@@ -364,10 +367,15 @@ def _resolve(p: argparse.ArgumentParser, device):
         p.error(str(exc))
 
 
+# the ranks of `attack --mesh --device cpu`
+MESH_CPU_RANKS = 2
+
+
 def _trial_grid(p: argparse.ArgumentParser, groups, device):
     """--trial-groups N as a trial grid (None without the flag): N groups
     over the visible CUDA devices, 0 one per device (N must divide the
-    count); on --device cpu, N CPU ranks (0: one)."""
+    count; with more devices than groups each group is several devices
+    wide); on --device cpu, N CPU ranks (0: one)."""
     if groups is None:
         return None
     from .parallel.sharding import check_trial_grid, make_trial_mesh
@@ -935,9 +943,10 @@ def cmd_attack(argv: list[str]) -> int:
                    "device count; 0 = one group per visible device; with "
                    "--device cpu, N CPU ranks). Mutually exclusive with "
                    "--mesh")
-    # the peer mesh (an error names the slice)
-    later = p.add_argument_group("later slices")
-    later.add_argument("--mesh", action="store_true")
+    p.add_argument("--mesh", action="store_true",
+                   help="run the campaign on the peer mesh: one rank per "
+                   "visible GPU, each on its rows of the network "
+                   f"(--device cpu: {MESH_CPU_RANKS} CPU ranks)")
     _device_arg(p)
     a = p.parse_args(argv)
 
@@ -957,13 +966,20 @@ def cmd_attack(argv: list[str]) -> int:
     if a.mesh and a.trial_groups is not None:
         p.error("--trial-groups and --mesh are mutually exclusive "
                 "(the trial grid already owns every device)")
-    if a.mesh:
-        from .parallel.sharding import PEER_MESH_SLICE
-
-        p.error(f"--mesh is not ported yet: it comes with {PEER_MESH_SLICE}"
-                " (ROADMAP A)")
     device = _resolve(p, a.device)
     trial_mesh = _trial_grid(p, a.trial_groups, device)
+    mesh = None
+    if a.mesh:
+        from .parallel.sharding import make_peer_mesh
+
+        cpu = device.type == "cpu"
+        mesh = make_peer_mesh(
+            devices=["cpu"] * MESH_CPU_RANKS if cpu else None,
+            threads=(max(1, (os.cpu_count() or 1) // MESH_CPU_RANKS) if cpu
+                     else None))
+        if a.peers % mesh.size != 0:
+            p.error(f"--mesh needs peers ({a.peers}) divisible by the "
+                    f"device count ({mesh.size})")
 
     def _window(spec: str, flag: str) -> tuple[int, int]:
         try:
@@ -1049,7 +1065,11 @@ def cmd_attack(argv: list[str]) -> int:
             inject_failures=a.inject_failures),
     )
     t0 = time.time()
-    res = run_campaign(cfg, trial_mesh=trial_mesh, device=device)
+    if mesh is not None:
+        with mesh:
+            res = run_campaign(cfg, mesh=mesh, device=device)
+    else:
+        res = run_campaign(cfg, trial_mesh=trial_mesh, device=device)
     d = res.to_dict()
     print(report_campaign(d), end="")
     if a.json:

@@ -115,7 +115,8 @@ def result_fields(obj, walls: bool = True) -> dict:
         return [result_fields(x, walls) for x in obj]
     out = {}
     for f in dataclasses.fields(obj):
-        if f.name == "phase_walls" or (not walls and f.name in _WALL_FIELDS):
+        if f.name in ("phase_walls", "rank_stats") or (
+                not walls and f.name in _WALL_FIELDS):
             continue
         v = getattr(obj, f.name)
         if f.name == "trials":

@@ -31,6 +31,12 @@ predicts its next penalty counter, floods or throttles to legal re-grafts
 (duty cycle), updates its estimate from its own tx view and plants sybil
 ids in honest px_pool rows. `run_adaptive_heartbeats` is its window;
 disabled it is run_attacked_heartbeats.
+
+On a rank of the peer mesh (parallel/peer.py) every per-peer mask and
+leaf is the rank's rows; the observables' counts are summed over the
+ranks and their float sums read the gathered rows, the cohort order and
+the PX poisoner's sybil lookups read the whole cohort, and the eclipse
+writes the publisher's row on its owner.
 """
 
 from __future__ import annotations
@@ -41,13 +47,14 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..parallel import peer
 from .heartbeat import heartbeat_step
 from .pull import neighbor_pull_bool, reciprocal_pull_bool
 from .state import (PX_POOL_WIDTH, AdaptiveCtrl, SimParams, SimState,
                     init_adaptive_ctrl, repair_inert)
 from .telemetry import (adaptive_observables, contracted_score, stack_obs,
                         telemetry_observables)
-from .xlamath import fma_f32, sum_f32
+from .xlamath import fma_f32
 
 SCENARIOS = (
     "sybil_graft_flood",
@@ -245,10 +252,11 @@ def censor_mask(attacker: torch.Tensor, conns: torch.Tensor) -> torch.Tensor:
 def eclipse_setup(state: SimState, conns: torch.Tensor,
                   attacker: torch.Tensor, publisher: int) -> SimState:
     """Overwrite the publisher's mesh row with its attacker edges only."""
-    nb = conns[publisher]
-    row = torch.where(nb >= 0, attacker[nb.clamp_min(0).long()], False)
+    nb = peer.read_row(conns, publisher)
+    row = torch.where(nb >= 0,
+                      peer.all_rows(attacker)[nb.clamp_min(0).long()], False)
     mesh = state.mesh_mask.clone()
-    mesh[publisher] = row
+    peer.write_row(mesh, publisher, row)
     return state.replace(mesh_mask=mesh)
 
 
@@ -271,7 +279,8 @@ def _valid_edges(state, conns, rev, nbr_ok):
 
 
 def _isum(x: torch.Tensor) -> torch.Tensor:
-    return x.sum(dtype=torch.int64)
+    """A count over every peer's rows."""
+    return peer.isum(x)
 
 
 def _ratio(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
@@ -295,7 +304,7 @@ def attack_observables(state: SimState, conns, rev, attacker,
         "graylisted_frac": _ratio(
             _isum(h_att_edge & (sc < params.graylist_threshold)), n_e),
         "attacker_score_mean": (
-            sum_f32(torch.where(h_att_edge, sc, _f32(0.0, sc)))
+            peer.sum_f32(torch.where(h_att_edge, sc, _f32(0.0, sc)))
             / n_e.to(torch.float32)),
         "attacker_mesh_share": _ratio(
             _isum(mesh & att_nbr & honest[:, None]),
@@ -460,9 +469,10 @@ def adaptive_round(state: SimState, ctrl: AdaptiveCtrl, conns, rev,
     if edge_ok is not None:
         valid = valid & edge_ok
     att_row = attacker[:, None] & valid
-    n = conns.shape[0]
+    n_loc = conns.shape[0]
+    n = peer.global_rows(n_loc)
     dev = conns.device
-    me = torch.arange(n, dtype=i32, device=dev)
+    me = peer.row_ids(n_loc, dev).to(i32)
     zero = _f32(0.0, state.slow_penalty)
     pen = _f32(adv.violation_penalty, zero)
 
@@ -507,17 +517,15 @@ def adaptive_round(state: SimState, ctrl: AdaptiveCtrl, conns, rev,
     extra = {}
     if pol.px_poison and px_pool_live:
         pool = state.px_pool.clone()
-        if att_sorted is None:
-            att_sorted = torch.sort(torch.where(attacker, me, n)).values
-        if n_att is None:
-            n_att = attacker.sum(dtype=torch.int64)
+        if att_sorted is None or n_att is None:
+            att_sorted, n_att = cohort_order(attacker)
         att_nbr = neighbor_pull_bool(attacker, conns, rev)
         victim = (~attacker & state.alive & state.subscribed
                   & (att_nbr & valid).any(dim=-1))
         hb = hb_idx if hb_idx is not None else 0
         base = me.long() + hb * pol.px_poison_per_hb
         denom = n_att.clamp_min(1)
-        rows = me.long()
+        rows = torch.arange(n_loc, device=dev)
         for k in range(pol.px_poison_per_hb):
             cand = att_sorted[(base + k) % denom]
             empty = pool < 0
@@ -545,7 +553,9 @@ def adaptive_round(state: SimState, ctrl: AdaptiveCtrl, conns, rev,
 
 def cohort_order(attacker: torch.Tensor):
     """(sorted cohort ids, padded with n; cohort size): the PX poisoner's
-    sybil-id schedule, invariant over a window."""
+    sybil-id schedule, invariant over a window; over the whole cohort on
+    a rank of the peer mesh."""
+    attacker = peer.all_rows(attacker)
     n = attacker.shape[0]
     me = torch.arange(n, dtype=torch.int32, device=attacker.device)
     return (torch.sort(torch.where(attacker, me, n)).values,

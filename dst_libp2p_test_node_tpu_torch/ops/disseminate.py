@@ -95,7 +95,7 @@ depends on the fixpoint), the port computes it in float64 and rounds once
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, fields, replace
 
 import torch
 from torch.profiler import record_function
@@ -186,6 +186,20 @@ class DisseminationResult:
     answer_interleaved: torch.Tensor  # () int32 lanes with interleaved rounds
     converged: torch.Tensor      # () bool every fixpoint met its certificate
     refine_passes: torch.Tensor  # () int32 (0 in bounded mode)
+
+
+# the per-peer fields of a result (the rest are replicated scalars)
+RESULT_ROWS = ("t_rx_ms", "delay_ms", "received", "sends", "copies_rx",
+               "ihave_sent", "iwant_sent", "lost_tx")
+
+
+def gathered_result(res: DisseminationResult) -> DisseminationResult:
+    """A rank's result with every per-peer field's whole rows (one
+    all-gather each); the result itself on one device."""
+    if peer.active() is None:
+        return res
+    return replace(
+        res, **{k: peer.all_rows(getattr(res, k)) for k in RESULT_ROWS})
 
 
 def _div(x: torch.Tensor, c: float) -> torch.Tensor:

@@ -39,6 +39,11 @@ window reaches the score_update kernel; the neighbor pulls run in
 ops/pull.py. The repair leaves stay on the state: no episub step reads
 or writes them, and the adaptive PX poisoner runs only where the
 reference keeps them (repair armed).
+
+On a rank of the peer mesh (parallel/peer.py) the step and the carry are
+the rank's rows: the hop clamp is the whole N, the churn draws are those
+rows of the whole draw, the decay's predicate is taken over every rank
+and the tree observables are counted and summed over every peer.
 """
 
 from __future__ import annotations
@@ -49,15 +54,15 @@ import torch
 
 from .. import prng
 from ..device import resolve_device
+from ..parallel import peer
 from .adversary import (AdversaryParams, adaptive_round, adversary_round,
                         cohort_order)
-from .faults import FaultParams, partition_edge_mask
+from .faults import FaultParams, fault_observables, partition_edge_mask
 from .heartbeat import _apply_decay
 from .pull import neighbor_pull_bool, neighbor_pull_min, reciprocal_pull_bool
 from .state import SimParams, SimState, init_adaptive_ctrl, repair_inert
 from .telemetry import (contracted_score, stack_obs,
                         telemetry_observables)
-from .xlamath import sum_f32
 
 INF = 3.4e38
 
@@ -90,8 +95,10 @@ class EpisubCtrl:
 
 
 def init_episub_ctrl(n: int, device=None) -> EpisubCtrl:
-    """A fresh, fully detached tree carry for one trial window."""
+    """A fresh, fully detached tree carry for one trial window of n peers
+    (on a rank of the peer mesh, its rows of it)."""
     dev = resolve_device(device)
+    n = peer.local_count(n)
     return EpisubCtrl(
         hops=torch.full((n,), INF, dtype=torch.float32, device=dev),
         parent=torch.full((n,), -1, dtype=torch.int32, device=dev),
@@ -104,16 +111,16 @@ def episub_observables(ctrl: EpisubCtrl, alive: torch.Tensor,
     """tree_reach_frac: the share of live subscribed peers with a finite
     hop estimate; tree_depth_mean: the mean hop count over those."""
     f32 = torch.float32
-    n = ctrl.hops.shape[0]
+    n = peer.global_rows(ctrl.hops.shape[0])
     live = alive & subscribed
     reached = live & (ctrl.hops <= float(n))
-    n_r = reached.sum(dtype=torch.int64)
+    n_r = peer.isum(reached)
     zero = torch.zeros((), dtype=f32, device=ctrl.hops.device)
     return {
         "tree_reach_frac": (n_r.to(f32)
-                            / live.sum(dtype=torch.int64).clamp_min(1)
-                            .to(f32)),
-        "tree_depth_mean": (sum_f32(torch.where(reached, ctrl.hops, zero))
+                            / peer.isum(live).clamp_min(1).to(f32)),
+        "tree_depth_mean": (peer.sum_f32(torch.where(reached, ctrl.hops,
+                                                     zero))
                             / n_r.clamp_min(1).to(f32)),
     }
 
@@ -126,7 +133,8 @@ def episub_heartbeat_step(state: SimState, ctrl: EpisubCtrl, conns, rev,
     liveness pull (churn off), `edge_ok` the fault hook. Returns (state,
     ctrl); mesh_mask on return is the tree (the parent edge plus the
     accepted child edges)."""
-    n, c = conns.shape
+    n_loc, c = conns.shape
+    n = peer.global_rows(n_loc)
     dev = conns.device
     i32 = torch.int32
     key, k_churn_d, k_churn_u = prng.split(state.key, 3)
@@ -134,8 +142,8 @@ def episub_heartbeat_step(state: SimState, ctrl: EpisubCtrl, conns, rev,
 
     alive = state.alive
     if params.churn_down_per_hb > 0.0 or params.churn_up_per_hb > 0.0:
-        dies = prng.uniform(k_churn_d, (n,)) < params.churn_down_per_hb
-        revives = prng.uniform(k_churn_u, (n,)) < params.churn_up_per_hb
+        dies = peer.uniform(k_churn_d, (n_loc,)) < params.churn_down_per_hb
+        revives = peer.uniform(k_churn_u, (n_loc,)) < params.churn_up_per_hb
         alive = torch.where(alive, ~dies, revives)
         nbr_ok = None   # alive just changed
         warm = torch.full_like(state.warm_offset_ms, INF)
@@ -156,7 +164,7 @@ def episub_heartbeat_step(state: SimState, ctrl: EpisubCtrl, conns, rev,
 
     # relax by one hop; estimates at or past N hops are dropped, so a
     # detached subtree drains instead of counting up
-    is_root = torch.arange(n, device=dev) == ep.root
+    is_root = peer.row_ids(n_loc, dev) == ep.root
     nbr_hops = neighbor_pull_min(ctrl.hops, conns, rev)
     cand = torch.where(ok_edge & (nbr_hops < float(n)), nbr_hops + 1.0, INF)
     best = cand.amin(dim=-1)
@@ -204,7 +212,7 @@ def episub_heartbeat_step(state: SimState, ctrl: EpisubCtrl, conns, rev,
         sel, conns, rev).sum(dim=-1, dtype=i32)
 
     fmd, slow = state.fmd, state.slow_penalty
-    if bool(((fmd > 0) | (slow > 0)).any()):
+    if peer.any_((fmd > 0) | (slow > 0)):
         fmd = _apply_decay(fmd, params.fmd_decay, params)
         slow = _apply_decay(slow, params.slow_decay, params)
 
@@ -249,7 +257,6 @@ def episub_window(state: SimState, ctrl: EpisubCtrl, conns, rev, out_mask,
     if faults.spike:
         spike_ms = torch.tensor(faults.spike_ms, dtype=torch.float32,
                                 device=conns.device)
-    f32 = torch.float32
     rounds = []
     s, c = state, ctrl
     for hb in range(steps):
@@ -279,13 +286,7 @@ def episub_window(state: SimState, ctrl: EpisubCtrl, conns, rev, out_mask,
                 spike, torch.maximum(s.uplink_free_ms, s.t_ms) + spike_ms,
                 s.uplink_free_ms))
         obs.update(episub_observables(c, s.alive, s.subscribed))
-        if faults.partition:
-            obs["cross_mesh_edges"] = (s.mesh_mask & cross).sum(
-                dtype=torch.int64).to(f32)
-        if faults.crash:
-            obs["restarted_mean_degree"] = (
-                (s.mesh_mask & crash[:, None]).sum(dtype=torch.int64).to(f32)
-                / crash.sum(dtype=torch.int64).clamp_min(1).to(f32))
+        obs.update(fault_observables(s, faults, cross, crash))
         if telemetry is not None:
             # the episub windows contract the score's first product, as
             # the attack windows do

@@ -26,6 +26,11 @@ no schedule. Cohorts are drawn on the host in `fault_masks`; the
 armed window draws no device PRNG, so the key schedule is the un-faulted
 run's. The reference's per-round `lax.cond`s on the round index are host
 comparisons of the loop's Python int here, so they cost no host sync.
+
+On a rank of the peer mesh (parallel/peer.py) the cohorts are the rank's
+rows like every per-peer mask; the cut and the heal read the neighbors'
+side and liveness from the gathered rows, and the fault observables'
+counts are summed over the ranks.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..parallel import peer
 from .adversary import (AdversaryParams, adaptive_round, adversary_round,
                         cohort_order)
 from .heartbeat import heartbeat_step
@@ -132,7 +138,8 @@ def fault_masks(n: int, faults: FaultParams, seed: int,
 def partition_edge_mask(side: torch.Tensor, conns: torch.Tensor
                         ) -> torch.Tensor:
     """(N, C) bool: True on every connected edge that crosses the cut."""
-    return (conns >= 0) & (side[:, None] ^ side[conns.clamp_min(0).long()])
+    return (conns >= 0) & (side[:, None]
+                           ^ peer.all_rows(side)[conns.clamp_min(0).long()])
 
 
 def _go_dark(s: SimState, crash) -> SimState:
@@ -164,8 +171,25 @@ def _restart(s: SimState, crash, crash_nbr, conns, params) -> SimState:
 def _thaw(s: SimState, frozen, conns) -> SimState:
     # heal: restore the banked edges whose endpoints both still stand
     ok = s.alive & s.subscribed
-    keep = frozen & ok[:, None] & ok[conns.clamp_min(0).long()]
+    keep = frozen & ok[:, None] & peer.all_rows(ok)[conns.clamp_min(0)
+                                                    .long()]
     return s.replace(mesh_mask=s.mesh_mask | keep)
+
+
+def fault_observables(s: SimState, faults: FaultParams, cross,
+                      crash) -> dict:
+    """The fault channels of a round: cross_mesh_edges (partition armed:
+    mesh edges across the cut) and restarted_mean_degree (crash armed:
+    the restarting cohort's mean mesh degree), counts over every row."""
+    f32 = torch.float32
+    obs = {}
+    if faults.partition:
+        obs["cross_mesh_edges"] = peer.isum(s.mesh_mask & cross).to(f32)
+    if faults.crash:
+        obs["restarted_mean_degree"] = (
+            peer.isum(s.mesh_mask & crash[:, None]).to(f32)
+            / peer.isum(crash).clamp_min(1).to(f32))
+    return obs
 
 
 def run_faulted_heartbeats(state: SimState, conns, rev, out_mask, attacker,
@@ -260,13 +284,7 @@ def attack_window(state: SimState, conns, rev, out_mask, attacker,
                 s = s.replace(uplink_free_ms=torch.where(
                     spike, torch.maximum(s.uplink_free_ms, s.t_ms)
                     + spike_ms, s.uplink_free_ms))
-        if faults.partition:
-            obs["cross_mesh_edges"] = (s.mesh_mask & cross).sum(
-                dtype=torch.int64).to(f32)
-        if faults.crash:
-            obs["restarted_mean_degree"] = (
-                (s.mesh_mask & crash[:, None]).sum(dtype=torch.int64).to(f32)
-                / crash.sum(dtype=torch.int64).clamp_min(1).to(f32))
+        obs.update(fault_observables(s, faults, cross, crash))
         if telemetry is not None:
             obs.update(telemetry_observables(
                 s, conns, rev, params, telemetry, contract_score="first"))

@@ -17,9 +17,17 @@ shape, so every rank takes the path one device takes. The budget constant is the
 written for the TPU (128-lane padding of the last axis); re-deriving it for
 the H100 is later work, and changing it would move the sender-side /
 receiver-side fixpoint switch in ops/disseminate.py with it.
+
+`batch_scope(bf)` is the reference's `batch_factor` argument of its
+vmapped windows for every pull made inside the block that passes none:
+the nested windows (runtime/campaign.py) set the reference's choice
+(`_nested_batch_factor`), so a pull takes the form the reference's takes;
+both forms give the same values.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -43,7 +51,23 @@ def exceeds_budget(dtype, conns_shape, batch_factor: int = 1) -> bool:
     return padded > _MAX_INTERMEDIATE_BYTES
 
 
+_SCOPE_BF = 1
+
+
+@contextlib.contextmanager
+def batch_scope(batch_factor: int):
+    """Pulls inside the block that pass no batch_factor use this one."""
+    global _SCOPE_BF
+    prev, _SCOPE_BF = _SCOPE_BF, max(int(batch_factor), 1)
+    try:
+        yield
+    finally:
+        _SCOPE_BF = prev
+
+
 def _row_pull(vals, conns, rev, select, batch_factor):
+    if batch_factor <= 1:
+        batch_factor = _SCOPE_BF
     q, r = conns.clamp_min(0), rev.clamp_min(0)
     whole = (peer.global_rows(conns.shape[0]), conns.shape[-1])
     vals = peer.all_rows(vals)

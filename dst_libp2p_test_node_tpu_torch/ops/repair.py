@@ -26,6 +26,15 @@ random peer, with sybils refusing every dial, and
 `run_adaptive_recovery_heartbeats` contests each round with the adaptive
 attacker (ops/adversary.adaptive_round), which with slot_race runs the
 dial controller too and accepts dials.
+
+On a rank of the peer mesh (parallel/peer.py) a round runs on the rank's
+rows. What a dial reads of its target (liveness, a free slot, its score
+and backoff on the reciprocal slot) comes from the all-gathered rows; what
+it writes into the target's row goes through the peer helpers that give
+the one-device bytes whatever rank writes: the acceptor's winner is a
+scatter-min over the ranks, the counterpart's mesh slot an OR, its graft
+count an integer sum. The branch predicate, the window's counts and the
+publisher's row are taken over every rank.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ from dataclasses import dataclass
 import torch
 
 from .. import prng
+from ..parallel import peer
 from .adversary import (AdversaryParams, adaptive_round, attack_observables,
                         cohort_order)
 from .heartbeat import heartbeat_step
@@ -106,13 +116,16 @@ def repair_round(state: SimState, conns, rev, out_mask, params: SimParams,
     returned as a fifth result. `refuse`: (N,) peers that never accept a
     dial (sybils): the dial is attempted, the candidate consumed, nothing
     commits."""
-    n, c = conns.shape
+    n_loc, c = conns.shape
+    n = peer.global_rows(n_loc)
     dev = conns.device
     i32 = torch.int32
-    me = torch.arange(n, dtype=i32, device=dev)
+    me = peer.row_ids(n_loc, dev).to(i32)
     iota_c = torch.arange(c, dtype=i32, device=dev)
     t = state.t_ms
     alive_sub = state.alive & state.subscribed
+    # the (N,) tables a dial reads at its target
+    alive_all = peer.all_rows(alive_sub)
     act = alive_sub if actor is None else (actor & alive_sub)
     deg = state.mesh_mask.sum(dim=-1, dtype=i32)
 
@@ -125,29 +138,29 @@ def repair_round(state: SimState, conns, rev, out_mask, params: SimParams,
 
     pool = state.px_pool
     cand_ok = ((pool >= 0) & (pool != me[:, None])
-               & alive_sub[pool.clamp_min(0).long()])
+               & alive_all[pool.clamp_min(0).long()])
     has_cand = cand_ok.any(dim=-1)
     k0 = torch.argmax(cand_ok.to(torch.uint8), dim=-1)
     cand = _row_take(pool, k0)
 
     # the ambient known-peer table: one uniform draw over [0, n) \ {me}
-    r = prng.randint(k_dial, (n,), 0, n - 1)
+    r = peer.randint(k_dial, (n_loc,), 0, n - 1)
     r = torch.where(r >= me, r + 1, r)
 
-    px_want = torch.zeros((n,), dtype=torch.bool, device=dev)
-    redial_want = torch.zeros((n,), dtype=torch.bool, device=dev)
+    px_want = torch.zeros((n_loc,), dtype=torch.bool, device=dev)
+    redial_want = torch.zeros((n_loc,), dtype=torch.bool, device=dev)
     if params.px:
         px_want = act & (deg < params.d) & has_cand
     if params.redial:
         redial_want = act & (starve >= params.redial_patience)
     use_px = px_want | (redial_want & has_cand)
     if dht_pool is None:
-        use_rand = redial_want & ~has_cand & alive_sub[r.long()]
+        use_rand = redial_want & ~has_cand & alive_all[r.long()]
         want = use_px | use_rand
         tgt = torch.where(use_px, cand, torch.where(use_rand, r, -1))
     else:
         d_ok = ((dht_pool >= 0) & (dht_pool != me[:, None])
-                & alive_sub[dht_pool.clamp_min(0).long()])
+                & alive_all[dht_pool.clamp_min(0).long()])
         dk0 = torch.argmax(d_ok.to(torch.uint8), dim=-1)
         dcand = _row_take(dht_pool, dk0)
         use_dht = redial_want & ~has_cand & d_ok.any(dim=-1)
@@ -156,7 +169,7 @@ def repair_round(state: SimState, conns, rev, out_mask, params: SimParams,
     tgt_c = tgt.clamp_min(0).long()
 
     new = dict(starve_hb=starve, key=key)
-    if bool(want.any()):
+    if peer.any_(want):
         hit = (conns == tgt_c[:, None]) & want[:, None]
         connected = hit.any(dim=-1)
         slot_a = torch.argmax(hit.to(torch.uint8), dim=-1)
@@ -168,37 +181,39 @@ def repair_round(state: SimState, conns, rev, out_mask, params: SimParams,
                  & (_row_take(sc, slot_a) >= 0.0)
                  & ~_row_take(state.mesh_mask, slot_a))
         graft_a = (want & connected & my_ok
-                   & (state.backoff_until[tgt_c, j_a] <= t)
-                   & (sc[tgt_c, j_a] >= 0.0))
+                   & (peer.all_rows(state.backoff_until)[tgt_c, j_a] <= t)
+                   & (peer.all_rows(sc)[tgt_c, j_a] >= 0.0))
         mesh = state.mesh_mask | (graft_a[:, None]
                                   & (iota_c[None, :] == slot_a[:, None]))
         # the counterpart's side: distinct grafting rows own distinct
         # (tgt, j) slots through the involution, so the writes never
         # collide
-        mesh[tgt_c[graft_a], j_a[graft_a]] = True
+        mesh = mesh | peer.scatter_or(mesh.shape, tgt_c[graft_a],
+                                      j_a[graft_a], dev)
 
         # path B: unconnected -> dial into a free padding slot
         free = conns < 0
         has_free = free.any(dim=-1)
         free_slot = torch.argmax(free.to(torch.uint8), dim=-1).to(i32)
         dial_try = want & ~connected & has_free
+        has_free_all = peer.all_rows(has_free)
+        free_slot_all = peer.all_rows(free_slot)
         # a dialer never accepts in the same round
-        attempt = (dial_try & has_free[tgt_c] & alive_sub[tgt_c]
-                   & ~dial_try[tgt_c])
+        attempt = (dial_try & has_free_all[tgt_c] & alive_all[tgt_c]
+                   & ~peer.all_rows(dial_try)[tgt_c])
         if refuse is not None:
-            attempt = attempt & ~refuse[tgt_c]
+            attempt = attempt & ~peer.all_rows(refuse)[tgt_c]
         # one inbound dial per acceptor: lowest dialer id wins
-        winner = torch.full((n,), n, dtype=i32, device=dev).scatter_reduce(
-            0, torch.where(attempt, tgt_c, 0),
-            torch.where(attempt, me, n), reduce="amin")
+        winner = peer.scatter_amin(n, torch.where(attempt, tgt_c, 0),
+                                   torch.where(attempt, me, n), n)
         committed = attempt & (winner[tgt_c] == me)
-        accepted = winner < n
-        dialer = torch.where(accepted, winner, 0).long()
+        accepted = peer.local(winner) < n
+        dialer = torch.where(accepted, peer.local(winner), 0).long()
 
         my_hot = committed[:, None] & (iota_c[None, :] == free_slot[:, None])
         acc_hot = accepted[:, None] & (iota_c[None, :] == free_slot[:, None])
-        j_t = free_slot[tgt_c]
-        i_d = free_slot[dialer]
+        j_t = free_slot_all[tgt_c]
+        i_d = free_slot_all[dialer]
         conns2 = torch.where(my_hot, tgt_c[:, None].to(conns.dtype), conns)
         conns2 = torch.where(acc_hot, dialer[:, None].to(conns.dtype),
                              conns2)
@@ -216,14 +231,14 @@ def repair_round(state: SimState, conns, rev, out_mask, params: SimParams,
             fmd=torch.where(hot, zero, state.fmd),
             slow_penalty=torch.where(hot, zero, state.slow_penalty),
         )
-        new["warm_offset_ms"] = torch.where(
-            committed.any(), torch.full_like(state.warm_offset_ms, INF),
-            state.warm_offset_ms)
+        if peer.any_(committed):
+            new["warm_offset_ms"] = torch.full_like(state.warm_offset_ms,
+                                                    INF)
 
         one_a = graft_a.to(i32)
         new["grafts"] = state.grafts + (graft_a | committed).to(i32)
-        grafts_rx = state.grafts_rx.index_add(
-            0, torch.where(graft_a, tgt_c, 0), one_a)
+        grafts_rx = peer.index_add(
+            state.grafts_rx, torch.where(graft_a, tgt_c, 0), one_a)
         new["grafts_rx"] = grafts_rx + accepted.to(i32)
         new["px_grafts"] = state.px_grafts + (
             graft_a | (committed & use_px)).to(i32)
@@ -259,10 +274,11 @@ def _recovery_loop(state, conns, rev, out_mask, attacker, params, steps,
     if adv is not None:
         att_sorted, n_att = cohort_order(attacker)
     rounds = []
+    attacker_all = peer.all_rows(attacker)
     for hb in range(steps):
-        ev0 = state.evictions.sum(dtype=torch.int64)
-        px0 = state.px_grafts.sum(dtype=torch.int64)
-        rd0 = state.redials.sum(dtype=torch.int64)
+        ev0 = peer.isum(state.evictions)
+        px0 = peer.isum(state.px_grafts)
+        rd0 = peer.isum(state.redials)
         state = heartbeat_step(state, conns, rev, out_mask, params)
         fired = repair_round(state, conns, rev, out_mask, params,
                              actor=actor, dht_pool=dht_pool, refuse=refuse)
@@ -278,21 +294,18 @@ def _recovery_loop(state, conns, rev, out_mask, attacker, params, steps,
                 att_sorted=att_sorted, n_att=n_att)
         else:
             obs = attack_observables(state, conns, rev, attacker, params)
-        nbr = conns[publisher]
-        att_n = (nbr >= 0) & attacker[nbr.clamp_min(0).long()]
+        nbr = peer.read_row(conns, publisher)
+        att_n = (nbr >= 0) & attacker_all[nbr.clamp_min(0).long()]
         obs["pub_honest_degree"] = (
-            state.mesh_mask[publisher] & (nbr >= 0) & ~att_n
+            peer.read_row(state.mesh_mask, publisher) & (nbr >= 0) & ~att_n
         ).sum(dtype=torch.int64).to(f32)
-        obs["evictions"] = (state.evictions.sum(dtype=torch.int64)
-                            - ev0).to(f32)
-        obs["px_grafts"] = (state.px_grafts.sum(dtype=torch.int64)
-                            - px0).to(f32)
-        obs["redials"] = (state.redials.sum(dtype=torch.int64) - rd0).to(f32)
+        obs["evictions"] = (peer.isum(state.evictions) - ev0).to(f32)
+        obs["px_grafts"] = (peer.isum(state.px_grafts) - px0).to(f32)
+        obs["redials"] = (peer.isum(state.redials) - rd0).to(f32)
         if dht_pool is not None:
-            obs["dht_pool_left"] = (dht_pool >= 0).sum(
-                dtype=torch.int64).to(f32)
+            obs["dht_pool_left"] = peer.isum(dht_pool >= 0).to(f32)
             # a peer whose every candidate refuses keeps counting up
-            obs["starve_max"] = state.starve_hb.max().to(f32)
+            obs["starve_max"] = peer.max_(state.starve_hb.max()).to(f32)
         if telemetry is not None:
             obs.update(telemetry_observables(
                 state, conns, rev, params, telemetry, contract_score="first"))

@@ -277,6 +277,28 @@ def leaf_names() -> tuple[str, ...]:
     return tuple(f.name for f in dataclasses.fields(SimState))
 
 
+# the SimState leaves that are not peer-major: the same on every rank of
+# the peer mesh
+REPLICATED_LEAVES = ("t_ms", "key")
+
+
+def gathered_state(state: SimState) -> SimState:
+    """On a rank of the peer mesh, the whole state: every peer-major
+    leaf's rows all-gathered (every rank must call it); the state itself
+    on one device."""
+    if peer.active() is None:
+        return state
+    return state.replace(**{k: peer.all_rows(getattr(state, k))
+                            for k in leaf_names()
+                            if k not in REPLICATED_LEAVES})
+
+
+def local_leaves(leaves: dict) -> dict:
+    """This rank's rows of a whole state's {leaf: array} dict."""
+    return {k: (v if k in REPLICATED_LEAVES else peer.local(v))
+            for k, v in leaves.items()}
+
+
 def init_state(params: SimParams, seed: int = 0, device=None) -> SimState:
     """Fresh state on `device` (CUDA unless the caller passes another); on
     a rank of the peer mesh, its rows of it (parallel/peer.py)."""
@@ -364,8 +386,10 @@ class AdaptiveCtrl:
 
 
 def init_adaptive_ctrl(n: int, device=None) -> AdaptiveCtrl:
-    """Zeroed controller carry for a fresh trial window."""
+    """Zeroed controller carry for a fresh trial window of n peers (on a
+    rank of the peer mesh, its rows of it)."""
     dev = resolve_device(device)
+    n = peer.local_count(n)
     return AdaptiveCtrl(
         viol_est=torch.zeros((n,), dtype=torch.float32, device=dev),
         regrafts=torch.zeros((n,), dtype=torch.int32, device=dev),

@@ -14,6 +14,11 @@ tel_graylisted_frac, tel_bytes_tx, tel_bytes_rx, tel_ihave, tel_iwant,
 tel_queue_depth_ms. Float sums follow XLA's CPU order (xlamath.sum_f32);
 the score quantiles are jnp.nanquantile's linear rule, step for step.
 
+On a rank of the peer mesh (parallel/peer.py) the channels come out the
+same on every rank and equal to the one-device run's: counts are summed
+over the ranks, float sums and the score quantiles read the all-gathered
+rows (one place, XLA's order).
+
 `run_recorded_heartbeats` is run_heartbeats with a per-round emission:
 the same hoisted validity, carried degree and deferred decay (the
 recorded scores apply the running scales on the fly), materialized once
@@ -28,10 +33,11 @@ from dataclasses import dataclass
 import torch
 
 from ..native.score_update import score_update
+from ..parallel import peer
 from .heartbeat import _apply_decay, heartbeat_step, run_heartbeats
 from .pull import neighbor_pull_bool
 from .state import SimParams, SimState
-from .xlamath import fma_f32, sum_f32
+from .xlamath import fma_f32
 
 
 @dataclass(frozen=True)
@@ -70,9 +76,10 @@ def nanquantile_f32(x: torch.Tensor, qs) -> torch.Tensor:
     the recorder's programs compute it: NaNs sort last, the count of the
     rest is a float32, the index is q * (count - 1), and the two
     neighbors are mixed as lo*(1-w) + hi*w, with XLA's CPU backend
-    contracting the hi*w product into the add (one FMA)."""
+    contracting the hi*w product into the add (one FMA). On a rank of the
+    peer mesh: over every peer's rows (all-gathered)."""
     f32 = torch.float32
-    a = torch.sort(x.reshape(-1)).values
+    a = torch.sort(peer.all_rows(x).reshape(-1)).values
     dev = a.device
     q = torch.tensor(qs, dtype=f32, device=dev)
     counts = (~torch.isnan(a)).sum(dtype=torch.int64).to(f32)
@@ -125,7 +132,7 @@ def telemetry_observables(state: SimState, conns, rev, params: SimParams,
                  & state.subscribed[:, None])
     if deg is None:
         deg = (state.mesh_mask & valid).sum(dim=-1, dtype=torch.int32)
-    n_live = live.sum(dtype=torch.int64).clamp_min(1).to(f32)
+    n_live = peer.isum(live).clamp_min(1).to(f32)
 
     if decay_scales is not None:
         state = state.replace(
@@ -137,15 +144,15 @@ def telemetry_observables(state: SimState, conns, rev, params: SimParams,
 
     b = telemetry.degree_bins
     idx = torch.clamp(deg, 0, b - 1)
-    hist = ((idx[:, None] == torch.arange(b, device=idx.device))
-            & live[:, None]).sum(dim=0, dtype=torch.int64)
+    hist = peer.psum(((idx[:, None] == torch.arange(b, device=idx.device))
+                      & live[:, None]).sum(dim=0, dtype=torch.int64))
     scv = torch.where(valid, sc, torch.tensor(float("nan"), device=sc.device))
-    n_edges = valid.sum(dtype=torch.int64).clamp_min(1).to(f32)
+    n_edges = peer.isum(valid).clamp_min(1).to(f32)
     backlog = torch.clamp_min(state.uplink_free_ms - state.t_ms, 0.0)
     zero = torch.zeros((), dtype=f32, device=sc.device)
 
     def isum(x):
-        return x.sum(dtype=torch.int64).to(f32)
+        return peer.isum(x).to(f32)
 
     return {
         "tel_mesh_coverage": isum(live & (deg >= 1)) / n_live,
@@ -154,11 +161,12 @@ def telemetry_observables(state: SimState, conns, rev, params: SimParams,
         "tel_score_q": nanquantile_f32(scv, telemetry.quantiles),
         "tel_graylisted_frac": (
             isum(valid & (sc < params.graylist_threshold)) / n_edges),
-        "tel_bytes_tx": sum_f32(state.bytes_tx),
-        "tel_bytes_rx": sum_f32(state.bytes_rx),
+        "tel_bytes_tx": peer.sum_f32(state.bytes_tx),
+        "tel_bytes_rx": peer.sum_f32(state.bytes_rx),
         "tel_ihave": isum(state.ihave_tx),
         "tel_iwant": isum(state.iwant_tx),
-        "tel_queue_depth_ms": (sum_f32(torch.where(live, backlog, zero))
+        "tel_queue_depth_ms": (peer.sum_f32(torch.where(live, backlog,
+                                                        zero))
                                / n_live),
     }
 
@@ -173,20 +181,21 @@ def adaptive_observables(state: SimState, ctrl, attacker, acting,
     window carries no live pool). `ctrl` is the AdaptiveCtrl carry,
     `acting` the (N,) flood mask, `violations` the round's count."""
     f32 = torch.float32
-    n_att = attacker.sum(dtype=torch.int64).clamp_min(1).to(f32)
+    n_att = peer.isum(attacker).clamp_min(1).to(f32)
     if px_pool_live:
         honest = ~attacker & state.alive & state.subscribed
         occ = (state.px_pool >= 0) & honest[:, None]
-        sybil = occ & attacker[state.px_pool.clamp_min(0).long()]
-        px_sybil_frac = (sybil.sum(dtype=torch.int64).to(f32)
-                         / occ.sum(dtype=torch.int64).clamp_min(1).to(f32))
+        sybil = occ & peer.all_rows(attacker)[state.px_pool.clamp_min(0)
+                                              .long()]
+        px_sybil_frac = (peer.isum(sybil).to(f32)
+                         / peer.isum(occ).clamp_min(1).to(f32))
     else:
         px_sybil_frac = torch.zeros((), dtype=f32, device=attacker.device)
     return {
-        "adv_violation_rate": violations.to(f32) / n_att,
-        "adv_throttled_frac": ((attacker & ~acting).sum(dtype=torch.int64)
-                               .to(f32) / n_att),
-        "adv_regraft_attempts": ctrl.regrafts.sum(dtype=torch.int64).to(f32),
+        "adv_violation_rate": peer.psum(violations).to(f32) / n_att,
+        "adv_throttled_frac": (peer.isum(attacker & ~acting).to(f32)
+                               / n_att),
+        "adv_regraft_attempts": peer.isum(ctrl.regrafts).to(f32),
         "adv_px_sybil_frac": px_sybil_frac,
     }
 

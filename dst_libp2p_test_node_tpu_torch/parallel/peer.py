@@ -21,16 +21,30 @@ rows in a few places only, and each goes through this module:
                    publisher's tx time and warm-start carry
   write_row(x,i,v) x[i] = v on the owning rank
   row_ids(n)       the global peer ids of the local rows
-  uniform(k, shp)  the local rows of a per-peer draw (prng.py's row
+  uniform(k, shp), randint(k, shp, lo, hi)
+                   the local rows of a per-peer draw (prng.py's row
                    blocks: the same bits as the full draw's rows)
+  isum(x), psum(x) an integer count over every row, an integer tensor
+                   summed over the ranks (the observables' counts)
+  sum_f32(x)       a float32 sum over every row: the rows all-gathered
+                   and summed in one place, in XLA's order
+                   (xlamath.sum_f32), never partial sums added up
+  scatter_amin(n, idx, val, fill), index_add(x, idx, val),
+  scatter_or(shape, rows, cols)
+                   writes into other ranks' rows: each rank scatters into
+                   a whole-size buffer, the buffers are reduced (MIN,
+                   SUM, MAX) over the ranks, and a rank keeps its rows
+                   (the repair controller's dial winner, its graft counts
+                   and the counterpart's mesh slot)
 
 Without an active group each helper is the single-device operation, so
 the modules run unchanged in one process. A group is made active with
 `using(group)` around a rank's calls (runtime/sharded.py).
 
-Float reductions never sum local partials across ranks: a cross-row float
-sum would be all-gathered and summed in one place (XLA's order). The ones
-the slice needs are min and max, which are order-free, and counts.
+Float reductions never sum local partials across ranks: every cross-row
+float sum is all-gathered and summed in one place (XLA's order), and the
+quantiles read the gathered values. Min, max and integer sums are exact
+whatever the order, so those reduce over the ranks.
 
 Backend: NCCL when every rank has a distinct CUDA device, gloo otherwise
 (ranks sharing one card, CPU ranks). gloo's collectives here run on
@@ -47,6 +61,7 @@ import contextlib
 import torch
 
 from .. import prng
+from ..ops.xlamath import sum_f32 as _sum_f32
 
 
 class PeerGroup:
@@ -133,6 +148,20 @@ class PeerGroup:
 
         return self._reduce(x, dist.ReduceOp.MAX).to(x.device)
 
+    def min_(self, x: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+
+        return self._reduce(x, dist.ReduceOp.MIN).to(x.device)
+
+    def sum_(self, x: torch.Tensor) -> torch.Tensor:
+        """Elementwise sum over the ranks of an integer tensor (exact)."""
+        import torch.distributed as dist
+
+        if x.is_floating_point():
+            raise TypeError("a float sum over the ranks would depend on "
+                            "their order: gather the rows (sum_f32)")
+        return self._reduce(x, dist.ReduceOp.SUM).to(x.device)
+
     def read_row(self, x: torch.Tensor, i: int) -> torch.Tensor:
         import torch.distributed as dist
 
@@ -141,10 +170,15 @@ class PeerGroup:
             val = x[int(i) - self.r0].clone()
         else:
             val = torch.empty(x.shape[1:], dtype=x.dtype, device=x.device)
-        buf = self._comm(val.contiguous()).clone()
-        dist.broadcast(buf, src=own, group=self.group)
+        is_bool = val.dtype == torch.bool
+        buf = self._comm(
+            (val.to(torch.uint8) if is_bool else val).contiguous()).clone()
+        dist.broadcast(buf, src=(own if self.group is None else
+                                 dist.get_global_rank(self.group, own)),
+                       group=self.group)
         self.stats["broadcast"] += 1
-        return buf.to(x.device)
+        buf = buf.to(x.device)
+        return buf.bool() if is_bool else buf
 
     def write_row(self, x: torch.Tensor, i: int, v) -> None:
         if self.r0 <= int(i) < self.r1:
@@ -197,6 +231,57 @@ def max_(x: torch.Tensor) -> torch.Tensor:
     return x if _ACTIVE is None else _ACTIVE.max_(x)
 
 
+def psum(x: torch.Tensor) -> torch.Tensor:
+    """An integer tensor summed elementwise over the ranks."""
+    return x if _ACTIVE is None else _ACTIVE.sum_(x)
+
+
+def isum(x: torch.Tensor) -> torch.Tensor:
+    """x.sum(dtype=int64) over every row, as a 0-d int64 tensor."""
+    return psum(x.sum(dtype=torch.int64))
+
+
+def sum_f32(x: torch.Tensor) -> torch.Tensor:
+    """xlamath.sum_f32 over every row of a row-sharded x (gathered)."""
+    return _sum_f32(all_rows(x))
+
+
+def scatter_amin(n: int, idx: torch.Tensor, val: torch.Tensor,
+                 fill: int) -> torch.Tensor:
+    """The whole (n,) full(fill).scatter_reduce(0, idx, val, "amin") of
+    every rank's (idx, val) pairs: a min, so the same whatever rank or
+    order each write comes from. Every rank gets all n entries."""
+    out = torch.full((n,), fill, dtype=val.dtype, device=val.device)
+    out = out.scatter_reduce(0, idx.long(), val, reduce="amin")
+    return out if _ACTIVE is None else _ACTIVE.min_(out)
+
+
+def index_add(x: torch.Tensor, idx: torch.Tensor,
+              val: torch.Tensor) -> torch.Tensor:
+    """x.index_add(0, idx, val) for an integer x whose rows are sharded
+    and global row ids idx: each rank adds its writes into a whole-size
+    buffer, the buffers are summed over the ranks (exact) and a rank adds
+    its rows of the sum."""
+    if _ACTIVE is None:
+        return x.index_add(0, idx, val)
+    buf = torch.zeros((_ACTIVE.n,) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device).index_add(0, idx, val)
+    return x + _ACTIVE.local(_ACTIVE.sum_(buf))
+
+
+def scatter_or(shape, rows: torch.Tensor, cols: torch.Tensor,
+               device) -> torch.Tensor:
+    """This rank's rows of the (N, C) bool mask that is True at every
+    (rows[k], cols[k]) any rank writes (global row ids)."""
+    n = global_rows(shape[0])
+    buf = torch.zeros((n,) + tuple(shape[1:]), dtype=torch.bool,
+                      device=device)
+    buf[rows.long(), cols.long()] = True
+    if _ACTIVE is None:
+        return buf
+    return _ACTIVE.local(_ACTIVE.max_(buf.to(torch.uint8)) > 0)
+
+
 def read_row(x: torch.Tensor, i: int) -> torch.Tensor:
     return x[int(i)] if _ACTIVE is None else _ACTIVE.read_row(x, i)
 
@@ -232,17 +317,32 @@ def local(x):
     return x if _ACTIVE is None else _ACTIVE.local(x)
 
 
+def _block(shape, axis: int):
+    """(the whole draw's shape, this rank's rows) of a per-peer draw."""
+    if shape[axis] != _ACTIVE.rows_per:
+        raise ValueError(
+            f"a per-peer draw of {shape} on a rank of {_ACTIVE.rows_per} "
+            "rows")
+    whole = shape[:axis] + (_ACTIVE.n,) + shape[axis + 1:]
+    return whole, (_ACTIVE.r0, _ACTIVE.r1)
+
+
+def randint(key: torch.Tensor, shape, minval: int, maxval: int,
+            axis: int = 0) -> torch.Tensor:
+    """prng.randint over a per-peer shape (the local rows on a rank)."""
+    shape = tuple(shape)
+    if _ACTIVE is None:
+        return prng.randint(key, shape, minval, maxval)
+    whole, rows = _block(shape, axis)
+    return prng.randint(key, whole, minval, maxval, rows=rows, axis=axis)
+
+
 def uniform(key: torch.Tensor, shape, axis: int = 0) -> torch.Tensor:
     """prng.uniform over a per-peer shape whose `axis` holds the local
     rows: on a rank, those rows of the whole draw."""
     shape = tuple(shape)
     if _ACTIVE is None:
         return prng.uniform(key, shape)
-    if shape[axis] != _ACTIVE.rows_per:
-        raise ValueError(
-            f"a per-peer draw of {shape} on a rank of {_ACTIVE.rows_per} "
-            "rows")
-    whole = shape[:axis] + (_ACTIVE.n,) + shape[axis + 1:]
-    return prng.uniform(key, whole, rows=(_ACTIVE.r0, _ACTIVE.r1),
-                        axis=axis)
+    whole, rows = _block(shape, axis)
+    return prng.uniform(key, whole, rows=rows, axis=axis)
 

@@ -1,22 +1,30 @@
 """Rank processes of a trial grid (parallel/sharding.make_trial_mesh) and
 of a peer mesh (parallel/sharding.make_peer_mesh).
 
-A grid of G trial groups runs G rank processes, one per group, each on
-its group's device; the caller's process keeps its own device for the
-work the reference keeps out of the grid (benign cells, baselines, the
-conformance certificate). Trials are independent, so nothing but host
-objects crosses between a grid's processes. A peer mesh's ranks also
-exchange tensors: its jobs run collectives over the group the ranks
-joined (parallel/peer.py), gloo or, for ranks on distinct GPUs, NCCL:
+A grid of G trial groups, each P devices wide, runs G x P rank processes,
+one per device, rank g*P + p on device p of group g; the caller's process
+keeps its own device for the work the reference keeps out of the grid
+(benign cells, baselines, the conformance certificate). Trials are
+independent, so between groups nothing but host objects crosses. Inside
+a group wider than one device (`peer_width` P > 1) the ranks split each
+trial's peer rows and exchange tensors over the group's own
+torch.distributed subgroup (`peer_group`, parallel/peer.py), as a peer
+mesh's ranks do over the whole pool: gloo or, for ranks on distinct GPUs,
+NCCL:
 
-  start    G processes started with the `spawn` method (never `fork`: the
-           caller may hold a CUDA context), each limited to `threads`
-           CPU threads when given; they join one group (gloo unless the
+  start    the processes forked from a `forkserver` that imported torch
+           once (never forked from the caller, which may hold a CUDA
+           context; the server never touches a card), so a rank starts
+           in a fraction of a second once the server runs; a rank sees
+           the environment the caller had when the server started. Each
+           is limited to `threads` CPU threads when given; they join one
+           group (gloo unless the
            pool names nccl) through a FileStore in a temporary directory
-           (no TCP port) and exchange a
-           roll call over it, then report ready with their start-up
-           seconds. Kernels are built in the caller first (native/build.py)
-           when any rank is on CUDA, so ranks only load them.
+           (no TCP port), exchange a roll call over it, make the peer
+           subgroups (every rank makes every subgroup, in order), then
+           report ready with their start-up seconds. Kernels are built in
+           the caller first (native/build.py) when any rank is on CUDA, so
+           ranks only load them.
   run      one job per rank: `fn(payload, device)` with fn a module-level
            function (sent by import path); a None payload leaves the rank
            idle. Results come back over one pipe per rank, with the rank's
@@ -53,6 +61,34 @@ class RankError(RuntimeError):
     """A rank of a trial grid raised, died or missed its deadline."""
 
 
+# in a rank process of a pool with peer_width > 1: (its trial group's
+# subgroup, its index in the group, the width)
+_SUBGROUP = None
+
+
+def peer_group(n_rows: int, device):
+    """This rank's parallel/peer.PeerGroup over `n_rows` peer rows inside
+    its trial group (in a rank job of a pool with peer_width > 1); None
+    in a pool one rank wide per group."""
+    if _SUBGROUP is None:
+        return None
+    from .peer import PeerGroup
+
+    grp, idx, width = _SUBGROUP
+    return PeerGroup(idx, width, n_rows, device, group=grp)
+
+
+def _join_subgroups(rank: int, world: int, width: int, backend: str):
+    global _SUBGROUP
+    import torch.distributed as dist
+
+    for g in range(world // width):
+        members = list(range(g * width, (g + 1) * width))
+        sub = dist.new_group(members, backend=backend)
+        if rank in members:
+            _SUBGROUP = (sub, rank - g * width, width)
+
+
 def _launch_counts() -> dict:
     from ..native import score_update, vmem_gather
 
@@ -62,7 +98,7 @@ def _launch_counts() -> dict:
 
 def _rank_main(rank: int, world: int, device: str, store_path: str,
                threads, conn, t_spawn: float, deadline_s: float,
-               backend: str = "gloo") -> None:
+               backend: str = "gloo", peer_width: int = 1) -> None:
     """One rank: join the group, then serve jobs until told to stop."""
     import torch.distributed as dist
 
@@ -79,6 +115,8 @@ def _rank_main(rank: int, world: int, device: str, store_path: str,
             timeout=datetime.timedelta(seconds=deadline_s))
         roll = [None] * world
         dist.all_gather_object(roll, (rank, os.getpid(), device))
+        if peer_width > 1:
+            _join_subgroups(rank, world, peer_width, backend)
         conn.send((True, {"startup_s": time.time() - t_spawn,
                           "roll": roll}))
     except Exception:  # noqa: BLE001 — reported to the caller, which raises
@@ -113,22 +151,28 @@ def _rank_main(rank: int, world: int, device: str, store_path: str,
 
 
 class RankPool:
-    """G rank processes, one per device of `devices` (a device may repeat:
-    two ranks can share one card). Started on the first `run`; reusable
+    """One rank process per device of `devices` (a device may repeat: two
+    ranks can share one card), in groups of `peer_width` consecutive ranks
+    (a trial group each; module doc). Started on the first `run`; reusable
     across jobs and campaigns until `close`. `startup_s`: each rank's
     seconds from spawn to ready at the last start; `roll`: the (rank, pid,
     device) each rank sent over the gloo group; `launches` / `seconds`:
     each rank's kernel launches and job seconds summed over its jobs."""
 
     def __init__(self, devices, threads: int | None = None,
-                 backend: str = "gloo"):
+                 backend: str = "gloo", peer_width: int = 1):
         self.devices = [torch.device(d) for d in devices]
         if not self.devices:
             raise ValueError("a RankPool needs at least one device")
         if backend not in ("gloo", "nccl"):
             raise ValueError(f"backend {backend!r} not in (gloo, nccl)")
+        if peer_width < 1 or len(self.devices) % peer_width != 0:
+            raise ValueError(
+                f"peer_width {peer_width} must divide the rank count "
+                f"{len(self.devices)}")
         self.threads = threads
         self.backend = backend
+        self.peer_width = int(peer_width)
         self.startup_s: list[float] = []
         self.roll: list = []
         self.launches = [{"vmem_gather": 0, "score_update": 0}
@@ -141,6 +185,11 @@ class RankPool:
     @property
     def size(self) -> int:
         return len(self.devices)
+
+    @property
+    def groups(self) -> int:
+        """The trial groups: size / peer_width."""
+        return self.size // self.peer_width
 
     def __enter__(self) -> "RankPool":
         return self
@@ -155,7 +204,8 @@ class RankPool:
             from ..native import build
 
             build.build()                       # ranks only load them
-        ctx = mp.get_context("spawn")
+        ctx = mp.get_context("forkserver")
+        ctx.set_forkserver_preload(["torch"])
         self._tmp = tempfile.mkdtemp(prefix="trial_grid_")
         store = os.path.join(self._tmp, "store")
         t0 = time.time()
@@ -165,7 +215,7 @@ class RankPool:
             p = ctx.Process(
                 target=_rank_main, name=f"trial-rank-{r}", daemon=True,
                 args=(r, self.size, str(dev), store, self.threads, child, t0,
-                      RANK_DEADLINE_S, self.backend))
+                      RANK_DEADLINE_S, self.backend, self.peer_width))
             p.start()
             child.close()
             self._procs.append(p)

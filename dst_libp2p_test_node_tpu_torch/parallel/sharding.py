@@ -1,11 +1,14 @@
 """Device grids for Monte-Carlo campaigns: the trial and DCN parts of the
 reference's parallel/sharding.py.
 
-A campaign's trials are independent, so a grid over several GPUs needs
-no tensor collective: each trial group is one rank process on its own
-device (parallel/ranks.py), and only host objects come back. The grid is
+A campaign's trials are independent, so between trial groups a grid
+needs no tensor collective: each group is its own rank processes
+(parallel/ranks.py), and only host objects come back. A group P devices
+wide is P ranks that split each trial's peer rows and run the same
+per-trial path on their row blocks, exchanging rows over the group's own
+subgroup (parallel/peer.py): the reference's nested windows. The grid is
 a small frozen dataclass, not a jax Mesh: the reference's axis names
-mapped to sizes (`shape`) and the torch.device of every trial group.
+mapped to sizes (`shape`) and the torch.devices of every trial group.
 
   make_trial_mesh   ("trials", "peers"): one process's trial groups
   make_dcn_mesh     ("dcn", "trials", "peers"): one block per process of
@@ -27,14 +30,20 @@ blocks: peer_sharding / replicated name the two layouts, reshard_rows
 splits one leaf, place_simulation checks the reference's divisibility
 rule and shard_simulation splits a whole simulation.
 
-A trial grid whose groups are wider than one device (peers_per_group > 1,
-the reference's nested windows) can be built, but the campaign refuses
-it, and nested_sharding / nested_batch_shardings / place_trial_batch
-raise: the nested windows are the next slice (ROADMAP A13).
+The nested placers split a stacked trial batch (leaves with a leading
+trial axis) over a grid's ranks, rank g*P + p holding trial block g:
+trial_sharding (that block, whole rows), nested_sharding (that block,
+row block p of a peer-major leaf), peer_submesh_sharding (row block p of
+a trial-invariant (N, ...) leaf, every group alike); nested_batch_shardings
+picks one per leaf by the reference's shape rule and place_trial_batch
+places a batch and its shared graph (runtime/campaign.py's nested windows
+run them). tree_map walks the port's trees (dicts, tuples, lists and
+dataclasses of tensors or arrays).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from dataclasses import dataclass
 
@@ -70,10 +79,18 @@ class DeviceGrid:
 
     @property
     def group_devices(self) -> list:
-        """The device of each trial group (the grid must be one device
-        wide per group)."""
-        check_trial_grid(self)
+        """The device of each trial group (a grid one device wide per
+        group; a wider one has rank_devices)."""
+        if peers_per_group(check_trial_grid(self)) > 1:
+            raise ValueError(
+                f"a grid {peers_per_group(self)} devices wide per group has "
+                "no one device per group: use rank_devices")
         return [g[0] for g in self.groups]
+
+    @property
+    def rank_devices(self) -> list:
+        """Every device of the grid, group by group: rank g*P + p's."""
+        return [d for g in self.groups for d in g]
 
 
 def _visible_devices(platform: str | None, n_devices: int | None,
@@ -186,16 +203,12 @@ def peers_per_group(mesh: DeviceGrid) -> int:
 
 
 def check_trial_grid(mesh) -> DeviceGrid:
-    """`mesh` as a grid the campaign can run: a DeviceGrid one device
-    wide per trial group."""
+    """`mesh` as a grid the campaign can run: a make_trial_mesh (or
+    make_dcn_mesh) DeviceGrid, of any width per trial group."""
     if not isinstance(mesh, DeviceGrid):
         raise TypeError(
             f"trial_mesh must be a make_trial_mesh grid, got "
             f"{type(mesh).__name__}")
-    if peers_per_group(mesh) > 1:
-        raise peer_mesh_later(
-            f"a trial grid {peers_per_group(mesh)} devices wide per group "
-            "(the nested windows)")
     return mesh
 
 
@@ -427,13 +440,138 @@ def shard_simulation(state, arrays: dict, topo: dict, mesh) -> list:
             for r in range(mesh.size)]
 
 
-def nested_sharding(mesh):
-    raise peer_mesh_later("nested_sharding")
+# ------------------------------------------------------------ nested grids
 
 
-def nested_batch_shardings(tree, mesh, n_rows):
-    raise peer_mesh_later("nested_batch_shardings")
+def tree_map(fn, tree, *rest):
+    """fn over the tensor / array leaves of the port's trees (dicts,
+    tuples, lists, dataclasses), `rest` trees of the same structure
+    alongside; None and other values pass through."""
+    if isinstance(tree, (torch.Tensor, np.ndarray)):
+        return fn(tree, *rest)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: tree_map(fn, getattr(tree, f.name),
+                             *(getattr(r, f.name) for r in rest))
+            for f in dataclasses.fields(tree)})
+    return tree
 
 
-def place_trial_batch(stacked, shared, mesh, n_rows=None):
-    raise peer_mesh_later("place_trial_batch")
+def grid_shape(mesh) -> tuple[int, int]:
+    """(trial groups, ranks per group) of a make_trial_mesh grid or of an
+    open parallel/ranks.RankPool."""
+    from .ranks import RankPool
+
+    if isinstance(mesh, RankPool):
+        return mesh.groups, mesh.peer_width
+    grid = local_trial_submesh(check_trial_grid(mesh))
+    return int(grid.shape[TRIAL_AXIS]), peers_per_group(grid)
+
+
+def _blocks(n: int, parts: int, what: str) -> int:
+    if n % parts != 0:
+        raise ValueError(f"{what} {n} must divide evenly over {parts}")
+    return n // parts
+
+
+@dataclass(frozen=True)
+class TrialSharding:
+    """A stacked (T, ...) leaf over a grid's ranks: rank g*P + p holds
+    trial block g (T / G trials), its rows whole."""
+
+    groups: int
+    width: int
+
+    def split(self, x) -> list:
+        per = _blocks(x.shape[0], self.groups, "stacked trials")
+        return [x[g * per:(g + 1) * per] for g in range(self.groups)
+                for _ in range(self.width)]
+
+
+@dataclass(frozen=True)
+class NestedSharding:
+    """A stacked peer-major (T, N, ...) leaf over a grid's ranks: rank
+    g*P + p holds trial block g, row block p."""
+
+    groups: int
+    width: int
+
+    def split(self, x) -> list:
+        per = _blocks(x.shape[0], self.groups, "stacked trials")
+        rows = _blocks(x.shape[1], self.width, "peer rows")
+        return [x[g * per:(g + 1) * per, p * rows:(p + 1) * rows]
+                for g in range(self.groups) for p in range(self.width)]
+
+
+@dataclass(frozen=True)
+class SubmeshRows:
+    """A trial-invariant (N, ...) leaf over a grid's ranks: rank g*P + p
+    holds row block p, in every group alike."""
+
+    groups: int
+    width: int
+
+    def split(self, x) -> list:
+        rows = _blocks(x.shape[0], self.width, "peer rows")
+        return [x[p * rows:(p + 1) * rows] for _ in range(self.groups)
+                for p in range(self.width)]
+
+
+def trial_sharding(mesh) -> TrialSharding:
+    """Leading-axis (stacked-trial) placement over a grid's trial groups
+    (on a make_dcn_mesh grid, this process's groups)."""
+    return TrialSharding(*grid_shape(mesh))
+
+
+def nested_sharding(mesh) -> NestedSharding:
+    """Both-axes placement of stacked peer-major leaves (T, N, ...):
+    trials over the groups, peer rows over each group's ranks."""
+    return NestedSharding(*grid_shape(mesh))
+
+
+def peer_submesh_sharding(mesh) -> SubmeshRows:
+    """Peer-row placement of a trial-invariant (N, ...) leaf over each
+    group's ranks (the epoch graph every trial shares)."""
+    return SubmeshRows(*grid_shape(mesh))
+
+
+def nested_batch_shardings(tree, mesh, n_rows: int):
+    """The placement of every leaf of a stacked trial batch, by the
+    reference's shape rule: axis 1 == the peer row count -> nested (state
+    rows, attacker and fault masks, carries, per-trial graphs); anything
+    else with a leading trial axis -> trial_sharding (the clock, the PRNG
+    key, curves)."""
+    nested, rows = nested_sharding(mesh), trial_sharding(mesh)
+    return tree_map(
+        lambda x: nested if x.ndim >= 2 and x.shape[1] == n_rows else rows,
+        tree)
+
+
+def place_trial_batch(stacked, shared: dict, mesh, n_rows=None) -> list:
+    """One stacked trial batch and its shared graph dict placed on a
+    grid's ranks: a (stacked, shared) pair per rank, in rank order. With
+    `n_rows` the placement is nested (nested_batch_shardings; the shared
+    (N, ...) arrays split by rows over each group, the rest whole);
+    without it each group's ranks get its trial block and every shared
+    array whole (the reference's trial-only layout)."""
+    groups, width = grid_shape(mesh)
+    size = groups * width
+    if n_rows is None:
+        rows = trial_sharding(mesh)
+        plan = tree_map(lambda x: rows, stacked)
+    else:
+        plan = nested_batch_shardings(stacked, mesh, n_rows)
+    sub = peer_submesh_sharding(mesh)
+    out = []
+    for r in range(size):
+        st = tree_map(lambda x, sp, r=r: sp.split(x)[r], stacked, plan)
+        sh = {k: (sub.split(v)[r] if n_rows is not None
+                  and getattr(v, "ndim", 0) >= 1 and v.shape[0] == n_rows
+                  else v) for k, v in shared.items()}
+        out.append((st, sh))
+    return out

@@ -50,28 +50,51 @@ campaign's device) to the result.
 
 `trial_mesh` (parallel/sharding.make_trial_mesh, or an open
 parallel/ranks.RankPool) deals an attacked fraction's seed column over
-the grid's trial groups, one rank process each: the column is split in
-contiguous blocks of ceil(T/G) trials (the reference's padded
-P("trials") split; the padded repeats of the last trial are dropped
-before they run), each rank runs its block through the same per-trial
-path on its own Simulator, and the trials come back in seed order.
-Benign cells, the seeds' latency baselines and the certificate stay in
-the caller, computed once. A one-group grid runs in the caller, as if
-there were none. `dcn` runs the campaign over a torch.distributed
-world (one process per host, each on its own grid) and merges the
-ranks' files into one result (the reference's DCN engine). The peer
-mesh (`mesh`, and grids wider than one device per group) is a later
-slice and raises NotImplementedError naming it.
+the grid's trial groups: the column is split in contiguous blocks of
+ceil(T/G) trials (the reference's padded P("trials") split; the padded
+repeats of the last trial are dropped before they run), each group runs
+its block through the same per-trial path on its own Simulator, and the
+trials come back in seed order. A group one device wide is one rank
+process; a group P devices wide (the reference's nested grid) is P ranks,
+each running that path on its row block of the group's Simulator
+(parallel/peer.py), with one exchange wherever the path reads across
+rows. Benign cells, the seeds' latency baselines and the certificate stay
+in the caller, computed once. A one-rank grid runs in the caller, as if
+there were none. `mesh` (parallel/sharding.make_peer_mesh) is one group
+of the mesh's ranks for the whole campaign: a ShardedSimulator
+(runtime/sharded.py) runs the benign cells and the baselines, and each
+attacked cell's trials run one after another on its ranks' Simulators.
+`dcn` runs the campaign over a torch.distributed world (one process per
+host, each on its own grid) and merges the ranks' files into one result
+(the reference's DCN engine).
+
+On a rank the path reads whole rows in a few places only, each one
+gather: the cohort draws and the DHT read the host's whole graph and
+topology, a publish's record holds every peer (Simulator.publish), the
+final score and counters are gathered once per trial, a trial
+checkpoint is written by the group's rank 0 from the gathered rows (the
+one-process file, byte for byte), and a resumed trial takes its rows of
+the file.
+
+The nested windows (`sharded_attack_window`, `sharded_faulted_window`,
+`sharded_recovery_window`, `sharded_dht_recovery_window`,
+`sharded_episub_window`) run a stacked trial batch on a grid at the
+reference's signatures: trial block g on group g, each trial's rows over
+the group's ranks (nested=True), or each trial whole on the group's first
+rank (nested=False, the reference's replicated submesh); the stacked
+outputs equal the one-device windows' bitwise.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
 import time
 from dataclasses import dataclass, field, replace
+from functools import partial
 
 import numpy as np
 import torch
@@ -92,14 +115,19 @@ from ..ops.dht_adversary import (
     rtable_poison_frac,
 )
 from ..ops.faults import FaultParams, fault_masks, partition_edge_mask
+from ..ops.pull import batch_scope
 from ..ops.repair import (
     RepairParams,
     run_adaptive_recovery_heartbeats,
     run_dht_recovery_heartbeats,
 )
+from ..ops.state import REPLICATED_LEAVES, local_leaves
 from ..ops.telemetry import TelemetryParams
-from ..parallel.ranks import RankPool
-from ..parallel.sharding import check_trial_grid, peer_mesh_later
+from ..parallel import peer
+from ..parallel.ranks import RankPool, peer_group
+from ..parallel.sharding import (check_peer_mesh, check_trial_grid,
+                                 grid_shape, peers_per_group,
+                                 place_trial_batch, tree_map)
 from .simulator import ExperimentConfig, MessageRecord, Simulator
 from .summarize import sanitize_nonfinite
 from .supervise import _call_with_timeout, _FailureInjector
@@ -284,9 +312,13 @@ class CampaignResult:
     quarantined_trials: list = field(default_factory=list)
     retries_total: int = 0
     conformance: dict | None = None
-    # per-trial wall split of this run (seconds by phase), for the smoke's
+    # per-trial wall split of this run (seconds by phase; on a peer mesh
+    # also each phase's all-gathers and their bytes), for the smoke's
     # report; not part of to_dict
     phase_walls: list = field(default_factory=list, repr=False)
+    # a run on a peer mesh: each rank's collectives and peak allocated
+    # device memory; not part of to_dict
+    rank_stats: dict = field(default_factory=dict, repr=False)
 
     @property
     def trials_per_s(self) -> float:
@@ -315,6 +347,12 @@ def _host(x) -> np.ndarray:
         else np.asarray(x)
 
 
+def _whole(x) -> np.ndarray:
+    """Every peer's rows of x on the host (gathered on a rank of the peer
+    mesh)."""
+    return _host(peer.all_rows(x))
+
+
 def _sync(sim: Simulator) -> None:
     if sim.device.type == "cuda":
         torch.cuda.synchronize(sim.device)
@@ -322,17 +360,40 @@ def _sync(sim: Simulator) -> None:
 
 class _Walls:
     """Wall seconds by phase for one cell (device work synchronized at
-    every boundary, so each phase is charged its own kernels)."""
+    every boundary, so each phase is charged its own kernels); on a rank
+    of the peer mesh also the all-gathers each phase made and the bytes
+    they assembled (`gathers`: those since the rank's previous phase
+    boundary or the newest _Walls, whichever came last)."""
 
     def __init__(self, sim: Simulator):
         self.sim = sim
         self.t = {}
+        self.gathers: dict = {}
+        grp = peer.active()
+        if grp is not None:
+            grp.walls_mark = (grp.stats["all_gather"],
+                              grp.stats["all_gather_bytes"])
 
     def add(self, phase: str, t0: float) -> float:
         _sync(self.sim)
         now = time.perf_counter()
         self.t[phase] = self.t.get(phase, 0.0) + (now - t0)
+        grp = peer.active()
+        if grp is not None:
+            seen = (grp.stats["all_gather"], grp.stats["all_gather_bytes"])
+            mark = getattr(grp, "walls_mark", (0, 0))
+            was = self.gathers.get(phase, (0, 0))
+            self.gathers[phase] = (was[0] + seen[0] - mark[0],
+                                   was[1] + seen[1] - mark[1])
+            grp.walls_mark = seen
         return now
+
+    def row(self, **head) -> dict:
+        """The cell's phase_walls entry."""
+        out = dict(head, **self.t)
+        if self.gathers:
+            out["all_gathers"] = dict(self.gathers)
+        return out
 
 
 def _reset_trial(sim: Simulator, seed: int) -> None:
@@ -370,7 +431,8 @@ def _publish_schedule(sim: Simulator, censor=None, attacker=None,
                 eff = cross if censor is None else (censor | cross)
         rec = sim.publish(pub, censor_edge=eff)
         if censor is not None:
-            received = torch.as_tensor(rec.received, device=sim.device)
+            received = torch.as_tensor(peer.local(rec.received),
+                                       device=sim.device)
             sim.state = censorship_penalty_update(
                 sim.state, a["conns"], a["rev"], attacker, received,
                 sim.params, adv)
@@ -428,7 +490,7 @@ def _benign_trial(sim: Simulator, cfg: CampaignConfig, seed: int,
         graylisted_frac_final=0.0, mesh_recovery_hb=-1,
         attacker_mesh_share_final=0.0, attacker_score_final=0.0,
         wall_s=time.time() - t0,
-        bytes_tx_total=float(_host(sim.state.bytes_tx).sum()),
+        bytes_tx_total=float(_whole(sim.state.bytes_tx).sum()),
     )
 
 
@@ -483,7 +545,7 @@ def _try_resume(sim: Simulator, cfg: CampaignConfig, fraction: float,
                 return None
             sd = {k.split("/", 1)[1]: z[k]
                   for k in z.files if k.startswith("state/")}
-        state = interop.state_from_numpy(sd, sim.device)
+        state = interop.state_from_numpy(local_leaves(sd), sim.device)
         with np.load(sc) as zo:
             obs = {k: np.asarray(zo[k]) for k in zo.files}
     except Exception:
@@ -498,6 +560,9 @@ def _save_trial(sim: Simulator, cfg: CampaignConfig, fraction: float,
     os.makedirs(cfg.checkpoint_dir, exist_ok=True)
     ck, sc = _trial_ckpt(cfg, fraction, seed)
     save_checkpoint(sim, ck, kad_state=kad_state)
+    grp = peer.active()
+    if grp is not None and grp.rank != 0:
+        return                  # the group's rank 0 writes the files
     # the obs sidecar: the window's curves, which the state alone cannot
     # give back to a resumed trial
     tmp = sc + ".tmp"
@@ -588,7 +653,11 @@ def _recovery(sim: Simulator, cfg: CampaignConfig, adv, att_j, pub: int,
 
 def _attacked_trials(sim: Simulator, cfg: CampaignConfig, fraction: float,
                      seeds: list[int], cache: dict, budget: float,
-                     walls: list) -> list[TrialResult]:
+                     walls: list, batch_factor: int = 1
+                     ) -> list[TrialResult]:
+    """An attacked cell's trials on `sim` (a rank's rows under an active
+    peer group). `batch_factor`: the reference's pull-form hint for the
+    windows (pull.batch_scope)."""
     adv = cfg.adversary_params()
     exp = cfg.experiment
     n = sim.params.n
@@ -617,10 +686,10 @@ def _attacked_trials(sim: Simulator, cfg: CampaignConfig, fraction: float,
     for s in seeds:
         att = attacker_cohort(n, fraction, seed=s, conns=conns_np,
                               publisher=pub, eclipse=adv.eclipse)
-        cohorts[s] = (att, torch.as_tensor(att, device=dev))
+        cohorts[s] = (att, torch.as_tensor(peer.local(att), device=dev))
         if faults.enabled:
             fm = fault_masks(n, faults, seed=s, publisher=pub)
-            fmasks[s] = (fm, {k: torch.as_tensor(v, device=dev)
+            fmasks[s] = (fm, {k: torch.as_tensor(peer.local(v), device=dev)
                               for k, v in fm.items()})
     if cfg.checkpoint_dir:
         for s in seeds:
@@ -642,18 +711,22 @@ def _attacked_trials(sim: Simulator, cfg: CampaignConfig, fraction: float,
             sim.state = eclipse_setup(sim.state, a["conns"], cohorts[s][1],
                                       pub)
         tw = w.add("warmup", tw)
-        st, obs, ctrl = _attack_window(
-            sim, cfg, adv, cohorts[s][1],
-            fmasks[s][1] if s in fmasks else None, steps, tel)
+        with batch_scope(batch_factor):
+            st, obs, ctrl = _attack_window(
+                sim, cfg, adv, cohorts[s][1],
+                fmasks[s][1] if s in fmasks else None, steps, tel)
         state_by_seed[s] = st
         obs_by_seed[s] = _obs_to_host(obs)
         if ctrl is not None:
             ctrl_by_seed[s] = ctrl
         w.add("attack_window", tw)
 
-    epoch_arrays = dict(sim.arrays)
+    # the epoch graph whole (a rank rebinds from every row)
+    epoch_arrays = {k: peer.all_rows(v) for k, v in sim.arrays.items()}
     dht_on = cfg.dht.enabled and cfg.recovery_heartbeats > 0
     steps1, steps2 = _dht_legs(cfg.dht, cfg.recovery_heartbeats)
+    # the DHT is built host-side over every peer (on each rank alike)
+    stage_all = peer.all_rows(sim._stage) if dht_on else None
     out = []
     for s in seeds:
         w = wall_by_seed[s]
@@ -666,17 +739,21 @@ def _attacked_trials(sim: Simulator, cfg: CampaignConfig, fraction: float,
             tw = time.perf_counter()
             kstate, directory = build_attacked_dht(
                 n, seed=s, dht=cfg.dht, attacker=att, victim=pub,
-                stage=sim._stage, lat_ms=sim._lat)
+                stage=stage_all, lat_ms=sim._lat)
             pfrac = rtable_poison_frac(kstate, att)
+            att_all = torch.as_tensor(att, device=dev)
             pool_a = pool_b = None
+            # each leg's (N, K) shortlist, this rank's rows of it
             if steps1 > 0:
                 pool_a, kstate = dht_repair_pool(
-                    kstate, cfg.dht, sim._stage, sim._lat, attacker=att_j,
+                    kstate, cfg.dht, stage_all, sim._lat, attacker=att_all,
                     directory=directory)
+                pool_a = peer.local(pool_a)
             if steps2 > 0:
                 pool_b, kstate = dht_repair_pool(
-                    kstate, cfg.dht, sim._stage, sim._lat, attacker=att_j,
+                    kstate, cfg.dht, stage_all, sim._lat, attacker=att_all,
                     directory=directory, healed=True)
+                pool_b = peer.local(pool_b)
             kad = (kstate, pool_a, pool_b, pfrac)
             w.add("dht_build", tw)
         base = _ensure_baseline(sim, cache, s, w)
@@ -700,12 +777,14 @@ def _attacked_trials(sim: Simulator, cfg: CampaignConfig, fraction: float,
         recovery_time_ms = -1.0
         if cfg.recovery_heartbeats > 0:
             # after the checkpoint, which hashes the epoch graph
-            (st2, cn2, rv2, om2), robs = _recovery(
-                sim, cfg, adv, att_j, pub, tel, ctrl_by_seed.get(s), kad)
+            with batch_scope(batch_factor):
+                (st2, cn2, rv2, om2), robs = _recovery(
+                    sim, cfg, adv, att_j, pub, tel, ctrl_by_seed.get(s), kad)
             sim.state = st2
             tw = w.add("recovery_window", tw)
             if not graph_static:
-                sim.rebind_graph(cn2, rv2, om2)
+                sim.rebind_graph(*(peer.all_rows(x)
+                                   for x in (cn2, rv2, om2)))
                 tw = w.add("rebind_graph", tw)
             # the shared observables concatenate over attack + recovery
             obs_j = {k: (np.concatenate([np.asarray(obs_j[k]),
@@ -770,8 +849,8 @@ def _attacked_trials(sim: Simulator, cfg: CampaignConfig, fraction: float,
             score_cross_hb = _first_round(med, lambda c: c < thr)
         # the final honest-side view of attacker edges over the current
         # (possibly dialed) conns
-        cn_now = _host(sim.arrays["conns"])
-        sc = _host(sim.state.score(sim.params)).astype(np.float64)
+        cn_now = _whole(sim.arrays["conns"])
+        sc = _whole(sim.state.score(sim.params)).astype(np.float64)
         att_edge = (cn_now >= 0) & att[np.clip(cn_now, 0, None)]
         h_att = att_edge & honest[:, None]
         score_final = float(sc[h_att].mean()) if h_att.any() else 0.0
@@ -789,11 +868,11 @@ def _attacked_trials(sim: Simulator, cfg: CampaignConfig, fraction: float,
             attacker_mesh_share_final=share_final,
             attacker_score_final=score_final,
             wall_s=(time.time() - t0) / len(seeds),
-            mesh_evictions_total=int(_host(sim.state.evictions).sum()),
-            px_grafts_total=int(_host(sim.state.px_grafts).sum()),
-            redials_total=int(_host(sim.state.redials).sum()),
+            mesh_evictions_total=int(_whole(sim.state.evictions).sum()),
+            px_grafts_total=int(_whole(sim.state.px_grafts).sum()),
+            redials_total=int(_whole(sim.state.redials).sum()),
             recovery_time_ms=recovery_time_ms,
-            bytes_tx_total=float(_host(sim.state.bytes_tx).sum()),
+            bytes_tx_total=float(_whole(sim.state.bytes_tx).sum()),
             heal_time_ms=heal_time_ms,
             post_churn_reconvergence_hb=reconv_hb,
             coverage_under_partition=cov_part,
@@ -807,8 +886,8 @@ def _attacked_trials(sim: Simulator, cfg: CampaignConfig, fraction: float,
             sim.rebind_graph(epoch_arrays["conns"], epoch_arrays["rev"],
                              epoch_arrays["out_mask"])
             w.add("rebind_graph", tw)
-        walls.append({"fraction": fraction, "seed": s,
-                      "resumed": s in resumed, **w.t})
+        walls.append(w.row(fraction=fraction, seed=s,
+                           resumed=s in resumed))
     return out
 
 
@@ -818,18 +897,19 @@ def _attacked_trials(sim: Simulator, cfg: CampaignConfig, fraction: float,
 @contextlib.contextmanager
 def _grid_pool(trial_mesh):
     """The RankPool behind `trial_mesh`: the caller's own when it passes
-    one (left open), else one opened over the grid for the call (its
-    ranks start at the first grid cell) and closed after; None without a
-    grid."""
+    one (left open), else one opened over the grid for the call, one rank
+    per device in groups of the grid's width (its ranks start at the
+    first grid cell) and closed after; None without a grid."""
     if trial_mesh is None or isinstance(trial_mesh, RankPool):
         yield trial_mesh
         return
     grid = check_trial_grid(trial_mesh)
-    devices = grid.group_devices
+    devices = grid.rank_devices
     cpu_ranks = sum(d.type == "cpu" for d in devices)
     threads = (max(1, (os.cpu_count() or 1) // cpu_ranks) if cpu_ranks
                else None)
-    with RankPool(devices, threads=threads) as pool:
+    with RankPool(devices, threads=threads,
+                  peer_width=peers_per_group(grid)) as pool:
         yield pool
 
 
@@ -841,35 +921,303 @@ def _deal(items: list, groups: int) -> list[list]:
     return [list(items[g * local:(g + 1) * local]) for g in range(groups)]
 
 
+def _nested_batch_factor(trial_mesh, local_trials: int) -> int:
+    """The reference's pull-form hint inside a nested window
+    (ops/pull.exceeds_budget): per device a group's batch is
+    `local_trials` trials over 1/P of the rows, so the whole-N shape
+    over-counts by the group's width P. Both forms are exact; this only
+    picks which one large pulls take."""
+    return max(1, -(-local_trials // grid_shape(trial_mesh)[1]))
+
+
+def _group_sim(cfg: CampaignConfig, device):
+    """(this rank's peer group or None, a Simulator on its rows): a rank
+    job's Simulator in a group of the grid."""
+    grp = peer_group(cfg.experiment.topo.network_size, device)
+    with peer.using(grp):
+        return grp, Simulator(cfg.experiment, device=device)
+
+
 def _rank_attacked_trials(payload, device):
-    """One rank's block of an attacked cell on its own Simulator:
-    (trials, phase walls)."""
-    cfg, fraction, seeds, cache, budget = payload
-    sim = Simulator(cfg.experiment, device=device)
+    """One group's block of an attacked cell on the group's Simulator, each
+    rank on its rows: (trials, phase walls) from the group's rank 0, None
+    from the others."""
+    cfg, fraction, seeds, cache, budget, bf = payload
+    grp, sim = _group_sim(cfg, device)
     walls: list = []
-    trials = _attacked_trials(sim, cfg, fraction, seeds, dict(cache), budget,
-                              walls)
-    return trials, walls
+    with peer.using(grp):
+        trials = _attacked_trials(sim, cfg, fraction, seeds, dict(cache),
+                                  budget, walls, batch_factor=bf)
+    return (trials, walls) if grp is None or grp.rank == 0 else None
 
 
 def _grid_attacked_trials(sim: Simulator, cfg: CampaignConfig,
                           fraction: float, seeds: list[int], cache: dict,
                           budget: float, walls: list, pool: RankPool,
                           deadline_s: float | None) -> list[TrialResult]:
-    """An attacked cell dealt over the grid's ranks; the seeds' baselines
-    are computed here first, once."""
+    """An attacked cell dealt over the grid's trial groups (every rank of
+    a group gets its block); the seeds' baselines are computed here
+    first, once."""
     for s in seeds:
         _ensure_baseline(sim, cache, s)
-    blocks = _deal(seeds, pool.size)
+    blocks = _deal(seeds, pool.groups)
+    bf = _nested_batch_factor(pool, len(blocks[0]))
     outs = pool.run(_rank_attacked_trials, [
-        (cfg, fraction, b, {s: cache[s] for s in b}, budget) if b else None
-        for b in blocks], deadline_s=deadline_s)
+        (cfg, fraction, b, {s: cache[s] for s in b}, budget, bf) if b
+        else None
+        for b in blocks for _ in range(pool.peer_width)],
+        deadline_s=deadline_s)
     trials: list[TrialResult] = []
     for out in outs:
         if out is not None:
             trials.extend(out[0])
             walls.extend(out[1])
     return trials
+
+
+# ------------------------------------------------------------- nested windows
+
+
+def _host_tree(tree):
+    """Every tensor leaf of `tree` as a host numpy array (what crosses a
+    rank's pipe)."""
+    return tree_map(_host, tree)
+
+
+def _device_tree(tree, device):
+    return tree_map(
+        lambda x: (torch.from_numpy(np.ascontiguousarray(x))
+                   if isinstance(x, np.ndarray) else x).to(device), tree)
+
+
+def _join_rows(pieces: list, name: str | None = None):
+    """One tree from its row blocks (rank order): every leaf with a row
+    axis concatenated, the replicated SimState leaves and 0-d leaves from
+    the first block."""
+    first = pieces[0]
+    if isinstance(first, np.ndarray):
+        if first.ndim == 0 or name in REPLICATED_LEAVES:
+            return first
+        return np.concatenate(pieces, axis=0)
+    if isinstance(first, dict):
+        return {k: _join_rows([p[k] for p in pieces], k) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(_join_rows(list(xs)) for xs in zip(*pieces))
+    if dataclasses.is_dataclass(first) and not isinstance(first, type):
+        return dataclasses.replace(first, **{
+            f.name: _join_rows([getattr(p, f.name) for p in pieces], f.name)
+            for f in dataclasses.fields(first)})
+    return first
+
+
+def _stack(trees: list):
+    return tree_map(lambda *xs: np.stack(xs), trees[0], *trees[1:])
+
+
+def _first_device(tree):
+    found = []
+    tree_map(lambda x: found.append(x.device)
+             if isinstance(x, torch.Tensor) else None, tree)
+    return found[0] if found else torch.device("cpu")
+
+
+def _rank_window(payload, device):
+    """One rank's trials of a nested window: `body(*trial args, shared)`
+    for each trial of its block, on its rows under its group (nested) or
+    on every row (the replicated submesh). Returns the host (carry, obs)
+    of each trial."""
+    body, args, shared, n_rows, local, bf, nested = payload
+    grp = peer_group(n_rows, device) if nested else None
+    args, shared = _device_tree(args, device), _device_tree(shared, device)
+    out = []
+    with peer.using(grp), batch_scope(bf):
+        for j in range(local):
+            rows, rep = body(*tree_map(lambda x: x[j], args), shared)
+            out.append((_host_tree(rows), _host_tree(rep)))
+    return out
+
+
+def _run_nested_window(body, trial_mesh, n_rows: int, stacked_args: tuple,
+                       shared: dict, nested: bool = True,
+                       batch_factor: int | None = None):
+    """Run `body(*one trial's args, shared)` -> (carry, obs) for every
+    trial of a stacked batch on a grid (a make_trial_mesh grid or an open
+    RankPool): trial block g on group g; nested, each rank holds its rows
+    of the block (parallel/sharding.place_trial_batch) and the shared
+    (N, ...) arrays and runs the trials under its peer group; not nested,
+    the group's first rank runs its block on every row (the reference's
+    replicated submesh). Returns the stacked (carry, obs), the carry's
+    row blocks joined, on the device of the inputs. The trial count must
+    divide over the groups (_pad_to_groups)."""
+    groups, width = grid_shape(trial_mesh)
+    placed = place_trial_batch(tuple(stacked_args), shared, trial_mesh,
+                               n_rows=n_rows if nested else None)
+    lead = []
+    tree_map(lambda x: lead.append(x.shape[0]), tuple(stacked_args))
+    local = lead[0] // groups
+    if batch_factor is None:
+        batch_factor = (_nested_batch_factor(trial_mesh, local) if nested
+                        else local)
+    payloads = [None if not nested and r % width else
+                (body, _host_tree(args), _host_tree(sh), n_rows, local,
+                 batch_factor, nested)
+                for r, (args, sh) in enumerate(placed)]
+    with _grid_pool(trial_mesh) as pool:
+        outs = pool.run(_rank_window, payloads)
+    per_trial = []
+    for g in range(groups):
+        ranks = outs[g * width:(g + 1) * width]
+        for j in range(local):
+            carry = (_join_rows([r[j][0] for r in ranks]) if nested
+                     else ranks[0][j][0])
+            per_trial.append((carry, ranks[0][j][1]))
+    return _device_tree(_stack(per_trial),
+                        _first_device(tuple(stacked_args)))
+
+
+def _run_nested_window_stacked(body, trial_mesh, n_rows: int,
+                               stacked_args: tuple,
+                               batch_factor: int | None = None):
+    """_run_nested_window for a body whose every input carries a leading
+    trial axis (the DHT window's second leg: each trial resumes its own
+    dialed graph)."""
+    return _run_nested_window(body, trial_mesh, n_rows, stacked_args, {},
+                              batch_factor=batch_factor)
+
+
+def _unstack_trial(stacked_out, j: int):
+    """Trial j of a nested window's stacked output."""
+    return tree_map(lambda x: x[j], stacked_out)
+
+
+def _pad_to_groups(states: list, attackers: list, trial_mesh, extras=None):
+    """Pad a trial batch to a multiple of the grid's group count by
+    repeating the last trial (the padded outputs are dropped after the
+    window). Returns (states, attackers, local_trials), or with `extras`
+    (a parallel per-trial list, e.g. fault-mask dicts) padded alongside
+    (states, attackers, extras, local_trials)."""
+    groups = grid_shape(trial_mesh)[0]
+    pad = (-len(states)) % groups
+    states = list(states) + [states[-1]] * pad
+    attackers = list(attackers) + [attackers[-1]] * pad
+    if extras is not None:
+        extras = list(extras) + [extras[-1]] * pad
+        return states, attackers, extras, len(states) // groups
+    return states, attackers, len(states) // groups
+
+
+def _attack_body(run_win, params, adv, steps, telemetry, st, at, sh):
+    return run_win(st, sh["conns"], sh["rev"], sh["out_mask"], at, params,
+                   adv, steps, telemetry=telemetry)
+
+
+def _faulted_body(run_win, params, adv, faults, steps, telemetry, st, at,
+                  cr, sd, sp, sh):
+    return run_win(st, sh["conns"], sh["rev"], sh["out_mask"], at, params,
+                   adv, faults, cr, sd, sp, steps, telemetry=telemetry)
+
+
+def _recovery_body(rparams, steps, publisher, telemetry, st, at, sh):
+    from ..ops.repair import run_recovery_heartbeats
+
+    return run_recovery_heartbeats(
+        st, sh["conns"], sh["rev"], sh["out_mask"], at, rparams, steps,
+        publisher=publisher, telemetry=telemetry)
+
+
+def _dht_body(rparams, steps, publisher, telemetry, st, at, pl, sh):
+    return run_dht_recovery_heartbeats(
+        st, sh["conns"], sh["rev"], sh["out_mask"], at, rparams, steps,
+        dht_pool=pl, publisher=publisher, telemetry=telemetry)
+
+
+def _dht_graph_body(rparams, steps, publisher, telemetry, st, at, pl, cn,
+                    rv, om, sh):
+    return run_dht_recovery_heartbeats(
+        st, cn, rv, om, at, rparams, steps, dht_pool=pl,
+        publisher=publisher, telemetry=telemetry)
+
+
+def _episub_body(params, ep, adv, steps, telemetry, st, ct, at, sh):
+    from ..ops.episub import run_episub_adaptive_heartbeats
+
+    return run_episub_adaptive_heartbeats(
+        st, ct, sh["conns"], sh["rev"], sh["out_mask"], at, params, ep,
+        adv, steps, telemetry=telemetry)
+
+
+def sharded_attack_window(stacked, shared: dict, attackers, params, adv,
+                          steps: int, trial_mesh, local_trials: int,
+                          nested: bool = True, telemetry=None,
+                          protocol: str = "gossipsub"):
+    """The attack window of a stacked trial batch on a 2-D trials x peers
+    grid (the reference's signature): `stacked` (a SimState whose leaves
+    carry a leading trial axis) and `attackers` (T, N) split over the
+    grid's groups, `shared` the epoch graph dict. nested=True splits each
+    trial's rows over its group's ranks; nested=False runs each trial on
+    its group's first rank with every row (the replicated submesh the
+    reference pins the nested program against). Both give the stacked
+    (states, obs) of the one-device window, ((states, ctrls), obs) with
+    the adaptive attacker armed (run_adaptive_heartbeats)."""
+    run_win = _protocol_window_runner(protocol, "run_adaptive_heartbeats")
+    body = partial(_attack_body, run_win, params, adv, steps, telemetry)
+    return _run_nested_window(
+        body, trial_mesh, shared["conns"].shape[0], (stacked, attackers),
+        shared, nested=nested,
+        batch_factor=(_nested_batch_factor(trial_mesh, local_trials)
+                      if nested else local_trials))
+
+
+def sharded_faulted_window(stacked, shared: dict, attackers, crash, side,
+                           spike, params, adv, faults, steps: int,
+                           trial_mesh, local_trials: int, telemetry=None,
+                           protocol: str = "gossipsub"):
+    """The fault-armed nested window: the (T, N) crash / side / spike
+    cohorts split like the attacker masks, each trial's
+    run_faulted_heartbeats on its group's rows."""
+    run_win = _protocol_window_runner(protocol, "run_faulted_heartbeats")
+    body = partial(_faulted_body, run_win, params, adv, faults, steps,
+                   telemetry)
+    return _run_nested_window(
+        body, trial_mesh, shared["conns"].shape[0],
+        (stacked, attackers, crash, side, spike), shared,
+        batch_factor=_nested_batch_factor(trial_mesh, local_trials))
+
+
+def sharded_recovery_window(stacked, shared: dict, attackers, rparams,
+                            steps: int, publisher: int, trial_mesh,
+                            local_trials: int, nested: bool = True,
+                            telemetry=None):
+    """The recovery window of a stacked batch, every trial from the shared
+    epoch graph: stacked ((states, conns, rev, out_mask), obs), each
+    trial's possibly dialed graph with a leading trial axis. Nested or
+    replicated as sharded_attack_window."""
+    body = partial(_recovery_body, rparams, steps, publisher, telemetry)
+    return _run_nested_window(
+        body, trial_mesh, shared["conns"].shape[0], (stacked, attackers),
+        shared, nested=nested,
+        batch_factor=(_nested_batch_factor(trial_mesh, local_trials)
+                      if nested else local_trials))
+
+
+def sharded_dht_recovery_window(stacked, shared: dict | None, graphs,
+                                attackers, pools, rparams, steps: int,
+                                publisher: int, trial_mesh,
+                                local_trials: int, telemetry=None):
+    """The DHT-armed recovery window on the grid: the (T, N, K) shortlists
+    split like the attacker masks. `shared`: the epoch graph (the first
+    leg); or `graphs`, stacked per-trial (T, N, C) conns / rev / out_mask
+    (the healed leg, each trial resuming its own dialed graph)."""
+    bf = _nested_batch_factor(trial_mesh, local_trials)
+    if graphs is None:
+        body = partial(_dht_body, rparams, steps, publisher, telemetry)
+        return _run_nested_window(
+            body, trial_mesh, shared["conns"].shape[0],
+            (stacked, attackers, pools), shared, batch_factor=bf)
+    body = partial(_dht_graph_body, rparams, steps, publisher, telemetry)
+    return _run_nested_window_stacked(
+        body, trial_mesh, graphs[0].shape[1],
+        (stacked, attackers, pools) + tuple(graphs), batch_factor=bf)
 
 
 def run_campaign(cfg: CampaignConfig, mesh=None, trial_mesh=None, dcn=None,
@@ -879,11 +1227,13 @@ def run_campaign(cfg: CampaignConfig, mesh=None, trial_mesh=None, dcn=None,
 
     `trial_mesh`: a make_trial_mesh grid (or an open RankPool): an
     attacked fraction's seed column (with cfg.vmap_trials and more than
-    one seed) is dealt over its rank processes (module doc). `dcn`: a
-    make_dcn_mesh grid (or True for the default one) over a
-    torch.distributed world; every process calls this on its seed slice
-    and all return the merged result (_run_campaign_dcn). `mesh` (the
-    peer mesh) raises NotImplementedError naming its slice."""
+    one seed) is dealt over its trial groups (module doc). `mesh`: a
+    make_peer_mesh PeerMesh: every cell runs on the mesh's ranks, each on
+    its rows of the network, trials one after another (`device` is then
+    the conformance certificate's only; the mesh's first device when
+    None). `dcn`: a make_dcn_mesh grid (or True for the default one) over
+    a torch.distributed world; every process calls this on its seed slice
+    and all return the merged result (_run_campaign_dcn)."""
     if dcn is not None:
         if mesh is not None or trial_mesh is not None:
             raise ValueError(
@@ -895,17 +1245,32 @@ def run_campaign(cfg: CampaignConfig, mesh=None, trial_mesh=None, dcn=None,
             "pass either mesh (peer-axis sharding) or trial_mesh "
             "(trial-axis sharding), not both")
     if mesh is not None:
-        raise peer_mesh_later("run_campaign(mesh=)")
+        check_peer_mesh(mesh)
     cfg.validate()
+    if mesh is not None:
+        return _run_campaign(cfg, None, device, mesh=mesh)
     with _grid_pool(trial_mesh) as pool:
         return _run_campaign(cfg, pool, device)
 
 
 def _run_campaign(cfg: CampaignConfig, pool: RankPool | None,
-                  device) -> CampaignResult:
+                  device, mesh=None) -> CampaignResult:
     adv = cfg.adversary_params()
     t0 = time.time()
-    sim = Simulator(cfg.experiment, device=device)
+    sim = Simulator(cfg.experiment, device=device, mesh=mesh)
+    try:
+        res = _sweep(cfg, adv, sim, pool, device, mesh, t0)
+        if mesh is not None:
+            res.rank_stats = {"collectives": sim.collectives(),
+                              "rank_peak_bytes": sim.rank_peak_bytes}
+        return res
+    finally:
+        if mesh is not None:
+            sim.close()
+
+
+def _sweep(cfg: CampaignConfig, adv, sim, pool, device, mesh,
+           t0: float) -> CampaignResult:
     budget = heartbeats_to_graylist(adv, sim.params)
     if ((adv.graft_flood or adv.ihave_spam or adv.iwant_spam)
             and not adv.identity_rotation
@@ -936,10 +1301,24 @@ def _run_campaign(cfg: CampaignConfig, pool: RankPool | None,
         return (f > 0.0 and pool is not None and pool.size > 1
                 and cfg.vmap_trials and len(ss) > 1)
 
+    def _mesh_trials(f: float, ss: list[int]) -> list[TrialResult]:
+        # the baselines on the handle, then the trials on its ranks
+        for s in ss:
+            _ensure_baseline(sim, cache, s)
+        got, w = sim.attacked_trials(
+            cfg, f, ss, {s: cache[s] for s in ss}, budget,
+            deadline_s=sup.trial_timeout_s or None)
+        walls.extend(w)
+        return got
+
     def _cell(f: float, ss: list[int]) -> list[TrialResult]:
         if f == 0.0:
             return [_benign_trial(sim, cfg, s, cache, budget, walls)
                     for s in ss]
+        if mesh is not None:
+            if cfg.vmap_trials:
+                return _mesh_trials(f, ss)
+            return [t for s in ss for t in _mesh_trials(f, [s])]
         if _on_grid(f, ss):
             # the trial timeout is the ranks' deadline: a watchdog thread
             # would abandon a job the ranks are still running
@@ -961,9 +1340,12 @@ def _run_campaign(cfg: CampaignConfig, pool: RankPool | None,
             "error": repr(err)[:500] if err is not None else "unknown",
         })
 
+    # on ranks the trial timeout is their deadline: a watchdog thread
+    # would abandon a job the ranks are still running
+    ranked_sup = replace(sup, trial_timeout_s=0.0)
     for f in cfg.fractions:
         seeds = list(cfg.seeds)
-        cell_sup = (replace(sup, trial_timeout_s=0.0) if _on_grid(f, seeds)
+        cell_sup = (ranked_sup if mesh is not None or _on_grid(f, seeds)
                     else sup)
         res, used, err = _supervise(
             cell_sup, injector, lambda f=f, ss=seeds: _cell(f, ss), _on_fail,
@@ -978,14 +1360,17 @@ def _run_campaign(cfg: CampaignConfig, pool: RankPool | None,
         # the batch is poisoned: isolate per seed so siblings survive
         for s in seeds:
             res1, used1, err1 = _supervise(
-                sup, injector, lambda f=f, s=s: _cell(f, [s]), _on_fail,
-                device=sim.device)
+                ranked_sup if mesh is not None else sup, injector,
+                lambda f=f, s=s: _cell(f, [s]), _on_fail, device=sim.device)
             retries_total += used1
             if res1 is not None:
                 trials.extend(res1)
             else:
                 _quarantine(f, [s], err1)
-    conformance = (_campaign_conformance(cfg, adv, sim.device)
+    conf_dev = sim.device
+    if mesh is not None:
+        conf_dev = mesh.devices[0] if device is None else device
+    conformance = (_campaign_conformance(cfg, adv, conf_dev)
                    if cfg.conformance else None)
     return CampaignResult(
         scenario=cfg.scenario,
@@ -1372,6 +1757,20 @@ def _episub_windows(sim: Simulator, ep, attackers, states, ctrls, adv,
     return out_s, out_c, out_o
 
 
+def sharded_episub_window(stacked, ctrls, shared: dict, attackers, params,
+                          ep, adv, steps: int, trial_mesh,
+                          local_trials: int, telemetry=None):
+    """The episub window of a stacked batch on the grid: the (T, N)
+    EpisubCtrl carry split like the state, each trial's
+    run_episub_adaptive_heartbeats on its group's rows. Returns the
+    stacked ((states, ctrls[, adaptive ctrls]), obs)."""
+    body = partial(_episub_body, params, ep, adv, steps, telemetry)
+    return _run_nested_window(
+        body, trial_mesh, shared["conns"].shape[0],
+        (stacked, ctrls, attackers), shared,
+        batch_factor=_nested_batch_factor(trial_mesh, local_trials))
+
+
 def _episub_publish(sim: Simulator, ctrl, ep, censor=None, attacker=None,
                     adv=None, cross=None, partition_ms=None):
     """_publish_schedule with episub heartbeats between messages
@@ -1465,11 +1864,11 @@ def _arena_rows(sim: Simulator, cfg: CampaignConfig, sc: str,
         att = (np.zeros(n, dtype=bool) if benign else attacker_cohort(
             n, fraction, seed=s, conns=conns_np, publisher=pub,
             eclipse=adv.eclipse))
-        cohorts[s] = (att, torch.as_tensor(att, device=dev))
+        cohorts[s] = (att, torch.as_tensor(peer.local(att), device=dev))
         shas[str(s)] = _cohort_sha(att)
     fmasks = None
     if faulted and not benign:
-        fmasks = {s: {k: torch.as_tensor(v, device=dev)
+        fmasks = {s: {k: torch.as_tensor(peer.local(v), device=dev)
                       for k, v in fault_masks(n, cfg.faults, seed=s,
                                               publisher=pub).items()}
                   for s in seeds}
@@ -1482,7 +1881,7 @@ def _arena_rows(sim: Simulator, cfg: CampaignConfig, sc: str,
         return {
             "seed": s, "attackers": int(att.sum()),
             "coverage": cov,
-            "bandwidth_bytes": float(_host(sim.state.bytes_tx).sum()),
+            "bandwidth_bytes": float(_whole(sim.state.bytes_tx).sum()),
             "latency_p50_ms": p50, "latency_p99_ms": p99,
             "recovery_time_ms": rec_ms,
             "cohort_sha256": shas[str(s)],
@@ -1579,10 +1978,13 @@ def _arena_rows(sim: Simulator, cfg: CampaignConfig, sc: str,
 
 
 def _rank_arena_rows(payload, device):
-    """One rank's block of an arena scenario on its own Simulator."""
+    """One group's block of an arena scenario on the group's Simulator,
+    each rank on its rows; the rows from the group's rank 0."""
     cfg, sc, seeds, fraction, ep, tel = payload
-    sim = Simulator(cfg.experiment, device=device)
-    return _arena_rows(sim, cfg, sc, seeds, fraction, ep, tel)
+    grp, sim = _group_sim(cfg, device)
+    with peer.using(grp):
+        out = _arena_rows(sim, cfg, sc, seeds, fraction, ep, tel)
+    return out if grp is None or grp.rank == 0 else None
 
 
 def run_arena_campaign(cfg: CampaignConfig, scenarios=None, ep=None,
@@ -1600,9 +2002,9 @@ def run_arena_campaign(cfg: CampaignConfig, scenarios=None, ep=None,
     attack scenario needs the adaptive attacker armed. No repair and no
     recovery window: recovery_time_ms is read off the attack window's
     attacker_mesh_share curve. `trial_mesh`: an attack scenario's seeds
-    (more than one) are dealt over the grid's rank processes, each
-    running its block's cells of both protocols; the benign row stays in
-    the caller, as in the reference. Returns the reference's strict-JSON
+    (more than one) are dealt over the grid's trial groups, each running
+    its block's cells of both protocols (a wide group on its ranks'
+    rows); the benign row stays in the caller, as in the reference. Returns the reference's strict-JSON
     dict: per-trial rows, per-(scenario, protocol) rows, the win matrix
     and the identity block."""
     from ..ops.episub import EpisubParams
@@ -1646,10 +2048,11 @@ def run_arena_campaign(cfg: CampaignConfig, scenarios=None, ep=None,
         for sc in scenarios:
             if (sc != "benign" and pool is not None and pool.size > 1
                     and len(seeds) > 1):
-                blocks = _deal(seeds, pool.size)
+                blocks = _deal(seeds, pool.groups)
                 outs = [o for o in pool.run(_rank_arena_rows, [
                     (cfg, sc, b, fraction, ep, tel) if b else None
-                    for b in blocks]) if o is not None]
+                    for b in blocks for _ in range(pool.peer_width)])
+                    if o is not None]
                 g_rows = [r for o in outs for r in o[0]]
                 e_rows = [r for o in outs for r in o[1]]
                 shas = {k: v for o in outs for k, v in o[2].items()}

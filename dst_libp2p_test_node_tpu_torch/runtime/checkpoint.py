@@ -28,7 +28,9 @@ counters, `answer_wait_max_ms` 0.0). The format carries no record's
 loader does).
 
 A run on a peer mesh (runtime/sharded.py) saves the gathered rows, so its
-file is byte-identical to the one-device save at the same point;
+file is byte-identical to the one-device save at the same point; so does
+a Simulator on a rank of one (a campaign's trial on its group's rows:
+every rank gathers, the group's rank 0 writes);
 `load_checkpoint(mesh=)` rebuilds the handle on that mesh and scatters
 the leaves to its ranks (a run does not remember its mesh: the mesh is
 the resuming host's).
@@ -46,7 +48,8 @@ import numpy as np
 from .. import interop
 from ..config.env import GossipSubParams
 from ..config.topology import Topology, TopoParams
-from ..ops.state import PX_POOL_WIDTH
+from ..ops.state import PX_POOL_WIDTH, gathered_state
+from ..parallel import peer
 from .simulator import ExperimentConfig, MessageRecord, Simulator
 
 FORMAT_VERSION = 10
@@ -127,9 +130,15 @@ def save_checkpoint(sim, path: str, kad_state=None,
     snapshot in place. `kad_state`: an ops.kad.KadState whose leaves ride
     along as kad/* (the DHT of the run, for offline audit).
     `service_meta`: a strict-JSON sidecar, read only by
-    load_service_meta."""
+    load_service_meta. On a rank of the peer mesh every rank of the
+    group calls it and its rank 0 writes."""
     multitopic = hasattr(sim, "topic_index")
-    state = sim.state          # on a peer mesh: one gather of the rows
+    # on a peer mesh's handle: one gather of the rows; on a rank: its
+    # group's rows gathered
+    state = gathered_state(sim.state)
+    grp = peer.active()
+    if grp is not None and grp.rank != 0:
+        return
     meta = {
         "version": FORMAT_VERSION,
         "kind": "multitopic" if multitopic else "single",

@@ -11,7 +11,11 @@ peer rows for the multi-topic one) and runs the same modules on them;
 the stage matrices are replicated. The ranks exchange only what a
 cross-row read or write needs (parallel/peer.py).
 
-  warmup / advance    the heartbeats on every rank
+  warmup / advance    the heartbeats on every rank (with the flight
+                      recorder armed by record_telemetry, every rank
+                      records; the channels are counted and summed over
+                      every peer, so `last_telemetry` comes back in the
+                      one-device layout)
   publish             one disseminate on every rank (mesh= its group: the
                       receiver-side fixpoints through converge_sharded,
                       the serial engine); the handle row-concatenates the
@@ -24,12 +28,15 @@ cross-row read or write needs (parallel/peer.py).
   state               a gathered read-only copy (host tensors): metrics,
                       checkpoint saves; assigning it scatters the rows
                       (load_checkpoint(mesh=))
+  attacked_trials     a campaign's attacked trials (runtime/campaign.py's
+                      per-trial path) on the ranks' own Simulators, one
+                      after another: run_campaign(mesh=)
 
-Mix relay and the flight recorder under a mesh are the next slice.
-Launches: each rank counts its kernel launches per call and sends the
-counts back over its pipe (RankPool.launches); `collectives()` has each
-rank's all-gathers and their bytes; `rank_peak_bytes` each rank's peak
-allocated device memory since the handle was built (None on the CPU).
+The mix relay under a mesh is a later slice. Launches: each rank counts
+its kernel launches per call and sends the counts back over its pipe
+(RankPool.launches); `collectives()` has each rank's all-gathers and
+their bytes; `rank_peak_bytes` each rank's peak allocated device memory
+since the handle was built (None on the CPU).
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ import torch
 
 from .. import interop
 from ..ops import disseminate as dsm
+from ..ops.state import REPLICATED_LEAVES
 from ..parallel import peer
 from ..parallel.sharding import (
     check_peer_mesh,
@@ -53,11 +61,7 @@ from ..parallel.sharding import (
 from .multitopic import MultiTopicSimulator
 from .simulator import Simulator
 
-# the SimState leaves that are not peer-major (replicated on every rank)
-_REPLICATED = ("t_ms", "key")
-
-_RESULT_ROWS = ("t_rx_ms", "delay_ms", "received", "sends", "copies_rx",
-                "ihave_sent", "iwant_sent", "lost_tx")
+_RESULT_ROWS = dsm.RESULT_ROWS
 _RESULT_SCALARS = ("answer_wait_max_ms", "answer_interleaved", "converged",
                    "refine_passes")
 
@@ -108,7 +112,24 @@ def _op_advance(sim_id, device, ms, carry_ms):
     sim._hb_carry_ms = carry_ms             # the handle's heartbeat carry
     with peer.using(grp):
         sim.advance(ms)
+    return _reply(grp, sim, telemetry=getattr(sim, "last_telemetry", None))
+
+
+def _op_record_telemetry(sim_id, device, params):
+    grp, sim = _RANK_SIMS[sim_id]
+    sim.record_telemetry(params)
     return _reply(grp, sim)
+
+
+def _op_trials(sim_id, device, cfg, fraction, seeds, cache, budget):
+    from .campaign import _attacked_trials
+
+    grp, sim = _RANK_SIMS[sim_id]
+    walls: list = []
+    with peer.using(grp):
+        trials = _attacked_trials(sim, cfg, fraction, seeds, dict(cache),
+                                  budget, walls)
+    return _reply(grp, sim, trials=trials, walls=walls)
 
 
 def _op_publish(sim_id, device, row, t0_ms, size, with_fanout, censor):
@@ -141,10 +162,15 @@ def _op_rebind_graph(sim_id, device, conns, rev, out_mask):
     return _reply(grp, sim)
 
 
-def _op_reset(sim_id, device):
+def _op_reset(sim_id, device, seed):
     grp, sim = _RANK_SIMS[sim_id]
-    with peer.using(grp):
-        sim.reset()
+    # the seed the handle resets to (a campaign's trial seed)
+    base, sim.cfg.seed = sim.cfg.seed, seed
+    try:
+        with peer.using(grp):
+            sim.reset()
+    finally:
+        sim.cfg.seed = base
     return _reply(grp, sim)
 
 
@@ -169,6 +195,7 @@ def _op_drop(sim_id, device):
 
 
 _OPS = {"create": _op_create, "advance": _op_advance,
+        "record_telemetry": _op_record_telemetry, "trials": _op_trials,
         "publish": _op_publish, "set_subscribed": _op_set_subscribed,
         "rebind_graph": _op_rebind_graph, "reset": _op_reset,
         "get_state": _op_get_state, "set_state": _op_set_state,
@@ -203,9 +230,11 @@ class _MeshHandle:
         self.rank_build_s = [o["seconds"] for o in outs]
         self.backend = outs[0]["backend"]
 
-    def _call(self, op: str, args: list) -> list:
+    def _call(self, op: str, args: list,
+              deadline_s: float | None = None) -> list:
         outs = self.mesh.pool.run(_rank_job, [(op, self._id, tuple(a))
-                                              for a in args])
+                                              for a in args],
+                                  deadline_s=deadline_s)
         if outs and "t_ms" in outs[0]:
             self._t_ms = outs[0]["t_ms"]
             self._stats = [o["stats"] for o in outs]
@@ -226,7 +255,22 @@ class _MeshHandle:
         carry = self._hb_carry_ms
         _, self._hb_carry_ms = drain_heartbeat_carry(
             carry, ms, self.params.heartbeat_ms)
-        self._all("advance", ms, carry)
+        tel = self._all("advance", ms, carry)[0]["telemetry"]
+        if tel is not None:
+            self.last_telemetry = tel
+
+    def attacked_trials(self, cfg, fraction: float, seeds: list,
+                        cache: dict, budget: float,
+                        deadline_s: float | None = None):
+        """An attacked campaign cell (runtime/campaign.py) on the ranks,
+        each on its rows of every trial, one trial after another:
+        (TrialResults, phase walls) as one device gives them. `cache`: the
+        seeds' benign baselines. The ranks' Simulators end on the last
+        trial's state; the next reset rewinds them."""
+        outs = self._call("trials", [(cfg, fraction, list(seeds), cache,
+                                      budget)] * self.mesh.size,
+                          deadline_s=deadline_s)
+        return outs[0]["trials"], outs[0]["walls"]
 
     def collectives(self) -> list:
         """Each rank's collectives since it built its rows: all-gathers
@@ -242,7 +286,7 @@ class _MeshHandle:
         leaves = {}
         for k in outs[0]["leaves"]:
             parts = [o["leaves"][k] for o in outs]
-            leaves[k] = (parts[0] if k in _REPLICATED
+            leaves[k] = (parts[0] if k in REPLICATED_LEAVES
                          else np.concatenate(parts, axis=0))
         return interop.state_from_numpy(leaves, self.device)
 
@@ -302,9 +346,10 @@ class ShardedSimulator(_MeshHandle, Simulator):
         return {k: torch.as_tensor(v) for k, v in self._arrays_np.items()}
 
     def record_telemetry(self, params=None) -> None:
-        if params is not None and params.enabled:
-            raise peer_mesh_later("the flight recorder under a peer mesh")
-        self._telemetry = None
+        """Arm (or disarm) the flight recorder on every rank
+        (Simulator.record_telemetry)."""
+        Simulator.record_telemetry(self, params)
+        self._all("record_telemetry", self._telemetry)
 
     def _apply_subscribed(self, mask: np.ndarray) -> None:
         self._all("set_subscribed", mask)
@@ -318,7 +363,7 @@ class ShardedSimulator(_MeshHandle, Simulator):
                   self._arrays_np["rev"], self._arrays_np["out_mask"])
 
     def reset(self) -> None:
-        self._all("reset")
+        self._all("reset", self.cfg.seed)
         self._reset_host()
 
 
@@ -332,7 +377,7 @@ class ShardedMultiTopicSimulator(_MeshHandle, MultiTopicSimulator):
         self._start(mesh, "multi", self.params.n)
 
     def reset(self) -> None:
-        self._all("reset")
+        self._all("reset", self.cfg.seed)
         self._hb_carry_ms = 0.0
         self.records = []
         self._msg_rng = np.random.default_rng(self.cfg.seed ^ 0x6D736749)

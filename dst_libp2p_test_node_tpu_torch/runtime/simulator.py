@@ -40,7 +40,8 @@ from .. import prng
 from ..config.env import GossipSubParams
 from ..config.topology import Topology, TopoParams
 from ..device import resolve_device
-from ..ops.disseminate import answer_tables, disseminate, edge_tables
+from ..ops.disseminate import (answer_tables, disseminate, edge_tables,
+                               gathered_result)
 from ..ops.graph import build_connection_graph
 from ..ops.heartbeat import run_heartbeats
 from ..ops.mix import MixParams, eligible_mix_count, mix_route, mix_wire_bytes
@@ -369,6 +370,8 @@ class Simulator:
         res = self._disseminate(
             publisher, t0_ms + mix_delay, size,
             not bool(self._subscribed_np[publisher]), censor_edge)
+        # a rank's record holds every peer, as one device's does
+        res = gathered_result(res)
         if cfg.msgid_mode == "go":
             msg_id = max(int(t0_ms * 1e6), self._last_msg_id + 1)
             self._last_msg_id = msg_id

@@ -54,3 +54,19 @@ def rows_of(payload, device):
     grp = peer.PeerGroup(dist.get_rank(), dist.get_world_size(), payload,
                          device)
     return np.arange(grp.r0, grp.r1)
+
+
+def fused_chain(params, payload_bytes, hb_per_round, publishers, st, sh):
+    """run_fused_rounds of one trial on this rank's rows (a nested
+    window's body, runtime/campaign._run_nested_window): (state, (the
+    results with every peer's rows, obs))."""
+    import dataclasses
+
+    from dst_libp2p_test_node_tpu_torch.ops import disseminate as td
+
+    head, res, obs = td.run_fused_rounds(
+        st, sh["conns"], sh["rev"], sh["stage"], sh["lat"], sh["bw"],
+        sh["out_mask"], publishers, params, payload_bytes, hb_per_round)
+    rows = {k: peer.all_rows(getattr(res, k).transpose(0, 1).contiguous())
+            .transpose(0, 1) for k in td.RESULT_ROWS}
+    return head, (dataclasses.replace(res, **rows), obs)

@@ -4,7 +4,10 @@ wall fields) and --metrics-out (byte for byte) of the eclipse / recovery
 campaign of the verify recipe; the reference's flag checks with their
 messages; the adaptive, fault and DHT flags, once refused as later
 slices, now running to the reference's JSON (or its error), with
---trial-groups among them; and --mesh refused naming the peer mesh."""
+--trial-groups among them; and --mesh (the port's campaign on two CPU
+ranks of the peer mesh) giving the JSON of the reference's run without
+it: the reference's own --mesh path needs GSPMD's peer-sharded programs,
+which fail on the pinned jax."""
 
 import json
 
@@ -87,30 +90,28 @@ TINY = ["-n", "16", "--connect-to", "4", "--fractions", "0.25", "--seeds",
     (["--mesh"], "peer mesh"),
     (["--trial-groups", "2"], "trial grid")])
 def test_later_slice_flags_refused(flags, slice_name, tmp_path, capsys):
-    if slice_name == "peer mesh":
-        with pytest.raises(SystemExit) as e:
-            tcli.cmd_attack(["-n", "16", "--device", "cpu"] + flags)
-        assert e.value.code == 2
-        err = capsys.readouterr().err
-        assert "not ported yet" in err and "A13, second half" in err
-        return
-    # the adaptive, fault and DHT flags and the trial grid are ported: the
-    # port's `attack --json` and --metrics-out equal the reference's for
-    # the same flags, or both refuse the config with the same error (a DHT
-    # attack needs a recovery window with re-dial); one seed never leaves
-    # the caller, on either grid
+    # the adaptive, fault and DHT flags, the trial grid and the peer mesh
+    # are ported: the port's `attack --json` and --metrics-out equal the
+    # reference's for the same flags, or both refuse the config with the
+    # same error (a DHT attack needs a recovery window with re-dial); one
+    # seed never leaves the caller, on either grid. --mesh runs the port's
+    # campaign on two CPU ranks, held against the reference's run without
+    # it
     outs = []
     for name, mod, extra in (("j", jcli, []), ("t", tcli, ["--device",
                                                           "cpu"])):
         js, prom = tmp_path / f"{name}.json", tmp_path / f"{name}.prom"
+        mine = [] if (name, slice_name) == ("j", "peer mesh") else flags
         try:
-            assert mod.cmd_attack(TINY + flags + extra
+            assert mod.cmd_attack(TINY + mine + extra
                                   + ["--json", str(js), "--metrics-out",
                                      str(prom)]) == 0
             outs.append((_strip_walls(json.loads(js.read_text())),
                          prom.read_text()))
         except ValueError as e:
             outs.append(f"ValueError: {e}")
+    if slice_name == "peer mesh":
+        assert "peer mesh: 2 ranks" in capsys.readouterr().err
     capsys.readouterr()
     assert outs[0] == outs[1]
     assert isinstance(outs[1], str) == (slice_name == "DHT adversary")

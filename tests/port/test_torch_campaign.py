@@ -14,9 +14,10 @@ on the CPU:
   - the fraction-0.0 contract: the benign trial is a plain Simulator's
     bytes (the reference's tests/test_adversary.py:60-95);
   - CampaignMetrics text and the interop round trip;
-  - the paths of later slices raise naming their slice, and the fault,
-    DHT and adaptive configs that once did now run as the reference's
-    (or fail with its error)."""
+  - the paths once refused as later slices: a mesh that is no PeerMesh
+    refused by type (the campaign on a peer mesh runs), and the fault,
+    DHT and adaptive configs running as the reference's (or failing
+    with its error)."""
 
 import os
 
@@ -172,9 +173,11 @@ def test_campaign_metrics_and_interop(campaigns):
 
 def test_later_slices_raise_by_name(campaigns):
     cfg = _cfg("torch", recovery=0)
-    # the peer mesh is a later slice; a trial grid must be a grid; a DCN
-    # campaign without a checkpoint directory fails as the reference's does
-    with pytest.raises(NotImplementedError, match="peer mesh"):
+    # a peer mesh must be a make_peer_mesh PeerMesh (the campaign on it
+    # is ported: tests/port/test_torch_campaign_mesh.py); a trial grid
+    # must be a grid; a DCN campaign without a checkpoint directory fails
+    # as the reference's does
+    with pytest.raises(TypeError, match="make_peer_mesh PeerMesh"):
         tc.run_campaign(cfg, device="cpu", mesh=object())
     with pytest.raises(TypeError, match="make_trial_mesh"):
         tc.run_campaign(cfg, device="cpu", trial_mesh=object())

@@ -5,9 +5,11 @@ sequential runs and the reference's trial-mesh campaigns:
 
   - the mesh rules of the reference (tests/test_trial_sharding.py:
     shape and divisibility, the full grid and its edge cases) over
-    `devices=` lists, and a grid wider than one device per group refused
-    naming the peer mesh's next slice, as are the nested placers (the row
-    placers are the peer mesh's and take its PeerMesh);
+    `devices=` lists; a grid wider than one device per group runs the
+    campaign to the sequential run's result and the nested placers place
+    a batch (tests/port/test_torch_nested_windows.py holds them against
+    the reference), while the row placers stay the peer mesh's and take
+    its PeerMesh;
   - run_campaign on a 2- and a 4-rank grid (3 seeds: the 4-rank grid
     leaves one rank idle) for the reference's static, recovery, faulted
     and DHT configurations (tests/test_trial_sharding.py:55-70, 121-129,
@@ -165,7 +167,7 @@ def test_trial_mesh_shape_and_divisibility():
     assert m.group_devices == [torch.device("cuda", 0)] * 2
 
 
-def test_trial_mesh_full_grid_and_edge_cases():
+def test_trial_mesh_full_grid_and_edge_cases(cpu_grid):
     eight = ["cpu"] * 8
     m = tsh.make_trial_mesh(2, devices=eight)
     assert m.shape == {tsh.TRIAL_AXIS: 2, "peers": 4}
@@ -181,20 +183,28 @@ def test_trial_mesh_full_grid_and_edge_cases():
     assert d.shape == {tsh.DCN_AXIS: 1, tsh.TRIAL_AXIS: 2, "peers": 2}
     assert tsh.local_trial_submesh(d).shape == {tsh.TRIAL_AXIS: 2,
                                                 "peers": 2}
-    # groups wider than one device are the peer mesh's: refused by name
-    with pytest.raises(NotImplementedError, match="A13, second half"):
-        tc.run_campaign(_cfg("torch"), trial_mesh=m, device="cpu")
-    # the nested shardings are the peer mesh's next slice; the row placers
-    # are ported and take a PeerMesh, not a trial grid
-    for fn, args in ((tsh.place_trial_batch, (None, {}, m)),
-                     (tsh.nested_sharding, (m,))):
-        with pytest.raises(NotImplementedError, match="peer mesh"):
-            fn(*args)
+    # groups wider than one device (2 x 2 here: the grid's ranks split
+    # each trial's rows) give the sequential run's campaign
+    m = tsh.make_trial_mesh(2, devices=["cpu"] * 4)
+    assert m.rank_devices == [torch.device("cpu")] * 4
+    seq = tc.run_campaign(_cfg("torch", seeds=(0, 1)), device="cpu")
+    wide = tc.run_campaign(_cfg("torch", seeds=(0, 1)), trial_mesh=cpu_grid,
+                           device="cpu")
+    assert _fields(wide) == _fields(seq)
+    with pytest.raises(ValueError, match="rank_devices"):
+        m.group_devices
+    # the nested placers split a batch over its groups and row blocks;
+    # the row placers take a PeerMesh, not a trial grid
+    placed = tsh.place_trial_batch(np.arange(16).reshape(2, 8), {}, m,
+                                   n_rows=8)
+    assert [p[0].tolist() for p in placed] == [
+        [[0, 1, 2, 3]], [[4, 5, 6, 7]], [[8, 9, 10, 11]], [[12, 13, 14, 15]]]
+    assert tsh.nested_sharding(m) == tsh.NestedSharding(2, 2)
     for fn, args in ((tsh.peer_sharding, (m,)),
                      (tsh.reshard_rows, (np.zeros(4), m))):
         with pytest.raises(TypeError, match="PeerMesh"):
             fn(*args)
-    with pytest.raises(NotImplementedError, match="peer mesh"):
+    with pytest.raises(TypeError, match="make_peer_mesh PeerMesh"):
         tc.run_campaign(_cfg("torch"), mesh=object(), device="cpu")
 
 
