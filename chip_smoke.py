@@ -250,7 +250,8 @@ not printed):
                bitwise; `trace` at 64 peers: its files equal. (b) a
                campaign on 9(c)'s network armed as 10(c)'s `attack`
                (eclipse, the default adaptive policy, 10(b)'s fault
-               schedule, no DHT), fractions 0 / 0.1 x seeds 0 / 1, 20
+               schedule, no DHT), fractions 0 / 0.1 x seed 0 (seeds 0
+               and 1 until phase 17 joined), 20
                attack and 10 recovery heartbeats, conformance=True: the
                attached certificate clean, its scenario, adaptive and
                faults entries equal to (a)'s seed-0 ones; trials/s, the
@@ -259,11 +260,11 @@ not printed):
                3d's lossy config 4 at full width without and with
                return_plan: the same result and state bytes; the plan's
                shapes and bytes, peak memory, launches. (d) `conform
-               --device cuda --out` as a process: exit 0, its file the
-               seed-0 certificate's bytes; `trace -n 100000 --heartbeats
-               10 --warmup-hb 5 --profile-dir` as a process: exit 0,
-               strict JSON, 10 CSV rows, the profiler trace naming the
-               score_update kernel.
+               --device cuda --out` as a process (run beside (a)): exit
+               0, its file the seed-0 certificate's bytes; `trace -n
+               100000 --heartbeats 10 --warmup-hb 5 --profile-dir` as a
+               process (run beside 9(a)): exit 0, strict JSON, 10 CSV
+               rows, the profiler trace naming the score_update kernel.
  13. the tooling: (a) every contract of the registry
                (analysis/registry.py: 20 entry points at the reference's
                audit shapes) on the card and on the CPU: every output leaf
@@ -280,10 +281,11 @@ not printed):
                DST_TUNED_JSON. Counts zeroed just before and read just
                after. (c) 3b(c)'s config-4 exact publish from one warm
                state without and with the installed table: the same
-               delays and state bytes, both walls. (d) `lint` as a
-               process: exit 0, clean; `microbench --no-sweep --only
-               disseminate/` as a process: its strict-JSON artifact (the
-               packed A/B at 100,000 peers), its wall.
+               delays and state bytes, both walls. (d) `microbench
+               --no-sweep --only disseminate/cold` as a process: its
+               strict-JSON artifact (the cold publish's roofline and the
+               packed A/B at 100,000 peers), its wall (`lint` as a process
+               is 17(c)'s since phase 17 joined).
  14. the trial grid and the DCN campaign: (a) kad.evict_failed at
                max_fails 20 (the backoff through xlamath.exp2_f32) on a
                10,000-peer DHT table with its fail counters preset, on the
@@ -351,6 +353,30 @@ not printed):
                counters and backlogs planted in every row and 2.5 s of
                heartbeats): every last_telemetry curve bitwise the
                one-process CPU run's.
+ 17. the mix relay on the peer mesh and the sharding auditor, inside
+               phase 15's mesh: (a) config 5's relay (NUMMIX 128, MIXD 4,
+               bounded, 2 messages) at 2,048 peers from peer 1,500 (rank
+               1; the mix nodes are rank 0's rows) on the 2 ranks on the
+               card, on 2 CPU ranks and in one CUDA process: latencies,
+               every record field and gathered state leaf byte for byte.
+               (b) BASELINE config 5 at full width (1,000,000 peers, a 30
+               s warm-up, 2 messages from peer 132) on the 2 ranks, built
+               as `run` builds it: latencies1 = phase 4's file, the mix
+               delays = phase 4's, each rank's launches = phase 4's (both
+               kernels); prints the wall by part beside phase 4's, the
+               all-gathers and bytes per publish per rank, each rank's
+               peak beside phase 4's, the card's idle share. Then both
+               kernels at a rank's shape (500k x 40 rows against a 1M t)
+               against their plain versions, timed. (c, d) `lint
+               --sharding --predict-rung --rung-out` as one process (run
+               beside 12(a), its report read here): exit
+               0, clean, 26 entry points, exactly the legacy layout's two
+               GA-S001 waivers, zero cross-block bytes in the dcn
+               contract, each mesh contract's collectives and each rank's
+               peak; the 1,048,576-peer certificate within 10% on its
+               held-out point, its verdict and every leaf's argument fit
+               equal to RUNG_1M_torch.json, and the modeled HBM equal to
+               the card's total memory.
 
 Then one JSON line with every kernel's numbers: at 1M x 40 with
 `launches` from phase 4's config-5 run, under `exact` at 100k x 40 with
@@ -365,9 +391,11 @@ run (`plan`), 12(d)'s trace process (`trace`, as its profiler counted
 them), 13(b)'s microbench (`microbench`), 14(b)'s grid (`trial_grid`:
 the ranks' sum, each rank's and the caller's), 15(b)'s mesh
 (`peer_mesh`: the ranks' sum and each rank's, and each kernel's time,
-plain and library times and bound at a rank's shape) and 16(b)'s
-campaign on the mesh (`campaign_mesh`: the ranks' sum and each rank's),
-and under
+plain and library times and bound at a rank's shape), 16(b)'s
+campaign on the mesh (`campaign_mesh`: the ranks' sum and each rank's)
+and 17(b)'s config 5 on the mesh (`mix_mesh`: the ranks' sum, each
+rank's, and each kernel's times and bound at a rank's 500k x 40), and
+under
 `service` the 670k x 40 numbers with `launches` from 8(b)'s batched run
 (and its sequential run's). Then the total run time, and last the line
 {"ok": true, "device": {...}}. Without CUDA it exits 1 and prints no
@@ -380,8 +408,21 @@ of it, phase 9 101.4-104.4 s, phase 10 145.3-151.3 s, phase 11
 60.0-61.9 s, phase 12 90.5-100.2 s, phase 13 56.9-61.4 s and phase 14
 59.7-60.7 s. With phase 15 (46.3 s alone, 59.3-69.0 s in the whole
 smoke) the whole smoke took 881.3-1,018.7 s in six runs on machines of
-different speed; with phase 16, PERF.md §5 has the runs. Runs of the
-same work swing up to 16% between machines. Held to 1,100 s (ROADMAP,
+different speed; with phase 16, 992.0-1,009.3 s. Phase 17 took
+65.9-78.5 s with its `lint` process in line. It is paid for by folding
+13(d)'s `lint` into 17(c) (one run of each contract serves both
+engines), cutting 13(d)'s `microbench` to the cold publish, building the
+mesh's host side beside its ranks, running 12(b) at seed 0 (seeds 0 and
+1 before), and starting the processes whose checks time nothing beside
+the CUDA = CPU checks, which time nothing either (side_start): beside
+9(a) 12(d)'s `trace`, 9(b)'s `attack` and 15(d)'s DCN smoke; beside
+10(a) 10(c)'s `attack` and `pareto`; beside 11(a) 11(c)'s `arena` and
+14(d)'s `attack --trial-groups 0`; beside 12(a) 17(c, d)'s `lint` and
+12(d)'s `conform`. Each is waited for before the next timed part, and
+its checks stay where the phase list above puts them. With only
+`trace`, `lint` (then beside 10(a)) and `conform` beside, the whole
+smoke took 981.4 and 1,206.1 s on two machines (PERF.md §5). Runs of the
+same work swing up to 23% between machines. Held to 1,100 s (ROADMAP,
 Budgets), inside the 20-minute limit.
 """
 
@@ -395,8 +436,10 @@ import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -469,6 +512,82 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+# ---------------------------------------------------------- side processes
+
+# processes (the port's CLI, its scripts) whose checks are equalities and
+# counts, not rates: each is started beside one of the phases' CUDA = CPU
+# checks (9(a), 10(a), 11(a), 12(a), which time nothing either) and waited
+# for before the next timed part, so the two overlap
+_SIDE: dict = {}
+
+
+def port_cmd(*args):
+    """`python -m dst_libp2p_test_node_tpu_torch *args`."""
+    return [sys.executable, "-m", "dst_libp2p_test_node_tpu_torch", *args]
+
+
+def side_start(name, cmd, env=None, timeout=600):
+    """Start `cmd` in the checkout; a thread waits for it (killed with its
+    children at `timeout`) and keeps its CompletedProcess and wall."""
+    t0 = time.time()
+    proc = subprocess.Popen(
+        cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=env)
+    done = {}
+
+    def wait():
+        try:
+            out, err = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            _kill_tree(proc.pid)
+            out, err = proc.communicate()
+            err += f"\n(killed at its {timeout} s limit)"
+        done["proc"] = subprocess.CompletedProcess(proc.args,
+                                                   proc.returncode, out, err)
+        done["wall"] = time.time() - t0
+
+    thread = threading.Thread(target=wait, name=f"side-{name}", daemon=True)
+    thread.start()
+    _SIDE[name] = (proc, thread, done)
+
+
+def side_wait(name):
+    """(CompletedProcess, wall s) of side process `name`, once it ended."""
+    _proc, thread, done = _SIDE[name]
+    thread.join()
+    return done["proc"], done["wall"]
+
+
+def _kill_tree(pid):
+    """SIGKILL `pid` and every process below it (a side process's rank
+    processes too), read from /proc."""
+    kids: dict = {}
+    for d in os.listdir("/proc"):
+        if d.isdigit():
+            try:
+                with open(f"/proc/{d}/stat") as f:
+                    ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            except (OSError, ValueError, IndexError):
+                continue
+            kids.setdefault(ppid, []).append(int(d))
+    todo = [pid]
+    while todo:
+        p = todo.pop()
+        todo += kids.get(p, [])
+        try:
+            os.kill(p, signal.SIGKILL)
+        except OSError:
+            pass
+
+
+def side_stop():
+    """Kill every side process still running (after a failed phase)."""
+    for proc, thread, _ in _SIDE.values():
+        if proc.poll() is None:
+            _kill_tree(proc.pid)
+        thread.join()
 
 
 def cuda_ms(fn, iters=20):
@@ -1608,10 +1727,13 @@ def publish_recorder():
     """While open, every Simulator.publish is timed (synchronized before
     and after) and every mix relay's path delay is kept; the port itself
     is not changed."""
+    from dst_libp2p_test_node_tpu_torch.runtime.sharded import (
+        ShardedSimulator)
     from dst_libp2p_test_node_tpu_torch.runtime.simulator import Simulator
 
     rec = {"walls": [], "mix_ms": []}
     publish, relay = Simulator.publish, Simulator._mix_relay
+    mesh_relay = ShardedSimulator._mix_relay
 
     def timed_publish(self, *args, **kwargs):
         torch.cuda.synchronize()
@@ -1621,16 +1743,20 @@ def publish_recorder():
         rec["walls"].append(time.time() - t0)
         return out
 
-    def kept_relay(self, *args, **kwargs):
-        out = relay(self, *args, **kwargs)
-        rec["mix_ms"].append(out[0])
-        return out
+    def kept(fn):
+        def kept_relay(self, *args, **kwargs):
+            out = fn(self, *args, **kwargs)
+            rec["mix_ms"].append(out[0])
+            return out
+        return kept_relay
 
-    Simulator.publish, Simulator._mix_relay = timed_publish, kept_relay
+    Simulator.publish, Simulator._mix_relay = timed_publish, kept(relay)
+    ShardedSimulator._mix_relay = kept(mesh_relay)
     try:
         yield rec
     finally:
         Simulator.publish, Simulator._mix_relay = publish, relay
+        ShardedSimulator._mix_relay = mesh_relay
 
 
 def _sha256(path):
@@ -1688,7 +1814,8 @@ def phase_main(dev):
     for name, count in launches.items():
         check(count > 0, f"the main path never launched {name}")
     return launches, dict(digest=digest, walls=rec["walls"],
-                          mix_ms=rec["mix_ms"])
+                          mix_ms=rec["mix_ms"], wall_s=stats["wall_s"],
+                          peak=peak, launches=launches)
 
 
 # --------------------------------------------------------------- phase 4b
@@ -2582,6 +2709,19 @@ def _strip_walls(d):
     return d
 
 
+CAMP6_JSON = os.path.join(SCRATCH, "camp6.json")
+CAMP6_PROM = os.path.join(SCRATCH, "camp6.prom")
+
+
+def attack9b_start():
+    """9(b)'s `attack` process, started early (side_start)."""
+    side_start("attack9b", port_cmd(
+        "attack", "-n", str(CAMP6_N), "--msg-size", "2000", "--connect-to",
+        "10", "--warmup-s", "30", "--fractions", "0,0.1", "--seeds", "0,1",
+        "--attack-heartbeats", "20", "--messages", "3", "--delay-s", "2",
+        "--json", CAMP6_JSON, "--metrics-out", CAMP6_PROM))
+
+
 def phase_config6(dev):
     """9(b): BASELINE config 6 as bench_configs.config_6 defines it (2048
     peers, 2,000 B, connect_to 10, 30 s warm-up, attack_gossipsub(),
@@ -2608,23 +2748,12 @@ def phase_config6(dev):
         print(f"[campaign] 9(b)   {_trial_line(t)}")
     check(all(t["hb_to_graylist"] > 0 for t in d6["trials"]
               if t["fraction"] > 0), "9(b): the graylist never engaged")
-    js, prom = (os.path.join(SCRATCH, f"camp6.{x}") for x in ("json",
-                                                              "prom"))
-    argv = ["attack", "-n", str(CAMP6_N), "--msg-size", "2000",
-            "--connect-to", "10", "--warmup-s", "30", "--fractions", "0,0.1",
-            "--seeds", "0,1", "--attack-heartbeats", "20", "--messages", "3",
-            "--delay-s", "2", "--json", js, "--metrics-out", prom]
-    tc = time.time()
-    proc = subprocess.run([sys.executable, "-m",
-                           "dst_libp2p_test_node_tpu_torch", *argv],
-                          cwd=ROOT, capture_output=True, text=True,
-                          timeout=600)
-    cli_s = time.time() - tc
+    proc, cli_s = side_wait("attack9b")
     check(proc.returncode == 0, f"attack CLI exited {proc.returncode}: "
           f"{proc.stderr[-2000:]}")
-    with open(js) as f:
+    with open(CAMP6_JSON) as f:
         d_cli = json.load(f)
-    with open(prom) as f:
+    with open(CAMP6_PROM) as f:
         text = f.read()
     from dst_libp2p_test_node_tpu_torch.config.topology import TopoParams
     from dst_libp2p_test_node_tpu_torch.runtime.campaign import (
@@ -2646,8 +2775,9 @@ def phase_config6(dev):
           "9(b): the attack CLI's JSON differs from run_campaign's")
     check("dst_testnode_attack_honest_coverage{" in text,
           "9(b): --metrics-out has no attack series")
-    print(f"[campaign] 9(b) attack CLI ({CAMP6_N} peers, a process): exit "
-          f"0 in {cli_s:.1f} s, JSON = in-process run_campaign outside the "
+    print(f"[campaign] 9(b) attack CLI ({CAMP6_N} peers, a process run "
+          f"beside 9(a)): exit 0 in {cli_s:.1f} s, JSON = in-process "
+          f"run_campaign outside the "
           f"walls (CLI wall_s {d_cli['wall_s']:.3f}, trials_per_s "
           f"{d_cli['trials_per_s']:.4f}); {_worst(d_cli)}; metrics "
           f"{len(text.splitlines())} lines ({time.time() - t0:.1f} s)")
@@ -2805,7 +2935,13 @@ def phase_service_telemetry(dev):
 def phase_9(dev):
     t0 = time.time()
     os.makedirs(SCRATCH, exist_ok=True)
+    # beside 9(a): 12(d)'s trace, 9(b)'s attack process, 15(d)'s script
+    trace12d_start(dev)
+    attack9b_start()
+    dcn15d_start()
     phase_campaign_parity(dev)
+    for name in ("trace12d", "attack9b", "dcn15d"):
+        side_wait(name)
     phase_config6(dev)
     launches, res9c, peak9c = phase_campaign_full(dev)
     phase_service_telemetry(dev)
@@ -3072,16 +3208,14 @@ def _strict_json(path):
         return json.load(f, parse_constant=_refuse)
 
 
-def phase_campaign10_cli(dev):
-    """10(c): at BASELINE config 6's width (2,048 peers), the `attack`
-    process with fault, DHT and adaptive flags (eclipse, config 6's grid
-    and depth, a 10-heartbeat recovery window) and the `pareto` process
-    with its default grid: both exit 0 with strict JSON, the attack's
-    trials all present and the sweep's front non-empty."""
-    t0 = time.time()
-    out = {}
-    js = {k: os.path.join(SCRATCH, f"camp10c_{k}.json")
-          for k in ("attack", "pareto")}
+CAMP10C_JSON = {k: os.path.join(SCRATCH, f"camp10c_{k}.json")
+                for k in ("attack", "pareto")}
+
+
+def campaign10_cli_start():
+    """10(c)'s `attack` and `pareto` processes, started early
+    (side_start)."""
+    js = CAMP10C_JSON
     argv = {
         "attack": ["attack", "--scenario", "eclipse_publisher", "-n",
                    str(CAMP10_N), "--msg-size", "2000", "--connect-to", "10",
@@ -3097,14 +3231,24 @@ def phase_campaign10_cli(dev):
         "pareto": ["pareto", "-n", str(CAMP10_N), "--json", js["pareto"]],
     }
     for name, args in argv.items():
-        tc = time.time()
-        proc = subprocess.run([sys.executable, "-m",
-                               "dst_libp2p_test_node_tpu_torch", *args],
-                              cwd=ROOT, capture_output=True, text=True,
-                              timeout=600)
+        side_start(f"{name}10c", port_cmd(*args))
+
+
+def phase_campaign10_cli(dev):
+    """10(c): at BASELINE config 6's width (2,048 peers), the `attack`
+    process with fault, DHT and adaptive flags (eclipse, config 6's grid
+    and depth, a 10-heartbeat recovery window) and the `pareto` process
+    with its default grid (both run beside 10(a)): both exit 0 with
+    strict JSON, the attack's trials all present and the sweep's front
+    non-empty."""
+    t0 = time.time()
+    out = {}
+    js = CAMP10C_JSON
+    for name in ("attack", "pareto"):
+        proc, wall = side_wait(f"{name}10c")
         check(proc.returncode == 0, f"10(c) {name} exited "
               f"{proc.returncode}: {proc.stderr[-2000:]}")
-        out[name] = (_strict_json(js[name]), time.time() - tc,
+        out[name] = (_strict_json(js[name]), wall,
                      proc.stdout.strip().splitlines()[-1])
     d, cli_s, last = out["attack"]
     check(len(d["trials"]) == 4, f"10(c) attack: {len(d['trials'])} trials")
@@ -3132,7 +3276,10 @@ def phase_campaign10_cli(dev):
 def phase_10(dev):
     t0 = time.time()
     os.makedirs(SCRATCH, exist_ok=True)
+    campaign10_cli_start()          # 10(c)'s processes, beside 10(a)
     phase_campaign10_parity(dev)
+    for name in ("attack10c", "pareto10c"):
+        side_wait(name)
     launches = phase_campaign10_full(dev)
     phase_campaign10_cli(dev)
     print(f"[campaign10] phase 10 took {time.time() - t0:.1f} s")
@@ -3452,22 +3599,28 @@ def phase_fused_arena_full(dev):
     return out
 
 
+ARENA11C_JSON = os.path.join(SCRATCH, "arena11c.json")
+
+
+def arena11c_start():
+    """11(c)'s `arena` process, started early (side_start)."""
+    side_start("arena11c", port_cmd("arena", "-n", str(ARENA_CLI_N),
+                                    "--json", ARENA11C_JSON))
+
+
 def phase_arena_cli(dev):
     """11(c): the `arena` process at 2,048 peers (the command's defaults
-    otherwise) with --json: exit 0, strict JSON, every trial present."""
-    t0 = time.time()
-    js = os.path.join(SCRATCH, "arena11c.json")
-    proc = subprocess.run(
-        [sys.executable, "-m", "dst_libp2p_test_node_tpu_torch", "arena",
-         "-n", str(ARENA_CLI_N), "--json", js],
-        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    otherwise; run beside 11(a)) with --json: exit 0, strict JSON, every
+    trial present."""
+    js = ARENA11C_JSON
+    proc, wall = side_wait("arena11c")
     check(proc.returncode == 0, f"11(c) arena exited {proc.returncode}: "
           f"{proc.stderr[-2000:]}")
     art = _strict_json(js)
     check(len(art["trials"]) == 8, f"11(c) arena: {len(art['trials'])} "
           "trials")
     print(f"[arena] 11(c) arena ({ARENA_CLI_N} peers): exit 0 in "
-          f"{time.time() - t0:.1f} s, strict JSON, wall_s "
+          f"{wall:.1f} s beside 11(a), strict JSON, wall_s "
           f"{art['wall_s']:.3f}, win_counts {art['win_counts']}, ties "
           f"{art['ties']}; "
           + "; ".join(f"{r['scenario']}/{r['protocol']} coverage "
@@ -3479,7 +3632,11 @@ def phase_arena_cli(dev):
 def phase_11(dev):
     t0 = time.time()
     os.makedirs(SCRATCH, exist_ok=True)
+    arena11c_start()                # beside 11(a): 11(c)'s arena and
+    grid14d_start()                 # 14(d)'s attack --trial-groups 0
     phase_fused_arena_parity(dev)
+    for name in ("arena11c", "grid14d"):
+        side_wait(name)
     launches = phase_fused_arena_full(dev)
     phase_arena_cli(dev)
     print(f"[arena] phase 11 took {time.time() - t0:.1f} s")
@@ -3718,12 +3875,18 @@ def phase_conformance_parity(dev):
     return cert0
 
 
+# 12(b)'s seeds (0, 1 until phase 17 joined the smoke; PERF.md section 4
+# lists the cut)
+CONFORM12_SEEDS = (0,)
+
+
 def phase_conformance_campaign(dev, cert0):
     """12(b): one campaign on 9(c)'s network (100,000 peers x 4 fragments
     of 15,000 B, exact, 60 s warm-up) armed as 10(c)'s `attack`:
     eclipse_publisher with the adaptive attacker (default policy) and
     10(b)'s fault schedule, the DHT arm off; fractions 0 / 0.1 x seeds
-    0 / 1, 20 attack and 10 recovery heartbeats (evict + px + redial),
+    CONFORM12_SEEDS, 20 attack and 10 recovery heartbeats (evict + px +
+    redial),
     conformance=True. The attached certificate must be clean and hold the
     scenario, adaptive and faults entries, each equal to 12(a)'s seed-0
     entry of the same name; both kernels must launch (counts zeroed just
@@ -3733,9 +3896,10 @@ def phase_conformance_campaign(dev, cert0):
     from dst_libp2p_test_node_tpu_torch.runtime import campaign as camp
 
     cfg = dataclasses.replace(
-        _cfg10(CAMP_FULL_N, "eclipse_publisher", (0.0, 0.1), (0, 1), 20,
-               EXACT_WARMUP_S, faults=FAULTS10, adaptive=True,
-               msg_size=15000, frags=4, recovery=10, telemetry=False),
+        _cfg10(CAMP_FULL_N, "eclipse_publisher", (0.0, 0.1),
+               CONFORM12_SEEDS, 20, EXACT_WARMUP_S, faults=FAULTS10,
+               adaptive=True, msg_size=15000, frags=4, recovery=10,
+               telemetry=False),
         conformance=True)
     cert_s = []
     orig = camp._campaign_conformance
@@ -3776,7 +3940,8 @@ def phase_conformance_campaign(dev, cert0):
     d = res.to_dict()
     print(f"[conform] 12(b) {CAMP_FULL_N} peers x 4 fragments, "
           f"eclipse_publisher + adaptive + crash/partition/spike, fractions "
-          f"0/0.1 x seeds 0/1, 20 attack + 10 recovery heartbeats, "
+          f"0/0.1 x seeds {CONFORM12_SEEDS}, 20 attack + 10 recovery "
+          f"heartbeats, "
           f"conformance=True: wall_s {res.wall_s:.3f} (certificate "
           f"{cert_s[0]:.3f} s), trials_per_s {res.trials_per_s:.4f}; "
           f"certificate clean, entries {names} equal to 12(a)'s; launches "
@@ -3862,37 +4027,36 @@ def phase_plan_full(dev):
     return launches
 
 
+CONFORM12D_OUT = os.path.join(SCRATCH, "cert12_cli.json")
+TRACE12D_OUT = os.path.join(SCRATCH, "trace12d")
+TRACE12D_PROF = os.path.join(SCRATCH, "trace12d_prof")
+
+
+def trace12d_start(dev):
+    """12(d)'s `trace` process, started early (side_start)."""
+    side_start("trace12d", port_cmd(
+        "trace", "-n", str(TRACE_N), "--heartbeats", str(TRACE_HB),
+        "--warmup-hb", str(TRACE_WARMUP_HB), "--out", TRACE12D_OUT,
+        "--profile-dir", TRACE12D_PROF, "--device", dev.type))
+
+
 def phase_conformance_cli(dev, cert0):
-    """12(d): `conform --device cuda --out X` as a process: exit 0, its
-    file equal to 12(a)'s seed-0 certificate written by write_certificate;
-    `trace -n 100000 --heartbeats 10 --warmup-hb 5 --profile-dir D` as a
-    process: exit 0, strict-JSON trace.perfetto.json, 10 rows in
-    rounds.csv, and a profiler trace in D that names the score_update
-    kernel. Returns the trace's device kernel launches (the profiler's
-    count)."""
+    """12(d): `conform --device cuda --out X` as a process (run beside
+    12(a)): exit 0, its file equal to 12(a)'s seed-0 certificate written
+    by write_certificate; `trace -n 100000 --heartbeats 10 --warmup-hb 5
+    --profile-dir D` as a process (run beside 9(a)): exit 0, strict-JSON
+    trace.perfetto.json, 10 rows in rounds.csv, and a profiler trace in D
+    that names the score_update kernel. Returns the trace's device kernel
+    launches (the profiler's count)."""
     from dst_libp2p_test_node_tpu_torch.analysis import conformance as conf
     from dst_libp2p_test_node_tpu_torch.runtime import profiling
 
     want = os.path.join(SCRATCH, "cert12_want.json")
     conf.write_certificate(cert0, want)
-    got = os.path.join(SCRATCH, "cert12_cli.json")
-    out = os.path.join(SCRATCH, "trace12d")
-    prof = os.path.join(SCRATCH, "trace12d_prof")
-    argv = {
-        "conform": ["conform", "--device", dev.type, "--out", got],
-        "trace": ["trace", "-n", str(TRACE_N), "--heartbeats",
-                  str(TRACE_HB), "--warmup-hb", str(TRACE_WARMUP_HB),
-                  "--out", out, "--profile-dir", prof, "--device",
-                  dev.type],
-    }
+    got, out, prof = CONFORM12D_OUT, TRACE12D_OUT, TRACE12D_PROF
     walls = {}
-    for name, args in argv.items():
-        t0 = time.time()
-        proc = subprocess.run([sys.executable, "-m",
-                               "dst_libp2p_test_node_tpu_torch", *args],
-                              cwd=ROOT, capture_output=True, text=True,
-                              timeout=600)
-        walls[name] = time.time() - t0
+    for name in ("conform", "trace"):
+        proc, walls[name] = side_wait(f"{name}12d")
         check(proc.returncode == 0, f"12(d) {name} exited "
               f"{proc.returncode}: {proc.stderr[-2000:]}")
         if name == "trace":
@@ -3915,10 +4079,11 @@ def phase_conformance_cli(dev, cert0):
     top = [(name[:60], k) for name, k in
            sorted(kernels.items(), key=lambda kv: -kv[1])[:3]]
     print(f"[conform] 12(d) conform --device cuda: exit 0 in "
-          f"{walls['conform']:.1f} s, its file equals 12(a)'s seed-0 "
-          f"certificate; trace -n {TRACE_N} --heartbeats {TRACE_HB} "
+          f"{walls['conform']:.1f} s beside 12(a), its file equals 12(a)'s "
+          f"seed-0 certificate; trace -n {TRACE_N} --heartbeats {TRACE_HB} "
           f"--warmup-hb {TRACE_WARMUP_HB} --profile-dir: exit 0 in "
-          f"{walls['trace']:.1f} s, strict JSON, {len(rows)} rows, "
+          f"{walls['trace']:.1f} s beside 9(a), strict JSON, {len(rows)} "
+          f"rows, "
           f"coverage90_hb {summary['coverage90_hb']}, final mean degree "
           f"{summary['final_mean_degree']:.4f}; the profiler saw "
           f"{sum(kernels.values())} kernel launches of {len(kernels)} "
@@ -3931,7 +4096,13 @@ def phase_conformance_cli(dev, cert0):
 def phase_12(dev):
     t0 = time.time()
     os.makedirs(SCRATCH, exist_ok=True)
+    # beside 12(a): 17(c, d)'s lint and 12(d)'s conform
+    lint17_start()
+    side_start("conform12d", port_cmd("conform", "--device", dev.type,
+                                      "--out", CONFORM12D_OUT))
     cert0 = phase_conformance_parity(dev)
+    for name in ("lint17", "conform12d"):
+        side_wait(name)
     launches = {"conformance_campaign": phase_conformance_campaign(dev,
                                                                    cert0)}
     launches["plan"] = phase_plan_full(dev)
@@ -4126,42 +4297,27 @@ def phase_tuned_publish(dev, table):
 
 
 def phase_tooling_cli(dev):
-    """13(d): `lint` and `microbench --no-sweep --only disseminate/` as
-    processes on the card: lint exits 0 with clean true; microbench writes
-    its strict-JSON artifact (rooflines of the publish contracts and the
-    packed A/B at 100,000 peers)."""
+    """13(d): `microbench --no-sweep --only disseminate/cold` as a process
+    on the card: its strict-JSON artifact (the cold publish's roofline and
+    the packed A/B at 100,000 peers). 13(d)'s `lint` process is 17(c)'s
+    since phase 17 joined."""
     env = {k: v for k, v in os.environ.items() if k != "DST_TUNED_JSON"}
-    report = os.path.join(SCRATCH, "lint13.json")
     art = os.path.join(SCRATCH, "microbench13d.json")
-    argv = {"lint": ["lint", "--out", report],
-            "microbench": ["microbench", "--no-sweep", "--only",
-                           "disseminate/", "--out", art]}
-    walls = {}
-    for name, args in argv.items():
-        t0 = time.time()
-        proc = subprocess.run([sys.executable, "-m",
-                               "dst_libp2p_test_node_tpu_torch", *args],
-                              cwd=ROOT, capture_output=True, text=True,
-                              timeout=600, env=env)
-        walls[name] = time.time() - t0
-        check(proc.returncode == 0, f"13(d) {name} exited "
-              f"{proc.returncode}: {proc.stdout[-1500:]} "
-              f"{proc.stderr[-1500:]}")
-    rep = _strict_json(report)
-    check(rep["clean"] is True and rep["checked_entrypoints"] == 20,
-          f"13(d) lint: clean {rep['clean']}, "
-          f"{rep['checked_entrypoints']} entry points")
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "dst_libp2p_test_node_tpu_torch",
+         "microbench", "--no-sweep", "--only", "disseminate/cold", "--out",
+         art], cwd=ROOT, capture_output=True, text=True, timeout=600,
+        env=env)
+    wall = time.time() - t0
+    check(proc.returncode == 0, f"13(d) microbench exited "
+          f"{proc.returncode}: {proc.stdout[-1500:]} {proc.stderr[-1500:]}")
     mb = _strict_json(art)
-    check(sorted(mb["rooflines"]) == ["disseminate/bounded",
-                                      "disseminate/cold",
-                                      "disseminate/exact_serial",
-                                      "disseminate/warm"],
+    check(sorted(mb["rooflines"]) == ["disseminate/cold"],
           f"13(d) microbench rooflines {sorted(mb['rooflines'])}")
     ab = mb["packed_state_ab"]
-    print(f"[tooling] 13(d) lint: exit 0 in {walls['lint']:.1f} s, clean, "
-          f"{rep['checked_files']} files, {rep['checked_entrypoints']} entry "
-          f"points; microbench --no-sweep --only disseminate/: exit 0 in "
-          f"{walls['microbench']:.1f} s on {mb['device_name']}; packed A/B "
+    print(f"[tooling] 13(d) microbench --no-sweep --only disseminate/cold: "
+          f"exit 0 in {wall:.1f} s on {mb['device_name']}; packed A/B "
           f"at {ab['n_peers']} peers: off {ab['publish_off_s']:.4f} s, on "
           f"{ab['publish_on_s']:.4f} s, receiver side {ab['receiver_side']},"
           f" op logs identical {ab['op_log_identical']}, launch logs "
@@ -4362,31 +4518,36 @@ def phase_dcn(dev):
           f"(wall {r['single_wall_s']:.3f} s) ({time.time() - t0:.1f} s)")
 
 
+GRID14D_JSON = os.path.join(SCRATCH, "camp6_grid.json")
+
+
+def grid14d_start():
+    """14(d)'s `attack --trial-groups 0` process, started early
+    (side_start)."""
+    side_start("grid14d", port_cmd(
+        "attack", "-n", str(CAMP6_N), "--msg-size", "2000", "--connect-to",
+        "10", "--warmup-s", "30", "--fractions", "0,0.1", "--seeds", "0,1",
+        "--attack-heartbeats", "20", "--messages", "3", "--delay-s", "2",
+        "--trial-groups", "0", "--json", GRID14D_JSON))
+
+
 def phase_grid_cli(dev):
     """14(d): 9(b)'s `attack` process at 2,048 peers again with
-    --trial-groups 0 (one group on one card, so the caller runs it): its
-    JSON equal to 9(b)'s outside the walls."""
-    js = os.path.join(SCRATCH, "camp6_grid.json")
-    argv = ["attack", "-n", str(CAMP6_N), "--msg-size", "2000",
-            "--connect-to", "10", "--warmup-s", "30", "--fractions", "0,0.1",
-            "--seeds", "0,1", "--attack-heartbeats", "20", "--messages", "3",
-            "--delay-s", "2", "--trial-groups", "0", "--json", js]
-    t0 = time.time()
-    proc = subprocess.run([sys.executable, "-m",
-                           "dst_libp2p_test_node_tpu_torch", *argv],
-                          cwd=ROOT, capture_output=True, text=True,
-                          timeout=600)
+    --trial-groups 0 (one group on one card, so the caller runs it; run
+    beside 11(a)): its JSON equal to 9(b)'s outside the walls."""
+    js = GRID14D_JSON
+    proc, wall = side_wait("grid14d")
     check(proc.returncode == 0, f"14(d) attack --trial-groups 0 exited "
           f"{proc.returncode}: {proc.stderr[-2000:]}")
     with open(js) as f:
         d_grid = json.load(f)
-    with open(os.path.join(SCRATCH, "camp6.json")) as f:
+    with open(CAMP6_JSON) as f:
         d_9b = json.load(f)
     check(_strip_walls(d_grid) == _strip_walls(d_9b),
           "14(d): attack --trial-groups 0 differs from 9(b)'s artifact")
     print(f"[grid] 14(d) attack --trial-groups 0 at {CAMP6_N} peers (a "
-          f"process, one group): JSON = 9(b)'s outside the walls "
-          f"({time.time() - t0:.1f} s)")
+          f"process, one group, beside 11(a)): JSON = 9(b)'s outside the "
+          f"walls ({wall:.1f} s)")
 
 
 def phase_14(dev, res9c, launches9c):
@@ -4629,14 +4790,18 @@ def phase_mesh_config4(dev, mesh, stats3b, launches3b):
             "per_rank": launches}
 
 
+def dcn15d_start():
+    """15(d)'s scripts/dcn_smoke_torch.py, started early (side_start)."""
+    side_start("dcn15d", [sys.executable,
+                          os.path.join(ROOT, "scripts", "dcn_smoke_torch.py")])
+
+
 def phase_mesh_dcn(dev):
-    """15(d): scripts/dcn_smoke_torch.py on the card, its step 5 (one
-    heartbeat and one disseminate on each process's rows of a 64-peer
-    mesh over the two processes, checked against the one-process run)."""
-    t0 = time.time()
-    proc = subprocess.run(
-        [sys.executable, os.path.join(ROOT, "scripts", "dcn_smoke_torch.py")],
-        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    """15(d): scripts/dcn_smoke_torch.py on the card (run beside 9(a)),
+    its step 5 (one heartbeat and one disseminate on each process's rows
+    of a 64-peer mesh over the two processes, checked against the
+    one-process run)."""
+    proc, wall = side_wait("dcn15d")
     out = proc.stdout + proc.stderr
     check(proc.returncode == 0 and "PASS" in out
           and out.count("sharded==single-process OK") == 2,
@@ -4645,7 +4810,7 @@ def phase_mesh_dcn(dev):
             for ln in out.splitlines() if "fixpoint rows=" in ln]
     print(f"[mesh] 15(d) scripts/dcn_smoke_torch.py on the card: steps 1-5 "
           f"PASS, step 5's fixpoint rows {rows} = the one-process run "
-          f"({time.time() - t0:.1f} s)")
+          f"({wall:.1f} s beside 9(a))")
 
 
 def phase_15(dev, mesh, stats3b, launches3b):
@@ -4895,6 +5060,281 @@ def phase_16(dev, mesh, res9c, peak9c):
             "per_rank": launches, "grid": grid}
 
 
+# ---------------------------------------------------------------- phase 17
+
+MIX17_N = PARITY_N
+MIX17_PUB = 1500            # on rank 1; the 128 mix nodes are rank 0's rows
+RUNG17_FILE = "RUNG_1M_torch.json"
+
+
+def _mix17_cfg(n, pub, warmup_s, args=None):
+    """Config 5's relay (NUMMIX 128, MIXD 4, bounded, 15 KB, 2 messages)
+    at n peers from `pub`; with `args` config 5 itself, built as `run`
+    builds it (phase 4b's twin without warm_start)."""
+    from dst_libp2p_test_node_tpu_torch.cli import (RUN_SH_PARAMS,
+                                                    _topo_from_fields)
+    from dst_libp2p_test_node_tpu_torch.config.env import (
+        gossipsub_params_from_env)
+    from dst_libp2p_test_node_tpu_torch.config.topology import TopoParams
+    from dst_libp2p_test_node_tpu_torch.runtime.simulator import (
+        ExperimentConfig)
+
+    if args is not None:
+        topo = _topo_from_fields(dict(zip(RUN_SH_PARAMS, args)))
+    else:
+        topo = TopoParams(network_size=n, anchor_stages=5, min_bandwidth=50,
+                          max_bandwidth=150, min_latency=40,
+                          max_latency=130, msg_size_bytes=15000,
+                          messages=2, delay_seconds=2.0)
+    return ExperimentConfig(
+        topo=topo, gossipsub=gossipsub_params_from_env(), publisher_id=pub,
+        warmup_s=warmup_s, seed=0, uses_mix=True, num_mix=128, mix_d=4,
+        serialize_answers=False)
+
+
+def phase_mix_parity17(dev, mesh):
+    """17(a): the mix relay on MESH_RANKS ranks at 2,048 peers (config 5's
+    relay, the publisher on rank 1, the mix nodes on rank 0) on the card,
+    the same on 2 CPU ranks and in one CUDA process: latencies, records
+    and every gathered state leaf byte for byte."""
+    import copy
+
+    from dst_libp2p_test_node_tpu_torch.parallel.sharding import (
+        make_peer_mesh)
+    from dst_libp2p_test_node_tpu_torch.runtime.simulator import Simulator
+
+    cfg = _mix17_cfg(MIX17_N, MIX17_PUB, 10.0)
+    t0 = time.time()
+    one = Simulator(copy.deepcopy(cfg), device=dev)
+    one.run()
+    t1 = time.time()
+    sims = {}
+    with make_peer_mesh(devices=["cpu"] * MESH_RANKS) as cpu_mesh:
+        for tag, m in (("cuda", mesh), ("cpu", cpu_mesh)):
+            sim = Simulator(copy.deepcopy(cfg), mesh=m)
+            sim.run()
+            sims[tag] = (_outputs(sim)[0], sim.records, sim.state,
+                         sim.collectives())
+            sim.close()
+    t2 = time.time()
+    want = (_outputs(one)[0], one.records, one.state)
+    for tag, (text, records, state, _) in sims.items():
+        check(text == want[0], f"17(a) the {tag} mesh's latencies differ "
+              "from the one-process CUDA run's")
+        _same_records(f"17(a) {tag} mesh records", want[1], records)
+        _same_state(f"17(a) {tag} mesh state", want[2], state)
+    stats = sims["cuda"][3]
+    print(f"[mesh17] 17(a) the mix relay at {MIX17_N} peers (NUMMIX 128, "
+          f"MIXD 4, bounded, 2 messages from {MIX17_PUB}): {MESH_RANKS} "
+          f"ranks on {dev} = {MESH_RANKS} CPU ranks = one CUDA process on "
+          f"latencies, every record field and state leaf ({t2 - t1:.1f} s "
+          f"for both meshes; one process {t1 - t0:.1f} s); broadcasts per "
+          f"rank {[x['broadcast'] for x in stats]}, all-gathers "
+          f"{[x['all_gather'] for x in stats]}")
+
+
+def phase_config5_mesh17(dev, mesh, main5):
+    """17(b): BASELINE config 5 (1M peers, NUMMIX 128, MIXD 4, bounded,
+    15 KB, 2 messages, a 30 s warm-up) on MESH_RANKS ranks sharing the
+    card, built as `run` builds it: latencies1 = phase 4's digest, each
+    rank's launches = phase 4's. Prints the wall beside phase 4's,
+    all-gathers and bytes per publish per rank, each rank's peak beside
+    phase 4's, the card's idle share, the mix delay per message and the
+    launches per rank."""
+    from dst_libp2p_test_node_tpu_torch.runtime.simulator import Simulator
+
+    cfg = _mix17_cfg(FULL_N, 132, FULL_WARMUP_S, C5_ARGS)
+    pub = cfg.publisher_id % FULL_N
+    before = [dict(r) for r in mesh.pool.launches]
+    gathers, walls = [], []
+    torch.cuda.synchronize()
+    with _UtilSampler() as util, publish_recorder() as rec:
+        t0 = time.time()
+        sim = Simulator(cfg, mesh=mesh)
+        t_build = time.time() - t0
+        sim.warmup()
+        t_warm = time.time() - t0 - t_build
+        for i in range(cfg.topo.messages):
+            if i:
+                sim.advance(cfg.topo.delay_seconds * 1000.0)
+            g0 = sim.collectives()[0]
+            sim.publish(pub)
+            g1 = sim.collectives()[0]
+            gathers.append((g1["all_gather"] - g0["all_gather"],
+                            g1["all_gather_bytes"] - g0["all_gather_bytes"]))
+        wall = time.time() - t0
+    launches = _rank_launch_delta(mesh.pool, before)
+    path = os.path.join(SCRATCH, "mesh17_latencies1")
+    sim.write_latencies(path)
+    same = _sha256(path) == main5["digest"]
+    peaks = sim.rank_peak_bytes
+    sim.close()
+    print(f"[mesh17] 17(b) config 5 ({FULL_N} peers, NUMMIX 128, MIXD 4, "
+          f"bounded) on {MESH_RANKS} ranks sharing "
+          f"{torch.cuda.get_device_name(0)}: latencies1 = phase 4's: {same};"
+          f" wall {wall:.3f} s (build {t_build:.3f}, warm-up {t_warm:.3f}, "
+          f"publish walls {[round(w, 4) for w in rec['walls']]}) against "
+          f"phase 4's {main5['wall_s']:.3f} s (simulation) and publish walls"
+          f" {[round(w, 4) for w in main5['walls']]}; mix delay per message "
+          f"{rec['mix_ms']} ms (phase 4: {main5['mix_ms']}); all-gathers per "
+          f"publish per rank {[g for g, _ in gathers]}, their bytes "
+          f"{[b for _, b in gathers]}; launches per rank {launches} (phase "
+          f"4: {main5['launches']}); peak allocated per rank "
+          f"{', '.join(f'{b / 2**30:.2f}' for b in peaks)} GiB (phase 4 in "
+          f"one process: {main5['peak'] / 2**30:.2f} GiB); card idle share "
+          f"{util.idle_share:.4f} over {len(util.samples)} samples")
+    check(same, "17(b) the mesh's config-5 latencies1 differ from phase 4's")
+    check(rec["mix_ms"] == main5["mix_ms"],
+          f"17(b) mix delays {rec['mix_ms']} != phase 4's {main5['mix_ms']}")
+    for r, lr in enumerate(launches):
+        check(lr == main5["launches"], f"17(b) rank {r} launches {lr} != "
+              f"phase 4's {main5['launches']}")
+        for k, v in lr.items():
+            check(v > 0, f"17(b) rank {r} never launched {k}")
+    return launches
+
+
+def phase_rank_kernels17(dev):
+    """Both kernels at a rank's shape of 17(b): vmem_gather on 500k x 40
+    rows of src against the whole 1M t, score_update on 500k x 40, each
+    against its plain version (bitwise / rtol 1e-5) and timed."""
+    from dst_libp2p_test_node_tpu_torch.native import score_update as su
+    from dst_libp2p_test_node_tpu_torch.native import vmem_gather as vg
+    from dst_libp2p_test_node_tpu_torch.ops.state import SimParams
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    rows = FULL_N // MESH_RANKS
+    t, src = _gather_inputs(FULL_N, 40, gen, dev)
+    src = src[FULL_N - rows:].contiguous()         # the last rank's rows
+    got, want = vg.vmem_gather(t, src), vg.vmem_gather_ref(t, src)
+    check(torch.equal(got, want),
+          f"17 vmem_gather != plain at {rows}x40 rows, t {FULL_N}")
+    ms, plain = paired_ms(lambda: vg.vmem_gather_ref(t, src),
+                          lambda: vg.vmem_gather(t, src))
+    lib = cuda_ms(lambda: t[src.clamp_min(0)])
+    b, by = bound_ms(src.numel() * 4 * 2 + t.numel() * 4)
+    gather = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                  library_ms=lib, max_abs_err=0.0, shape=[rows, 40],
+                  t_len=FULL_N)
+    del got, want, t, src
+    params = SimParams(n=rows, capacity=40, slow_weight=-10.0)
+    fmd = torch.rand((rows, 40), generator=gen, device=dev) * 3.0
+    slow = torch.rand((rows, 40), generator=gen, device=dev) * 0.5
+    scales = torch.tensor([0.9 ** 7, 0.2 ** 3], dtype=torch.float32,
+                          device=dev)
+    got = su.score_update(fmd, slow, scales, params)
+    want = su.score_update_ref(fmd, slow, scales, params)
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+          and torch.allclose(got[2], want[2], rtol=1e-5, atol=1e-6),
+          f"17 score_update != plain at {rows}x40")
+    sms, splain = paired_ms(
+        lambda: su.score_update_ref(fmd, slow, scales, params),
+        lambda: su.score_update(fmd, slow, scales, params))
+    sb, sby = bound_ms(fmd.numel() * 4 * 5 + 8, flops=fmd.numel() * 7.0)
+    score = dict(ms=sms, plain_ms=splain, bound_ms=sb, bound_by=sby,
+                 library_ms=None, shape=[rows, 40],
+                 max_abs_err=float((got[2] - want[2]).abs().max()))
+    print(f"[mesh17] at a rank's shape of 17(b): vmem_gather {rows}x40 "
+          f"against a {FULL_N} t bitwise, {ms:.4f} ms vs plain "
+          f"{plain:.4f} ms, t[src.clamp_min(0)] {lib:.4f} ms, bound "
+          f"{b:.4f} ms ({by}); score_update {rows}x40: counters bitwise, "
+          f"{sms:.4f} ms vs plain {splain:.4f} ms, bound {sb:.4f} ms ({sby})")
+    return {"vmem_gather": gather, "score_update": score}
+
+
+LINT17_REPORT = os.path.join(SCRATCH, "lint17.json")
+LINT17_CERT = os.path.join(SCRATCH, "rung17.json")
+
+
+def lint17_start():
+    """17(c, d)'s `lint` process, started early (side_start)."""
+    env = {k: v for k, v in os.environ.items() if k != "DST_TUNED_JSON"}
+    side_start("lint17", port_cmd(
+        "lint", "--sharding", "--predict-rung", "--rung-out", LINT17_CERT,
+        "--out", LINT17_REPORT, "--format", "github"), env=env, timeout=900)
+
+
+def phase_lint17(dev):
+    """17(c) and (d): `lint --sharding --predict-rung --rung-out` as one
+    process on the card (13(d)'s lint folded in; run beside 12(a)): exit
+    0, clean, 26 entry
+    points, exactly the legacy layout's two GA-S001 waivers, zero
+    cross-block bytes in the dcn contract; each mesh contract's
+    collectives and each rank's peak. The certificate's verdict and every
+    leaf's argument fit equal the committed RUNG_1M_torch.json, within
+    10%; the modeled HBM equals the card's."""
+    from dst_libp2p_test_node_tpu_torch.analysis import sharding_audit as sa
+
+    report, cert_path = LINT17_REPORT, LINT17_CERT
+    proc, wall = side_wait("lint17")
+    check(proc.returncode == 0, f"17(c) lint exited {proc.returncode}: "
+          f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    rep = _strict_json(report)
+    check(rep["clean"] is True and rep["checked_entrypoints"] == 26,
+          f"17(c) lint: clean {rep['clean']}, "
+          f"{rep['checked_entrypoints']} entry points")
+    waived = sorted((w["entrypoint"], w["rule"], w["message"].split()[1])
+                    for w in rep["waived"])
+    check(waived == [("campaign/attack_window_sharded", "GA-S001",
+                      "shared.conns"),
+                     ("campaign/attack_window_sharded", "GA-S001",
+                      "shared.rev")], f"17(c) waived {waived}")
+    sh = rep["sharding"]
+    scope = sh["campaign/attack_window_dcn"]["collective_bytes_by_scope"]
+    check(scope["cross_dcn"] == 0, f"17(c) cross-block bytes {scope}")
+    for name, f in sorted(sh.items()):
+        if f["ranks"] > 1:
+            kinds = {k: (c["count"], c["per_rank_bytes"])
+                     for k, c in f["collectives"].items()}
+            print(f"[mesh17] 17(c) {name}: collectives (count, bytes on a "
+                  f"rank) {kinds}; rank peaks "
+                  f"{f['memory']['rank_peak_bytes']} B")
+            check(f["memory"]["peak_measured"],
+                  f"17(c) {name}: no rank peak measured on the card")
+    cert = _strict_json(cert_path)
+    with open(os.path.join(ROOT, RUNG17_FILE)) as fh:
+        kept = json.load(fh)
+
+    def fits(c):
+        return {x["name"]: (x["coeff"], x["exponent"],
+                            x["predicted_global_bytes"],
+                            x["predicted_per_device_bytes"])
+                for x in c["leaves"]}
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    pred = cert["predicted_per_device"]["total"]
+    print(f"[mesh17] 17(c, d) lint --sharding --predict-rung: exit 0 in "
+          f"{wall:.1f} s beside 12(a), clean, {rep['checked_files']} files, "
+          f"{rep['checked_entrypoints']} entry points, waived {waived}; "
+          f"dcn scope {scope}; rung {cert['rung']['peers']} peers on "
+          f"{cert['modeled_device']['name']}: held-out rel_err "
+          f"{cert['validation']['rel_err']} at "
+          f"{cert['validation']['peers']} peers, predicted "
+          f"{pred / 2**30:.3f} GiB a GPU ({pred / total:.4f} of the card's "
+          f"{total} B), verdict {cert['verdict']}, measured on "
+          f"{cert['measured_on']}; fit points (peers, temp B) "
+          f"{[(p['peers'], p['temp']) for p in cert['fit_points']]}")
+    check(sa.H100_HBM_BYTES == total, f"17(d) the modeled HBM "
+          f"{sa.H100_HBM_BYTES} B != the card's {total} B")
+    check(cert["validation"]["within_10pct"], "17(d) the held-out fit "
+          f"is off by {cert['validation']['rel_err']}")
+    check(cert["verdict"] == kept["verdict"] and fits(cert) == fits(kept),
+          f"17(d) the certificate's verdict or argument fits differ from "
+          f"{RUNG17_FILE}")
+
+
+def phase_17(dev, mesh, main5):
+    t0 = time.time()
+    os.makedirs(SCRATCH, exist_ok=True)
+    phase_mix_parity17(dev, mesh)
+    launches = phase_config5_mesh17(dev, mesh, main5)
+    timed = phase_rank_kernels17(dev)
+    phase_lint17(dev)
+    print(f"[mesh17] phase 17 took {time.time() - t0:.1f} s")
+    return {"ranks": {k: sum(r[k] for r in launches) for k in launches[0]},
+            "per_rank": launches, "timed": timed}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -4922,8 +5362,8 @@ def main() -> int:
         phase_c2(dev, lossless, lossy)
         phase_membership_parity(dev)
         launches_c3 = phase_config3(dev)
-        launches, cold = phase_main(dev)
-        launches_warm = phase_warm_twin(dev, cold)
+        launches, main5 = phase_main(dev)
+        launches_warm = phase_warm_twin(dev, main5)
         phase_idle(dev)
         phase_roles_parity(dev)
         launches_roles = phase_roles(dev)
@@ -4938,10 +5378,12 @@ def main() -> int:
         with make_peer_mesh(devices=[dev] * MESH_RANKS) as mesh:
             launches15 = phase_15(dev, mesh, lossless, launches_exact)
             launches16 = phase_16(dev, mesh, res9c, peak9c)
+            launches17 = phase_17(dev, mesh, main5)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     finally:
+        side_stop()
         shutil.rmtree(SCRATCH, ignore_errors=True)
     line = [dict(v, launches=launches[k],
                  exact=dict(v["exact"], launches=launches_exact[k]),
@@ -4974,6 +5416,10 @@ def main() -> int:
                  campaign_mesh=dict(
                      launches=launches16["ranks"][k],
                      rank_launches=[r[k] for r in launches16["per_rank"]]),
+                 mix_mesh=dict(
+                     launches17["timed"][k],
+                     launches=launches17["ranks"][k],
+                     rank_launches=[r[k] for r in launches17["per_rank"]]),
                  service=dict(
                      v["service"],
                      launches=service["batched"]["launches"][k],

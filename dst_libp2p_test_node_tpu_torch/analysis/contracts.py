@@ -20,17 +20,27 @@ profiling.py) and the microbench harness (runtime/microbench.py) need:
     loads: runtime/profiling.count_retraces) a SECOND same-shape call may
     do. 0 for every shipped contract.
   - ``hbm_budget_bytes``: a ceiling on the call's device-memory rise
-    (torch.cuda.max_memory_allocated) at the audit shape; None unbudgeted.
+    (torch.cuda.max_memory_allocated) at the audit shape, and for a mesh
+    contract on each rank's; None unbudgeted.
+  - ``collectives``: the torch.distributed kinds (``all_gather``,
+    ``all_reduce``, ``broadcast``) the entry point may run, None
+    unchecked. The port's collectives are explicit (parallel/peer.py),
+    so the sharding auditor (analysis/sharding_audit.py) reads the ones
+    each rank ran, where the reference reads what GSPMD inserted.
+  - ``collective_bytes_budget``: a ceiling on the bytes one rank's
+    collectives move at the audit shape, None unbudgeted.
+  - ``dcn_block_devices``: ranks per DCN block (the rank pool's ranks in
+    blocks of this many, rank // block the block); with it every
+    collective whose group spans two blocks counts against
+    ``dcn_collective_bytes_budget``.
   - ``waivers``, ``notes``: as in the reference.
 
 Left out of the reference's EntrypointContract, because they mean
 something only to XLA: ``expected_conds`` (eager torch has no lax.cond to
 elide: every branch is a Python branch on a host value), ``donate`` (no
-buffer donation), ``ladder`` / ``expected_compile_keys`` (no compile key:
-nothing is compiled per shape), ``collectives`` /
-``collective_bytes_budget`` and the ``dcn_*`` fields (no GSPMD partitioner
-inserts collectives; the mesh contracts are the multi-GPU slice's, A13).
-The reference's ``LadderRung`` goes with ``ladder``.
+buffer donation) and ``ladder`` / ``expected_compile_keys`` (no compile
+key: nothing is compiled per shape). The reference's ``LadderRung`` goes
+with ``ladder``.
 """
 
 from __future__ import annotations
@@ -62,9 +72,16 @@ class EntrypointContract:
     runtime_check: Callable[[], None] | None = None
     retrace_budget: int = 0
     hbm_budget_bytes: int | None = None
+    collectives: frozenset | None = None
+    collective_bytes_budget: int | None = None
+    dcn_block_devices: int | None = None
+    dcn_collective_bytes_budget: int = 0
     waivers: tuple = ()
     notes: str = ""
 
+
+# the torch.distributed kinds a contract's `collectives` may name
+COLLECTIVE_KINDS = ("all_gather", "all_reduce", "broadcast")
 
 _WORD_LEAVES = ("key", "keys")
 

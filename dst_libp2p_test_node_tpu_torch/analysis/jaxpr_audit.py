@@ -4,8 +4,9 @@ auditor, dst_libp2p_test_node_tpu/analysis/jaxpr_audit.py; the module keeps
 its name so the two trees line up).
 
 Eager torch has no jaxpr: each contract's spec RUNS, once, on the device
-its contract was built for, at the registry's audit shapes. What carries
-over:
+its contract was built for, at the registry's audit shapes (a mesh
+contract's window on its rank pool, the stacked outputs back on that
+device). What carries over:
 
   GA-J005  the feedback half: every carried output's leaves equal the
            argument leaves it is fed back into in dtype, shape and device.
@@ -16,7 +17,9 @@ over:
   GA-J005  run_checkify: each contract's runtime_check asserts the
            reference's checkify invariants in plain torch (registry.py).
   GA-S004  on CUDA, the call's device-memory rise over the contract's
-           hbm_budget_bytes (torch.cuda.max_memory_allocated).
+           hbm_budget_bytes (torch.cuda.max_memory_allocated); for a
+           mesh contract, whose budget is a rank's, the sharding auditor
+           checks each rank's rise instead (analysis/sharding_audit.py).
   GA-J001  an entry point that fails to run, the reference's id for one
            that fails to trace.
 
@@ -118,7 +121,8 @@ def audit_contract(contract: EntrypointContract) -> list[Violation]:
             rule="GA-J001", file=file, line=line, entrypoint=contract.name,
             message=f"entrypoint failed to run: {e!r}")]
     violations = check_feedback(contract, spec, out, file, line)
-    if dev.type == "cuda" and contract.hbm_budget_bytes is not None:
+    if (dev.type == "cuda" and contract.hbm_budget_bytes is not None
+            and spec_pool(spec) is None):
         rise = torch.cuda.max_memory_allocated(dev) - base
         if rise > contract.hbm_budget_bytes:
             violations.append(Violation(
@@ -127,6 +131,15 @@ def audit_contract(contract: EntrypointContract) -> list[Violation]:
                 message=f"device memory rose {rise} B over the call, above "
                         f"the {contract.hbm_budget_bytes} B budget"))
     return violations
+
+
+def spec_pool(spec: TraceSpec):
+    """The parallel/ranks.RankPool a mesh contract's window runs on, or
+    None (the spec runs in this process)."""
+    from ..parallel.ranks import RankPool
+
+    pool = spec.kwargs.get("trial_mesh")
+    return pool if isinstance(pool, RankPool) else None
 
 
 def audit_contracts(contracts) -> list[Violation]:

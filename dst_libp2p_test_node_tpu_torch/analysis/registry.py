@@ -39,11 +39,35 @@ abstract trace), and two builds of one contract give equal inputs.
                           conformance gate walks
   episub/heartbeat_step   one episub tree round, thresholds armed
 
-The reference's six mesh contracts (campaign/faulted_window_nested,
-campaign/attack_window_{sharded,nested,dcn}, campaign/dht_attack_window,
-protocol/arena_window) and its rung specs (attack_rung_spec,
-arena_rung_spec, the `lint --predict-rung` fits) are the multi-GPU slice's
-(ROADMAP A13).
+The reference's six mesh contracts run the port's nested windows
+(runtime/campaign.py) on rank pools the caller passes
+(`default_contracts(device, grid=, pool=)`; without a grid, the list is the
+20 above): `grid` a 2 x 2 RankPool (two trial groups of two ranks), `pool`
+a 2-rank one for the legacy layout (two groups of one rank, or a
+PeerMesh, whose pool it is; the grid's groups' first ranks without it).
+Each spec is the reference's spec function's, from the same seeds at the
+same shapes (N=32, connect_to 4, 4 stacked trials, 3 steps, 2 local
+trials); the port keeps the repair leaves the reference strips, since its
+windows take them along whether armed or not.
+
+  campaign/faulted_window_nested
+                          crash + partition + spike cohorts on the grid
+  campaign/attack_window_sharded
+                          the legacy trial-only layout (nested=False) on
+                          `pool`: each trial whole on one rank
+  campaign/attack_window_nested
+                          the nested attack window on the grid
+  campaign/attack_window_dcn
+                          the grid as dcn 2 x trials 1 x peers 2: blocks
+                          of 2 ranks, so the peer collectives exist and
+                          GA-S006 checks them against the blocks
+  campaign/dht_attack_window
+                          the DHT-armed recovery window (repair live)
+  protocol/arena_window   the adaptive episub window
+
+`attack_rung_spec(n)` and `arena_rung_spec(n)` are the rung predictor's
+programs (analysis/sharding_audit.predict_rung_certificate) at any peer
+count, on the grid they are given.
 """
 
 from __future__ import annotations
@@ -55,7 +79,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .contracts import EntrypointContract, TraceSpec
+from .contracts import COLLECTIVE_KINDS, EntrypointContract, TraceSpec
 
 
 def _clone(tree):
@@ -319,6 +343,207 @@ def _multitopic_spec(device) -> TraceSpec:
                     ans_tables=sim._ans_tables))
 
 
+# ------------------------------------------------------------ mesh contracts
+
+
+def _rank_pool(x):
+    """The parallel/ranks.RankPool of a pool argument (a RankPool, or a
+    PeerMesh's pool)."""
+    from ..parallel.sharding import PeerMesh
+
+    return x.pool if isinstance(x, PeerMesh) else x
+
+
+def _stacked(state, trials: int):
+    from ..parallel.sharding import tree_map
+
+    return tree_map(lambda x: torch.stack([x] * trials), state)
+
+
+def _cohorts(n, device, trials: int, fraction: float = 0.25):
+    return torch.stack([_cohort(n, device, fraction, seed=s)
+                        for s in range(trials)])
+
+
+def _shared(a: dict) -> dict:
+    return {k: a[k] for k in ("conns", "rev", "out_mask")}
+
+
+_LOCAL = 2          # the reference's local trials per group
+
+
+def _faulted_nested_spec(device, grid) -> TraceSpec:
+    from ..ops.adversary import AdversaryParams
+    from ..ops.faults import FaultParams, fault_masks
+    from ..runtime.campaign import sharded_faulted_window
+
+    g, params, state, a, _ = _single_topic(device, **_ARMED)
+    trials = grid.groups * _LOCAL
+    faults = FaultParams(
+        crash_frac=0.2, crash_window=(0, 2),
+        partition_frac=0.3, partition_window=(1, 3),
+        spike_frac=0.2, spike_window=(0, 4), spike_ms=250.0)
+    fm = [fault_masks(params.n, faults, seed=s, publisher=3)
+          for s in range(trials)]
+
+    def stack(k):
+        return torch.stack([torch.as_tensor(m[k], device=device)
+                            for m in fm])
+
+    return TraceSpec(
+        fn=sharded_faulted_window,
+        args=(_stacked(state, trials), _shared(a),
+              _cohorts(params.n, device, trials), stack("crash"),
+              stack("side"), stack("spike")),
+        kwargs=dict(params=params, adv=AdversaryParams(), faults=faults,
+                    steps=3, trial_mesh=grid, local_trials=_LOCAL))
+
+
+def _attack_window_spec(device, pool, nested: bool = True) -> TraceSpec:
+    from ..ops.adversary import AdversaryParams
+    from ..runtime.campaign import sharded_attack_window
+
+    g, params, state, a, _ = _single_topic(device)
+    trials = pool.groups * _LOCAL
+    kwargs = dict(params=params, adv=AdversaryParams(), steps=3,
+                  trial_mesh=pool, local_trials=_LOCAL)
+    if not nested:
+        kwargs["nested"] = False
+    return TraceSpec(
+        fn=sharded_attack_window,
+        args=(_stacked(state, trials), _shared(a),
+              _cohorts(params.n, device, trials)),
+        kwargs=kwargs)
+
+
+def _dcn_audit_shape() -> tuple[int, int]:
+    """(dcn blocks, per-block trial groups) of the dcn audit placement:
+    2 x 1 over the 2 x 2 grid's 4 ranks, each block one trial group two
+    ranks wide, so a peer-axis collective exists for GA-S006 to place
+    (the reference's 4-device shape, 2 x 2 x 1, has peer width 1)."""
+    return 2, 1
+
+
+def _dcn_attack_window_spec(device, grid) -> TraceSpec:
+    """The nested attack window on the dcn audit placement: the same
+    window as attack_window_nested; the contract differs in its dcn
+    blocks and budgets."""
+    dcn, groups = _dcn_audit_shape()
+    if grid.groups != dcn * groups:
+        raise ValueError(
+            f"the dcn audit placement needs {dcn * groups} trial groups, "
+            f"the grid has {grid.groups}")
+    return _attack_window_spec(device, grid)
+
+
+def _dht_attack_window_spec(device, grid) -> TraceSpec:
+    from ..ops.dht_adversary import (DhtAdversaryParams, build_attacked_dht,
+                                     dht_repair_pool)
+    from ..runtime.campaign import sharded_dht_recovery_window
+
+    # repair armed: the window feeds the redial path a poisoned shortlist
+    g, params, state, a, (stage, lat, bw) = _single_topic(device, **_REPAIR)
+    trials = grid.groups * _LOCAL
+    dht = DhtAdversaryParams(lookup_eclipse=True, warmup_waves=1,
+                             lookup_rounds=2)
+    atts, pools = [], []
+    for s in range(trials):
+        att = _cohort(params.n, device, seed=s)
+        kstate, directory = build_attacked_dht(
+            params.n, seed=s, dht=dht, attacker=att.cpu().numpy(),
+            victim=3, stage=stage, lat_ms=lat)
+        pool, _ = dht_repair_pool(kstate, dht, stage, lat, attacker=att,
+                                  directory=directory)
+        atts.append(att)
+        pools.append(pool)
+    return TraceSpec(
+        fn=sharded_dht_recovery_window,
+        args=(_stacked(state, trials), _shared(a), None, torch.stack(atts),
+              torch.stack(pools)),
+        kwargs=dict(rparams=params, steps=3, publisher=3, trial_mesh=grid,
+                    local_trials=_LOCAL))
+
+
+def _arena_window_spec(device, grid) -> TraceSpec:
+    from ..ops.adversary import AdaptivePolicy, AdversaryParams
+    from ..ops.episub import EpisubParams, init_episub_ctrl
+    from ..runtime.campaign import sharded_episub_window
+
+    g, params, state, a, _ = _single_topic(device, **_ARMED)
+    trials = grid.groups * _LOCAL
+    adv = AdversaryParams(adaptive=AdaptivePolicy(enabled=True))
+    return TraceSpec(
+        fn=sharded_episub_window,
+        args=(_stacked(state, trials),
+              _stacked(init_episub_ctrl(params.n, device), trials),
+              _shared(a), _cohorts(params.n, device, trials)),
+        kwargs=dict(params=params, ep=EpisubParams(root=3), adv=adv,
+                    steps=3, trial_mesh=grid, local_trials=_LOCAL))
+
+
+def attack_rung_spec(n: int, *, steps: int = 20, connect_to: int = 10,
+                     local_trials: int = 2, trial_groups: int | None = None,
+                     grid=None, device=None) -> TraceSpec:
+    """The rung ladder's program at any peer count: the nested attack
+    window as bench_configs config 8 dispatches it (sybil_graft_flood,
+    connect_to 10, attacked fraction 0.1, 2 trial groups x 2 local
+    trials) on `grid` (a RankPool of trial groups; `trial_groups`, when
+    given, must be its group count), inputs on `device`."""
+    from ..ops.adversary import AdversaryParams
+    from ..runtime.campaign import sharded_attack_window
+
+    grid = _rank_pool(grid)
+    _check_groups(grid, trial_groups)
+    dev = resolve_device(device)
+    g, params, state, a, _ = _single_topic(dev, n=n, connect_to=connect_to)
+    trials = grid.groups * local_trials
+    return TraceSpec(
+        fn=sharded_attack_window,
+        args=(_stacked(state, trials), _shared(a),
+              _cohorts(params.n, dev, trials, 0.1)),
+        kwargs=dict(params=params,
+                    adv=AdversaryParams(scenario="sybil_graft_flood"),
+                    steps=steps, trial_mesh=grid,
+                    local_trials=local_trials))
+
+
+def arena_rung_spec(n: int, *, steps: int = 20, connect_to: int = 10,
+                    local_trials: int = 2, trial_groups: int | None = None,
+                    grid=None, device=None) -> TraceSpec:
+    """The arena ladder's program at any peer count: the adaptive episub
+    window (protocol/arena_window) at config 8's grid shape, thresholds
+    armed, sybil_graft_flood at fraction 0.1, the EpisubCtrl carry
+    stacked beside the state."""
+    from ..ops.adversary import AdaptivePolicy, AdversaryParams
+    from ..ops.episub import EpisubParams, init_episub_ctrl
+    from ..runtime.campaign import sharded_episub_window
+
+    grid = _rank_pool(grid)
+    _check_groups(grid, trial_groups)
+    dev = resolve_device(device)
+    g, params, state, a, _ = _single_topic(dev, n=n, connect_to=connect_to,
+                                           **_ARMED)
+    trials = grid.groups * local_trials
+    adv = AdversaryParams(scenario="sybil_graft_flood",
+                          adaptive=AdaptivePolicy(enabled=True))
+    return TraceSpec(
+        fn=sharded_episub_window,
+        args=(_stacked(state, trials),
+              _stacked(init_episub_ctrl(params.n, dev), trials),
+              _shared(a), _cohorts(params.n, dev, trials, 0.1)),
+        kwargs=dict(params=params, ep=EpisubParams(root=3), adv=adv,
+                    steps=steps, trial_mesh=grid,
+                    local_trials=local_trials))
+
+
+def _check_groups(grid, trial_groups) -> None:
+    if grid is None:
+        raise ValueError("a rung spec runs on a rank pool: pass grid=")
+    if trial_groups is not None and trial_groups != grid.groups:
+        raise ValueError(f"trial_groups {trial_groups} != the grid's "
+                         f"{grid.groups} groups")
+
+
 def _new_state_of(out):
     return out[1]
 
@@ -403,14 +628,131 @@ def _check_disseminate(device) -> None:
              "non-finite answer wait bar (would poison strict JSON)")
 
 
-def default_contracts(device=None) -> list[EntrypointContract]:
+def default_contracts(device=None, pool=None,
+                      grid=None) -> list[EntrypointContract]:
     """The 20 single-device contracts, built for `device` (CUDA unless the
-    caller asks for another)."""
+    caller asks for another), and with `grid` (a 2 x 2 RankPool) the 6
+    mesh contracts, in the reference's order (module doc). The legacy
+    layout runs on `pool` (2 ranks, each its own trial group, or a
+    PeerMesh) when given, else on the grid's groups' first ranks."""
     dev = resolve_device(device)
 
     def on(make, *args, **kw):
         return functools.partial(make, dev, *args, **kw)
 
+    single = _single_device_contracts(on)
+    if grid is None:
+        return single
+    grid = _rank_pool(grid)
+    mesh = _mesh_contracts(on, grid if pool is None else _rank_pool(pool),
+                           grid)
+    # the reference's order: the mesh contracts after faults/churn_window,
+    # the arena window after episub/heartbeat_step
+    at = [c.name for c in single].index("faults/churn_window") + 1
+    return single[:at] + mesh[:-1] + single[at:] + mesh[-1:]
+
+
+# the collective byte budgets: the most one rank's collectives moved at the
+# audit shape on the 2 x 2 CPU grid (lint --sharding --device cpu),
+# ratcheted about 4x, as the reference set its own from its GSPMD programs.
+# Measured: 20,688 B (faulted), 20,096 B (nested and dcn: 28 all-gathers,
+# 60 all-reduces), 49,064 B (dht, broadcasts too), 23,960 B (arena)
+FAULTED_NESTED_BYTES = 80 * 1024
+NESTED_BYTES = 80 * 1024
+DHT_BYTES = 192 * 1024
+ARENA_BYTES = 96 * 1024
+# the per-rank memory budgets (GA-S004): the largest rank's peak rise on an
+# NVIDIA H100 80GB HBM3 (700 W) through `lint --sharding` (chip_smoke.py
+# 17(c), the collector paused in a measured job), ratcheted about 4x.
+# Measured: 76,288 B (faulted), 110,080 B (legacy), 74,752 B (nested and
+# dcn), 113,152 B (dht), 93,184 B (arena)
+FAULTED_NESTED_HBM = 300 * 1024
+LEGACY_HBM = 432 * 1024
+NESTED_HBM = 292 * 1024
+DHT_HBM = 448 * 1024
+ARENA_HBM = 364 * 1024
+
+
+def _mesh_contracts(on, pool, grid) -> list[EntrypointContract]:
+    kinds = frozenset(COLLECTIVE_KINDS)
+    return [
+        EntrypointContract(
+            name="campaign/faulted_window_nested",
+            build=on(_faulted_nested_spec, grid),
+            feedback=[(_first_out, _state_arg_of)],
+            collectives=kinds,
+            collective_bytes_budget=FAULTED_NESTED_BYTES,
+            hbm_budget_bytes=FAULTED_NESTED_HBM,
+            notes="the fault-armed nested window: the per-trial crash / "
+                  "side / spike cohorts split over both grid axes like "
+                  "the attacker masks; the stacked state feeds back "
+                  "type-stable"),
+        EntrypointContract(
+            name="campaign/attack_window_sharded",
+            build=on(_attack_window_spec, pool, nested=False),
+            feedback=[(_first_out, _state_arg_of)],
+            # each trial whole on one rank: no collective is legitimate
+            collectives=frozenset(),
+            hbm_budget_bytes=LEGACY_HBM,
+            waivers=(("GA-S001",
+                      "legacy nested=False layout replicates the shared "
+                      "epoch graph (conns/rev) across trial groups by "
+                      "design — it exists as the replicated-peer-submesh "
+                      "equality baseline for the nested program "
+                      "(docs/ARCHITECTURE.md §13)"),),
+            notes="the legacy trial-only layout (nested=False): each "
+                  "trial whole on its group's rank, the replicated "
+                  "baseline the nested window is pinned against"),
+        EntrypointContract(
+            name="campaign/attack_window_nested",
+            build=on(_attack_window_spec, grid),
+            feedback=[(_first_out, _state_arg_of)],
+            collectives=kinds,
+            collective_bytes_budget=NESTED_BYTES,
+            hbm_budget_bytes=NESTED_HBM,
+            notes="the nested window the campaign dispatches: trials over "
+                  "the groups, each trial's rows over its group's ranks; "
+                  "the auditor pins its collective kinds and its byte and "
+                  "memory budgets"),
+        EntrypointContract(
+            name="campaign/attack_window_dcn",
+            build=on(_dcn_attack_window_spec, grid),
+            feedback=[(_first_out, _state_arg_of)],
+            collectives=kinds,
+            collective_bytes_budget=NESTED_BYTES,
+            hbm_budget_bytes=NESTED_HBM,
+            # a dcn block is one process's ranks; trials are independent
+            # across blocks, so no byte may cross one
+            dcn_block_devices=2,
+            dcn_collective_bytes_budget=0,
+            notes="the dcn x trials x peers placement (2 x 1 x 2): the "
+                  "nested attack window with every peer group inside one "
+                  "block; GA-S006 proves no collective crosses a block"),
+        EntrypointContract(
+            name="campaign/dht_attack_window",
+            build=on(_dht_attack_window_spec, grid),
+            feedback=[(lambda out: out[0][0], _state_arg_of),
+                      (lambda out: out[0][4], lambda spec: spec.args[4])],
+            collectives=kinds,
+            collective_bytes_budget=DHT_BYTES,
+            hbm_budget_bytes=DHT_HBM,
+            notes="the DHT-armed recovery window: repair leaves live, the "
+                  "(T, N, K) shortlists split over both grid axes; the "
+                  "state and the consumed pool feed back type-stable"),
+        EntrypointContract(
+            name="protocol/arena_window",
+            build=on(_arena_window_spec, grid),
+            feedback=[(lambda out: out[0][0], lambda spec: spec.args[0]),
+                      (lambda out: out[0][1], lambda spec: spec.args[1])],
+            collectives=kinds,
+            collective_bytes_budget=ARENA_BYTES,
+            hbm_budget_bytes=ARENA_HBM,
+            notes="the arena's adaptive episub window on the grid: state "
+                  "and tree carry feed back type-stable"),
+    ]
+
+
+def _single_device_contracts(on) -> list[EntrypointContract]:
     return [
         EntrypointContract(
             name="disseminate/cold",

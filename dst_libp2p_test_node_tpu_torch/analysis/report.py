@@ -7,10 +7,12 @@ report of the port's `lint` diffs byte for byte against the reference's.
 Every finding is a Violation with a stable rule id, a repo-relative
 file:line anchor, and (for contract findings) the registered entry point
 it ran under. The catalog keeps every reference id; the port's engines
-emit GA-A005 (analysis/ast_lint.py) and GA-J005 (analysis/
-jaxpr_audit.py: feedback drift, a failed runtime check), plus GA-J001 for
+emit GA-A005 (analysis/ast_lint.py), GA-J005 (analysis/
+jaxpr_audit.py: feedback drift, a failed runtime check), GA-J001 for
 an entry point that fails to run, the reference's id for one that fails
-to trace. README.md says why the others have no torch meaning.
+to trace, and GA-S001-S004 and GA-S006 (analysis/sharding_audit.py; the
+reference's catalog has no slug for GA-S006, and neither has this one).
+README.md says why the others have no torch meaning.
 
   GA-J001  host/io/debug callback inside a scan/while_loop body
   GA-J002  x64 dtype or weak-type promotion drift in a loop carry

@@ -1463,21 +1463,15 @@ def cmd_trace(argv: list[str]) -> int:
     return 0
 
 
-# the lint flags of the peer mesh: set, each exits with an error naming
-# its slice (never silently ignored)
-_LATER_LINT_FLAGS = (
-    ("sharding", "--sharding"), ("predict_rung", "--predict-rung"),
-    ("rung_dcn", "--rung-dcn"), ("rung_scenario", "--rung-scenario"),
-    ("rung_out", "--rung-out"),
-)
-
-
 def cmd_lint(argv: list[str]) -> int:
     """graft-audit on the port: the AST lint (GA-A005) over the port's
-    sources and the contract engine over every registered entry point
-    (analysis/registry.py), run on --device. Emits the strict-JSON
-    violation report (the reference's shape) on stdout or --out. Exit 0
-    iff clean."""
+    sources, the contract engine over every registered entry point
+    (analysis/registry.py) and, with --sharding, the sharding auditor
+    (analysis/sharding_audit.py), run on --device; --predict-rung adds the
+    rung certificate. The mesh contracts and the predictor run on rank
+    processes on --device (a 2 x 2 grid of 4 ranks). Emits the strict-JSON
+    report (the reference's shape) on stdout or --out. Exit 0 iff no
+    unwaived finding."""
     p = argparse.ArgumentParser(prog="lint")
     p.add_argument("paths", nargs="*",
                    help="files/dirs for the AST engine (default: the port "
@@ -1489,41 +1483,55 @@ def cmd_lint(argv: list[str]) -> int:
     p.add_argument("--checkify", action="store_true",
                    help="also run the contracts' runtime checks (value "
                         "invariants asserted in plain torch)")
+    p.add_argument("--sharding", action="store_true",
+                   help="also run the sharding auditor (GA-S rules): run "
+                        "every registered contract once and read each "
+                        "rank's collectives, the windows' placement and, "
+                        "on a card, each rank's peak memory")
     p.add_argument("--only", default=None, metavar="PREFIX",
-                   help="restrict the contract engine to contracts whose "
-                        "name starts with PREFIX (e.g. disseminate/)")
+                   help="restrict the contract and sharding engines to "
+                        "contracts whose name starts with PREFIX (e.g. "
+                        "campaign/)")
+    p.add_argument("--predict-rung", nargs="?", const=1048576, type=int,
+                   default=None, metavar="PEERS",
+                   help="also fit the attack-window footprint curves and "
+                        "emit the rung certificate for PEERS (default "
+                        "1048576) on a modeled node of 8 H100 80GB HBM3, "
+                        "fitted at 512-4,096 peers")
+    p.add_argument("--rung-dcn", type=int, default=1, metavar="NODES",
+                   help="model the rung on NODES such nodes (each holds "
+                        "its own stacked-trial slice; default 1)")
+    p.add_argument("--rung-scenario", choices=("attack", "arena"),
+                   default="attack",
+                   help="which window to fit: the GossipSub attack window "
+                        "(default) or the protocol arena's episub window")
+    p.add_argument("--rung-out", default=None, metavar="PATH",
+                   help="also write the rung certificate alone to PATH "
+                        "(strict JSON; the report embeds it either way)")
     p.add_argument("--out", default=None, metavar="PATH",
                    help="write the strict-JSON report to PATH instead of "
                         "stdout (github annotations still print to stdout)")
     p.add_argument("--format", choices=("json", "github"), default="json",
                    help="'github' additionally emits ::error/::notice "
                         "workflow-command lines")
-    later = p.add_argument_group("later slices")
-    later.add_argument("--sharding", action="store_true")
-    later.add_argument("--predict-rung", nargs="?", const=1048576, type=int,
-                       default=None, metavar="PEERS")
-    later.add_argument("--rung-dcn", type=int, default=None)
-    later.add_argument("--rung-scenario", choices=("attack", "arena"),
-                       default=None)
-    later.add_argument("--rung-out", default=None)
     _device_arg(p)
     a = p.parse_args(argv)
-    for attr, flag in _LATER_LINT_FLAGS:
-        if getattr(a, attr) not in (None, False):
-            from .parallel.sharding import PEER_MESH_SLICE
-
-            p.error(f"{flag} is not ported yet: it comes with "
-                    f"{PEER_MESH_SLICE} (ROADMAP A)")
     device = _resolve(p, a.device)
 
     from .analysis.ast_lint import lint_paths
     from .analysis.jaxpr_audit import audit_contracts, run_checkify
     from .analysis.registry import default_contracts
     from .analysis.report import github_annotations, render_report
+    from .parallel.ranks import RankPool
+
+    import torch
 
     pkg = os.path.dirname(os.path.abspath(__file__))
     repo_root = os.path.dirname(pkg)
     violations = []
+    waived: list[dict] = []
+    sharding_facts = None
+    rung_cert = None
     checked_files = 0
     checked_entrypoints = 0
     if not a.no_ast:
@@ -1532,26 +1540,81 @@ def cmd_lint(argv: list[str]) -> int:
                                       else [])
         ast_violations, checked_files = lint_paths(targets, repo_root)
         violations.extend(ast_violations)
-    if not a.no_jaxpr:
-        contracts = default_contracts(device)
+
+    # the ranks start on the first mesh contract or fit point, and stop here
+    rank_dev = (torch.device("cuda", 0) if device.type == "cuda"
+                and device.index is None else device)
+    with RankPool([rank_dev] * 4, threads=_rank_threads(device, 4),
+                  peer_width=2) as grid:
+        contracts = default_contracts(device, grid=grid)
         if a.only:
             contracts = [c for c in contracts if c.name.startswith(a.only)]
-        checked_entrypoints = len(contracts)
-        violations.extend(audit_contracts(contracts))
-        if a.checkify:
+        if a.sharding:
+            from .analysis.sharding_audit import audit_sharding_contracts
+
+            # one run of each contract serves the sharding auditor and,
+            # unless --no-jaxpr, the contract engine's feedback check
+            checked_entrypoints = len(contracts)
+            sh_violations, waived, sharding_facts = \
+                audit_sharding_contracts(contracts,
+                                         feedback=not a.no_jaxpr)
+            violations.extend(sh_violations)
+        elif not a.no_jaxpr:
+            checked_entrypoints = len(contracts)
+            violations.extend(audit_contracts(contracts))
+        if a.checkify and not a.no_jaxpr:
             violations.extend(run_checkify(contracts))
+        if a.predict_rung is not None:
+            rung_cert = _rung_certificate(a, grid, device)
 
     if a.format == "github":
-        for line in github_annotations(violations):
+        for line in github_annotations(violations, waived):
             print(line)
-    report = render_report(violations, checked_files=checked_files,
-                           checked_entrypoints=checked_entrypoints)
+    report = render_report(
+        violations, checked_files=checked_files,
+        checked_entrypoints=checked_entrypoints,
+        sharding=sharding_facts, waived=waived if a.sharding else None,
+        rung=rung_cert)
     if a.out:
         with open(a.out, "w") as fh:
             fh.write(report + "\n")
     else:
         print(report)
     return 1 if violations else 0
+
+
+def _rank_threads(device, ranks: int):
+    """CPU threads per rank: the cores split over CPU ranks, the default
+    on a card."""
+    if device.type != "cpu":
+        return None
+    return max(1, (os.cpu_count() or 1) // ranks)
+
+
+def _rung_certificate(a, grid, device) -> dict:
+    """`lint --predict-rung`'s certificate (analysis/sharding_audit.py),
+    written alone to --rung-out too."""
+    from .analysis.sharding_audit import (RUNG_FIT_POINTS,
+                                          predict_rung_certificate)
+
+    spec_builder = None
+    scenario = "sybil_graft_flood"
+    if a.rung_scenario == "arena":
+        from .analysis.registry import arena_rung_spec
+
+        def spec_builder(n):
+            return arena_rung_spec(n, grid=grid, device=device)
+
+        scenario = "protocol_arena/episub"
+    cert = predict_rung_certificate(
+        RUNG_FIT_POINTS, rung_peers=a.predict_rung, dcn=a.rung_dcn,
+        spec_builder=spec_builder, scenario=scenario, grid=grid,
+        device=device)
+    if a.rung_out:
+        with open(a.rung_out, "w") as fh:
+            json.dump(cert, fh, indent=2, sort_keys=True, allow_nan=False)
+            fh.write("\n")
+    return cert
 
 
 def cmd_microbench(argv: list[str]) -> int:
@@ -1595,7 +1658,9 @@ def main(argv: list[str] | None = None) -> int:
               "  trace [-n PEERS] [--heartbeats H] [--out DIR] "
               "[--profile-dir DIR]\n"
               "  lint [paths] [--no-ast] [--no-jaxpr] [--checkify] "
-              "[--only P] [--out F]\n"
+              "[--sharding] [--only P] [--predict-rung [PEERS]] "
+              "[--rung-dcn K] [--rung-scenario attack|arena] "
+              "[--rung-out F] [--out F]\n"
               "  microbench [--only P] [--no-sweep] [--no-packed] "
               "[--install] [--out F]",
               file=sys.stderr)

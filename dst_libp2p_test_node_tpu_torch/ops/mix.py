@@ -15,6 +15,16 @@ the occupancy arrays, every hop queues behind the sender's uplink and the
 relay's downlink and writes both back (mix and GossipSub traffic share
 each node's links).
 
+On a rank of the peer mesh (parallel/peer.py) every per-peer input is the
+rank's rows: the draw is the rank's row block of the whole draw, and
+since the mix nodes are the first NUMMIX peers and every other peer sorts
+last, the path is the stable argsort of the draw's first NUMMIX rows,
+all-gathered (peer.prefix_rows; NUMMIX may span several ranks). The
+stage of the publisher and the 2 x MIXD occupancy values the chain reads
+are broadcast from their owners (peer.read_row), the chain runs the same
+on every rank, and each owner writes its rows back (peer.write_row): the
+path, its delay and every written value are the one-device bits.
+
 Float arithmetic follows the reference term by term; every division by a
 constant divides by a device tensor (see ops/disseminate.py).
 """
@@ -27,6 +37,7 @@ import numpy as np
 import torch
 
 from .. import prng
+from ..parallel import peer
 
 # Sphinx packets are fixed-size whatever the payload; a message larger
 # than the body is ceil(payload / body) serialized packets
@@ -61,7 +72,13 @@ def mix_node_mask(n: int, num_mix: int, device=None) -> torch.Tensor:
 
 def eligible_mix_count(alive, publisher: int, n: int, num_mix: int) -> int:
     """Mix nodes that can relay for this publisher now (mounted, alive,
-    not the publisher). Callers check it is >= mix_d before mix_route."""
+    not the publisher). Callers check it is >= mix_d before mix_route.
+    A torch `alive` is this process's rows (a rank's under a peer mesh):
+    the count is summed over every row."""
+    if isinstance(alive, torch.Tensor):
+        ids = peer.row_ids(alive.shape[0], alive.device)
+        m = (ids < num_mix) & alive & (ids != int(publisher))
+        return int(peer.isum(m))
     m = (np.arange(n) < num_mix) & np.asarray(alive)
     if publisher < num_mix:
         m = m.copy()
@@ -89,18 +106,26 @@ def mix_route(key, publisher: int, alive, stage, lat_ms,
     dev = alive.device
     f32 = torch.float32
     publisher = int(publisher)
-    mix_ok = (mix_node_mask(n, params.num_mix, dev) & alive
-              & (torch.arange(n, device=dev) != publisher))
-    u = prng.uniform(key, (n,))
-    # ineligible nodes sort last
-    order = torch.argsort(torch.where(mix_ok, u, 2.0), stable=True)
+    rows = alive.shape[0]                  # a rank's rows under a mesh
+    ids = peer.row_ids(rows, dev)
+    mix_ok = (ids < params.num_mix) & alive & (ids != publisher)
+    u = peer.uniform(key, (rows,))
+    # ineligible nodes sort last; every eligible one is a prefix row
+    m = min(params.num_mix, n)
+    order = torch.argsort(peer.prefix_rows(torch.where(mix_ok, u, 2.0), m),
+                          stable=True)
     path = order[: params.mix_d]
 
     hops_from = torch.cat([torch.tensor([publisher], device=dev),
                            path[:-1]])
     hops_to = path
-    stage_l = stage.long()
-    hop_lat = lat_ms[stage_l[hops_from], stage_l[hops_to]]     # (MIXD,)
+    # the stage of every hop's ends: the path's from the prefix rows, the
+    # publisher's from its owner
+    stage_mix = peer.prefix_rows(stage, m).long()
+    stage_pub = peer.read_row(stage, publisher).long().reshape(1)
+    st_from = torch.cat([stage_pub, stage_mix[path[:-1]]])
+    st_to = stage_mix[path]
+    hop_lat = lat_ms[st_from, st_to]                            # (MIXD,)
 
     # each hop serializes ceil(payload / body) packets on the sender's
     # uplink, then pays the unwrap at the receiver
@@ -109,11 +134,10 @@ def mix_route(key, publisher: int, alive, stage, lat_ms,
         float(params.body_bytes)))
     wire_bytes = n_packets * float(params.packet_bytes)
 
-    def _hop_ms(ends):
-        return (wire_bytes * 8.0) / (
-            bw_up_mbit_per_stage[stage_l[ends]] * 1e6) * 1e3
+    def _hop_ms(st):
+        return (wire_bytes * 8.0) / (bw_up_mbit_per_stage[st] * 1e6) * 1e3
 
-    tx_ms = _hop_ms(hops_from)
+    tx_ms = _hop_ms(st_from)
     path32 = path.to(torch.int32)
     if uplink_free_ms is None:
         # the reference's jnp.sum over the MIXD hops, in order
@@ -125,21 +149,26 @@ def mix_route(key, publisher: int, alive, stage, lat_ms,
         return path32, path32[-1], delay.to(f32)
 
     # occupancy-coupled chain: absolute times, hop by hop (the packet is at
-    # one relay at a time)
+    # one relay at a time). The senders are distinct and so are the
+    # receivers, so each hop reads a value no earlier hop wrote: the 2 x
+    # MIXD reads happen up front, from their owners.
     uplink = uplink_free_ms.to(f32).clone()
-    rx_free = (torch.zeros((n,), dtype=f32, device=dev)
+    rx_free = (torch.zeros((rows,), dtype=f32, device=dev)
                if rx_free_ms is None else rx_free_ms.to(f32).clone())
+    from_ids = [int(i) for i in hops_from.tolist()]
+    to_ids = [int(i) for i in hops_to.tolist()]
+    up_at = [peer.read_row(uplink, i) for i in from_ids]
+    rx_at = [peer.read_row(rx_free, i) for i in to_ids]
     # reference topology: bw_down == bw_up per stage
-    rx_hop = _hop_ms(hops_to)
+    rx_hop = _hop_ms(st_to)
     t0 = torch.as_tensor(t0_ms, dtype=f32).to(dev)
     ready = t0
     for h in range(params.mix_d):
-        s, r = hops_from[h], hops_to[h]
-        start = torch.maximum(ready, uplink[s])
-        uplink[s] = start + tx_ms[h]
+        start = torch.maximum(ready, up_at[h])
+        peer.write_row(uplink, from_ids[h], start + tx_ms[h])
         wire = start + tx_ms[h] + hop_lat[h]
-        done = torch.maximum(wire, rx_free[r] + rx_hop[h])
-        rx_free[r] = done
+        done = torch.maximum(wire, rx_at[h] + rx_hop[h])
+        peer.write_row(rx_free, to_ids[h], done)
         ready = done + params.proc_delay_ms      # Sphinx unwrap
     return path32, path32[-1], (ready - t0).to(f32), uplink, rx_free
 

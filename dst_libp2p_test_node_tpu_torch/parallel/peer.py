@@ -18,8 +18,17 @@ rows in a few places only, and each goes through this module:
   or_(x), max_(x)  elementwise OR / MAX of a small tensor over the ranks
                    (per-fragment flags, the bounded mode's error bar)
   read_row(x, i)   x[i] on every rank (a broadcast from the owner): the
-                   publisher's tx time and warm-start carry
+                   publisher's tx time and warm-start carry, the mix
+                   relay's occupancy at its path's ends
   write_row(x,i,v) x[i] = v on the owning rank
+  prefix_rows(x, m)
+                   the whole rows [0, m) of x on every rank (one
+                   all-gather of at most m rows): the mix relay's draw
+                   over the mix nodes, which are the first NUMMIX peers
+  add_rows(x, idx, val)
+                   x.index_add(0, idx, val) for distinct global row ids:
+                   each owner adds to its rows, no collective (the mix
+                   relay's byte counters)
   row_ids(n)       the global peer ids of the local rows
   uniform(k, shp), randint(k, shp, lo, hi)
                    the local rows of a per-peer draw (prng.py's row
@@ -46,6 +55,14 @@ float sum is all-gathered and summed in one place (XLA's order), and the
 quantiles read the gathered values. Min, max and integer sums are exact
 whatever the order, so those reduce over the ranks.
 
+Counters: each PeerGroup's `stats` counts its all-gathers, all-reduces
+and broadcasts and the bytes each moved (an all-gather's assembled
+tensor, an all-reduce's buffer, a broadcast's row), and `ranks` holds the
+global ranks of its group; `ledger()` has the same counts for the whole
+process, keyed by (kind, the group's global ranks), which the rank pools
+send back per job (parallel/ranks.py) for the sharding auditor
+(analysis/sharding_audit.py). Counting moves no result byte.
+
 Backend: NCCL when every rank has a distinct CUDA device, gloo otherwise
 (ranks sharing one card, CPU ranks). gloo's collectives here run on
 host tensors: a CUDA tensor is staged through the host explicitly (gloo
@@ -68,8 +85,8 @@ class PeerGroup:
     """One rank's view of a peer mesh of `world` ranks over `n_rows` peer
     rows (torch.distributed must be initialized; `group` None is the
     default group, whose ranks are the mesh's). `stats` counts the
-    collectives this rank took part in and the bytes each gathered
-    (N, ...) tensor holds."""
+    collectives this rank took part in and their bytes (module doc);
+    `ranks` the global ranks of its group."""
 
     def __init__(self, rank: int, world: int, n_rows: int, device,
                  backend: str | None = None, group=None):
@@ -92,8 +109,16 @@ class PeerGroup:
         self.group = group
         # gloo reduces host tensors: stage CUDA tensors through the host
         self._host = self.backend == "gloo"
+        if group is None:
+            self.ranks = tuple(range(self.world))
+        else:
+            import torch.distributed as dist
+
+            self.ranks = tuple(int(r) for r in
+                               dist.get_process_group_ranks(group))
         self.stats = {"all_gather": 0, "all_gather_bytes": 0,
-                      "all_reduce": 0, "broadcast": 0}
+                      "all_reduce": 0, "all_reduce_bytes": 0,
+                      "broadcast": 0, "broadcast_bytes": 0}
 
     def __repr__(self) -> str:
         return (f"PeerGroup(rank={self.rank}, world={self.world}, "
@@ -106,29 +131,59 @@ class PeerGroup:
     def _comm(self, x: torch.Tensor) -> torch.Tensor:
         return x.cpu() if self._host else x.to(self.device)
 
-    def all_rows(self, x: torch.Tensor) -> torch.Tensor:
-        """The (N, ...) tensor whose rows [r0, r1) are this rank's `x`."""
+    def _count(self, kind: str, t: torch.Tensor) -> None:
+        nbytes = t.numel() * t.element_size()
+        self.stats[kind] += 1
+        self.stats[kind + "_bytes"] += nbytes
+        entry = _LEDGER.setdefault((kind, self.ranks), [0, 0])
+        entry[0] += 1
+        entry[1] += nbytes
+
+    def _gather(self, x: torch.Tensor, keep) -> torch.Tensor:
+        """Every rank's `x` (equal shapes), each cut to its first
+        keep[r] rows, concatenated in rank order."""
         import torch.distributed as dist
 
-        if x.shape[0] != self.rows_per:
-            raise ValueError(
-                f"all_rows of {tuple(x.shape)}: a rank holds "
-                f"{self.rows_per} rows")
         is_bool = x.dtype == torch.bool
         src = self._comm((x.to(torch.uint8) if is_bool else x).contiguous())
         parts = [torch.empty_like(src) for _ in range(self.world)]
         dist.all_gather(parts, src, group=self.group)
-        out = torch.cat(parts, dim=0).to(x.device)
-        self.stats["all_gather"] += 1
-        self.stats["all_gather_bytes"] += out.numel() * out.element_size()
+        out = torch.cat([p[:k] for p, k in zip(parts, keep)],
+                        dim=0).to(x.device)
+        self._count("all_gather", out)
         return out.bool() if is_bool else out
+
+    def all_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The (N, ...) tensor whose rows [r0, r1) are this rank's `x`."""
+        if x.shape[0] != self.rows_per:
+            raise ValueError(
+                f"all_rows of {tuple(x.shape)}: a rank holds "
+                f"{self.rows_per} rows")
+        return self._gather(x, [self.rows_per] * self.world)
+
+    def prefix(self, x: torch.Tensor, m: int) -> torch.Tensor:
+        """The whole rows [0, m) of a row-sharded x: each rank sends its
+        rows inside the prefix, padded to one length (at most m rows)."""
+        if x.shape[0] != self.rows_per:
+            raise ValueError(
+                f"prefix of {tuple(x.shape)}: a rank holds "
+                f"{self.rows_per} rows")
+        m = max(0, min(int(m), self.n))
+        keep = [max(0, min(m - r * self.rows_per, self.rows_per))
+                for r in range(self.world)]
+        width = max(min(m, self.rows_per), 1)
+        mine = keep[self.rank]
+        piece = torch.zeros((width,) + tuple(x.shape[1:]), dtype=x.dtype,
+                            device=x.device)
+        piece[:mine] = x[:mine]
+        return self._gather(piece, keep)
 
     def _reduce(self, t: torch.Tensor, op) -> torch.Tensor:
         import torch.distributed as dist
 
         buf = self._comm(t.contiguous()).clone()
         dist.all_reduce(buf, op=op, group=self.group)
-        self.stats["all_reduce"] += 1
+        self._count("all_reduce", buf)
         return buf
 
     def any_(self, x: torch.Tensor) -> bool:
@@ -176,7 +231,7 @@ class PeerGroup:
         dist.broadcast(buf, src=(own if self.group is None else
                                  dist.get_global_rank(self.group, own)),
                        group=self.group)
-        self.stats["broadcast"] += 1
+        self._count("broadcast", buf)
         buf = buf.to(x.device)
         return buf.bool() if is_bool else buf
 
@@ -197,6 +252,15 @@ class PeerGroup:
 
 
 _ACTIVE: PeerGroup | None = None
+
+# this process's collectives: (kind, the group's global ranks) ->
+# [count, bytes], over every PeerGroup it made
+_LEDGER: dict = {}
+
+
+def ledger() -> dict:
+    """A copy of this process's collective counts (module doc)."""
+    return {k: list(v) for k, v in _LEDGER.items()}
 
 
 def active() -> PeerGroup | None:
@@ -291,6 +355,22 @@ def write_row(x: torch.Tensor, i: int, v) -> None:
         x[int(i)] = v
     else:
         _ACTIVE.write_row(x, i, v)
+
+
+def prefix_rows(x: torch.Tensor, m: int) -> torch.Tensor:
+    """The whole rows [0, m) of a row-sharded x (x[:m] on one device)."""
+    return x[:int(m)] if _ACTIVE is None else _ACTIVE.prefix(x, m)
+
+
+def add_rows(x: torch.Tensor, idx: torch.Tensor,
+             val: torch.Tensor) -> torch.Tensor:
+    """x.index_add(0, idx, val) for distinct global row ids `idx` of a
+    row-sharded x: each owner adds to its own rows, so each row gets the
+    one add it gets on one device (the same bits for a float x)."""
+    if _ACTIVE is None:
+        return x.index_add(0, idx, val)
+    mine = (idx >= _ACTIVE.r0) & (idx < _ACTIVE.r1)
+    return x.index_add(0, idx[mine] - _ACTIVE.r0, val[mine])
 
 
 def row_ids(n: int, device) -> torch.Tensor:

@@ -28,7 +28,14 @@ NCCL:
   run      one job per rank: `fn(payload, device)` with fn a module-level
            function (sent by import path); a None payload leaves the rank
            idle. Results come back over one pipe per rank, with the rank's
-           kernel launches and seconds for the job.
+           kernel launches and seconds for the job, its collectives (by
+           kind and group, parallel/peer.ledger), its peak device-memory
+           rise over the job (measured inside `recording()` on a card,
+           with Python's cyclic garbage collector paused so the peak does
+           not depend on when it runs; None otherwise). Inside
+           `recording()` the pool keeps these facts of every job, and the
+           bytes of each rank's result (analysis/sharding_audit.py reads
+           them).
   close    every rank told to exit, joined with a deadline, killed after.
 
 Every wait on a rank has a deadline, and so has every collective (the
@@ -42,7 +49,10 @@ makes it raise at once, and the pool is closed, its stuck ranks killed
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import datetime
+import gc
 import multiprocessing as mp
 import multiprocessing.connection
 import os
@@ -51,6 +61,7 @@ import tempfile
 import time
 import traceback
 
+import numpy as np
 import torch
 
 # seconds a rank may take to start, or to answer one job
@@ -89,6 +100,34 @@ def _join_subgroups(rank: int, world: int, width: int, backend: str):
             _SUBGROUP = (sub, rank - g * width, width)
 
 
+def _collectives_since(before: dict) -> list:
+    from .peer import ledger
+
+    out = []
+    for (kind, ranks), (count, nbytes) in sorted(ledger().items()):
+        c0, b0 = before.get((kind, ranks), (0, 0))
+        if count > c0:
+            out.append({"kind": kind, "ranks": list(ranks),
+                        "count": count - c0, "bytes": nbytes - b0})
+    return out
+
+
+def _array_bytes(tree) -> int:
+    """Bytes of the array and tensor leaves of a job's result tree
+    (dicts, lists, tuples, dataclasses)."""
+    if isinstance(tree, np.ndarray):
+        return tree.nbytes
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        tree = [getattr(tree, f.name) for f in dataclasses.fields(tree)]
+    elif isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_array_bytes(x) for x in tree)
+    return 0
+
+
 def _launch_counts() -> dict:
     from ..native import score_update, vmem_gather
 
@@ -122,16 +161,28 @@ def _rank_main(rank: int, world: int, device: str, store_path: str,
     except Exception:  # noqa: BLE001 — reported to the caller, which raises
         conn.send((False, traceback.format_exc()))
         return
+    from .peer import ledger
+
     try:
         while True:
             job = conn.recv()
             if job is None:
                 break
-            fn, payload = job
+            fn, payload, measure = job
             if payload is None:
                 conn.send((True, None))
                 continue
             before = _launch_counts()
+            held = ledger()
+            measure = measure and dev.type == "cuda"
+            if measure:
+                # a recorded job's own peak (module doc); otherwise the
+                # peak counts on from what the caller last reset
+                gc.collect()
+                gc.disable()
+                torch.cuda.synchronize(dev)
+                base = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
             t0 = time.perf_counter()
             try:
                 out = fn(payload, dev)
@@ -140,10 +191,16 @@ def _rank_main(rank: int, world: int, device: str, store_path: str,
             except Exception:  # noqa: BLE001 — the caller raises
                 conn.send((False, traceback.format_exc()))
                 continue
+            finally:
+                if measure:
+                    gc.enable()
             after = _launch_counts()
             conn.send((True, {
                 "result": out, "seconds": time.perf_counter() - t0,
-                "launches": {k: after[k] - before[k] for k in after}}))
+                "launches": {k: after[k] - before[k] for k in after},
+                "collectives": _collectives_since(held),
+                "peak_rise": (torch.cuda.max_memory_allocated(dev) - base
+                              if measure else None)}))
     except EOFError:
         pass                                    # the caller went away
     finally:
@@ -181,6 +238,19 @@ class RankPool:
         self._procs = None
         self._conns = None
         self._tmp = None
+        self._record = None
+
+    @contextlib.contextmanager
+    def recording(self):
+        """Within the block, every job's per-rank facts (collectives,
+        peak_rise, launches, seconds, and result_bytes: the array bytes
+        of the rank's result) are appended, one list a job, to the list
+        this yields."""
+        prev, self._record = self._record, []
+        try:
+            yield self._record
+        finally:
+            self._record = prev
 
     @property
     def size(self) -> int:
@@ -233,11 +303,15 @@ class RankPool:
         self.start()
         for conn, payload in zip(self._conns, payloads):
             try:
-                conn.send((fn, payload))
+                conn.send((fn, payload, self._record is not None))
             except (BrokenPipeError, OSError):
                 pass                            # a dead rank: _collect names it
         outs = self._collect(getattr(fn, "__name__", "a job"),
                              deadline_s or RANK_DEADLINE_S)
+        if self._record is not None:
+            self._record.append([None if out is None else dict(
+                {k: v for k, v in out.items() if k != "result"},
+                result_bytes=_array_bytes(out["result"])) for out in outs])
         results = []
         for r, out in enumerate(outs):
             if out is None:

@@ -38,12 +38,18 @@ a trial-invariant (N, ...) leaf, every group alike); nested_batch_shardings
 picks one per leaf by the reference's shape rule and place_trial_batch
 places a batch and its shared graph (runtime/campaign.py's nested windows
 run them). tree_map walks the port's trees (dicts, tuples, lists and
-dataclasses of tensors or arrays).
+dataclasses of tensors or arrays). Inside `recording_placements()` every
+nested window notes the placement it used, leaf by leaf
+(describe_placement: global and per-rank bytes, partitions per dim,
+whether every running rank holds the whole leaf), for the sharding
+auditor (analysis/sharding_audit.py).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 import os
 from dataclasses import dataclass
 
@@ -53,15 +59,6 @@ import torch
 TRIAL_AXIS = "trials"
 DCN_AXIS = "dcn"
 PEER_AXIS = "peers"
-
-PEER_MESH_SLICE = "the peer mesh's next slice (A13, second half)"
-
-
-def peer_mesh_later(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with {PEER_MESH_SLICE} "
-        "(ROADMAP A)")
-
 
 @dataclass(frozen=True)
 class DeviceGrid:
@@ -575,3 +572,83 @@ def place_trial_batch(stacked, shared: dict, mesh, n_rows=None) -> list:
                   else v) for k, v in shared.items()}
         out.append((st, sh))
     return out
+
+
+def tree_paths(tree, prefix: str = "") -> list:
+    """[(path, leaf)] of the tensor / array leaves of a tree, in tree_map's
+    order: dict keys as `.k`, sequence items as `[i]`, dataclass fields as
+    `.f`."""
+    if isinstance(tree, (torch.Tensor, np.ndarray)):
+        return [(prefix, tree)]
+    out = []
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out += tree_paths(v, f"{prefix}.{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out += tree_paths(v, f"{prefix}[{i}]")
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        for f in dataclasses.fields(tree):
+            out += tree_paths(getattr(tree, f.name), f"{prefix}.{f.name}")
+    return out
+
+
+def _nbytes(x) -> int:
+    return int(math.prod(x.shape)) * (x.element_size()
+                                      if isinstance(x, torch.Tensor)
+                                      else x.itemsize)
+
+
+def describe_placement(stacked_args: tuple, shared: dict, placed: list,
+                       active: list) -> list:
+    """One dict per input leaf of a nested window: `name` (`args[i]...`
+    for the stacked trial arguments, `shared.k` for the shared graph),
+    its global `shape` and `global_bytes`, the bytes each running rank
+    holds (`rank_bytes`, in the order of `active`), `partitions_per_dim`
+    (the global extent over a running rank's extent, per dim) and
+    `replicated`: more than one rank runs the window and every one of
+    them holds the whole leaf. `placed`: place_trial_batch's per-rank
+    (args, shared) pairs; `active`: the ranks that run the window."""
+    whole = tree_paths(tuple(stacked_args), "args") + tree_paths(
+        {k: shared[k] for k in sorted(shared)}, "shared")
+    pieces = [dict(tree_paths(tuple(placed[r][0]), "args") + tree_paths(
+        {k: placed[r][1][k] for k in sorted(placed[r][1])}, "shared"))
+        for r in active]
+    out = []
+    for name, x in whole:
+        held = [p[name] for p in pieces]
+        first = held[0] if held else x
+        parts = [(g // s) if s else 1
+                 for g, s in zip(x.shape, first.shape)] or [1]
+        rank_bytes = [_nbytes(h) for h in held]
+        out.append({
+            "name": name, "shape": [int(d) for d in x.shape],
+            "global_bytes": _nbytes(x), "rank_bytes": rank_bytes,
+            "partitions_per_dim": [int(p) for p in parts],
+            "replicated": len(active) > 1 and all(
+                b == _nbytes(x) for b in rank_bytes)})
+    return out
+
+
+_PLACEMENTS: list | None = None
+
+
+@contextlib.contextmanager
+def recording_placements():
+    """Within the block every nested window appends its
+    describe_placement list to the list this yields."""
+    global _PLACEMENTS
+    prev, _PLACEMENTS = _PLACEMENTS, []
+    try:
+        yield _PLACEMENTS
+    finally:
+        _PLACEMENTS = prev
+
+
+def note_placement(stacked_args: tuple, shared: dict, placed: list,
+                   active: list) -> None:
+    """A nested window's placement, kept while recording_placements()
+    is open (nothing is computed otherwise)."""
+    if _PLACEMENTS is not None:
+        _PLACEMENTS.append(describe_placement(stacked_args, shared, placed,
+                                              active))

@@ -126,8 +126,9 @@ from ..ops.telemetry import TelemetryParams
 from ..parallel import peer
 from ..parallel.ranks import RankPool, peer_group
 from ..parallel.sharding import (check_peer_mesh, check_trial_grid,
-                                 grid_shape, peers_per_group,
-                                 place_trial_batch, tree_map)
+                                 grid_shape, note_placement,
+                                 peers_per_group, place_trial_batch,
+                                 tree_map)
 from .simulator import ExperimentConfig, MessageRecord, Simulator
 from .summarize import sanitize_nonfinite
 from .supervise import _call_with_timeout, _FailureInjector
@@ -1062,6 +1063,8 @@ def _run_nested_window(body, trial_mesh, n_rows: int, stacked_args: tuple,
                 (body, _host_tree(args), _host_tree(sh), n_rows, local,
                  batch_factor, nested)
                 for r, (args, sh) in enumerate(placed)]
+    note_placement(tuple(stacked_args), shared, placed,
+                   [r for r, p in enumerate(payloads) if p is not None])
     with _grid_pool(trial_mesh) as pool:
         outs = pool.run(_rank_window, payloads)
     per_trial = []

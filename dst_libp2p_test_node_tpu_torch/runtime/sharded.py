@@ -22,6 +22,10 @@ cross-row read or write needs (parallel/peer.py).
                       ranks' result rows and builds the record as one
                       device does, so records, latencies and summaries
                       come out in the one-device layout
+  publish (mix)       with cfg.uses_mix, the mix relay first, on every rank
+                      (ops/mix.py on its rows: the path from the mix
+                      nodes' prefix rows, the chain replicated, each
+                      owner writing its rows), then the exit's publish
   publish_batch       a loop of publish, as the reference's mesh path
   set_subscribed, rebind_graph, reset
                       host bookkeeping in the handle, the leaves on ranks
@@ -32,15 +36,16 @@ cross-row read or write needs (parallel/peer.py).
                       per-trial path) on the ranks' own Simulators, one
                       after another: run_campaign(mesh=)
 
-The mix relay under a mesh is a later slice. Launches: each rank counts
+Launches: each rank counts
 its kernel launches per call and sends the counts back over its pipe
-(RankPool.launches); `collectives()` has each rank's all-gathers and
-their bytes; `rank_peak_bytes` each rank's peak allocated device memory
+(RankPool.launches); `collectives()` has each rank's all-gathers,
+all-reduces and broadcasts and their bytes (parallel/peer.py); `rank_peak_bytes` each rank's peak allocated device memory
 since the handle was built (None on the CPU).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import itertools
 import os
 import time
@@ -49,12 +54,12 @@ import numpy as np
 import torch
 
 from .. import interop
+from ..config.topology import Topology
 from ..ops import disseminate as dsm
 from ..ops.state import REPLICATED_LEAVES
 from ..parallel import peer
 from ..parallel.sharding import (
     check_peer_mesh,
-    peer_mesh_later,
     reshard_rows,
     shard_simulation,
 )
@@ -148,6 +153,20 @@ def _op_publish(sim_id, device, row, t0_ms, size, with_fanout, censor):
     return _reply(grp, sim, result=fields, engine=engine)
 
 
+def _op_mix_relay(sim_id, device, origin, size, t0_ms):
+    """The mix relay on this rank's rows: (path delay, exit node), or the
+    degraded network's message (the handle raises MixDegradedError)."""
+    from .simulator import MixDegradedError
+
+    grp, sim = _RANK_SIMS[sim_id]
+    with peer.using(grp):
+        try:
+            delay, exit_node = sim._mix_relay(origin, size, t0_ms)
+        except MixDegradedError as e:
+            return _reply(grp, sim, degraded=str(e))
+    return _reply(grp, sim, degraded=None, relay=(delay, exit_node))
+
+
 def _op_set_subscribed(sim_id, device, mask):
     grp, sim = _RANK_SIMS[sim_id]
     with peer.using(grp):
@@ -196,7 +215,8 @@ def _op_drop(sim_id, device):
 
 _OPS = {"create": _op_create, "advance": _op_advance,
         "record_telemetry": _op_record_telemetry, "trials": _op_trials,
-        "publish": _op_publish, "set_subscribed": _op_set_subscribed,
+        "publish": _op_publish, "mix_relay": _op_mix_relay,
+        "set_subscribed": _op_set_subscribed,
         "rebind_graph": _op_rebind_graph, "reset": _op_reset,
         "get_state": _op_get_state, "set_state": _op_set_state,
         "drop": _op_drop}
@@ -214,7 +234,10 @@ def _rank_job(payload, device):
 class _MeshHandle:
     """What both handles share: the ranks, their calls and the state."""
 
-    def _start(self, mesh, kind: str, n_rows: int) -> None:
+    def _start(self, mesh, kind: str, n_rows: int, cfg=None,
+               topology=None) -> None:
+        """Have every rank build its rows of the experiment (`cfg` and
+        `topology`, the handle's own by default)."""
         self.mesh = check_peer_mesh(mesh)
         if n_rows % mesh.size != 0:
             raise ValueError(
@@ -224,8 +247,10 @@ class _MeshHandle:
         self.device = torch.device("cpu")
         self._id = f"{os.getpid()}-{next(_IDS)}"
         self._stats = [{} for _ in range(mesh.size)]
-        outs = self._call("create", [(kind, self.cfg, self.topology,
-                                      n_rows)] * mesh.size)
+        cfg = self.cfg if cfg is None else cfg
+        topology = self.topology if topology is None else topology
+        outs = self._call("create", [(kind, cfg, topology, n_rows)]
+                          * mesh.size)
         self.rank_rows = [o["rows"] for o in outs]
         self.rank_build_s = [o["seconds"] for o in outs]
         self.backend = outs[0]["backend"]
@@ -331,14 +356,20 @@ class ShardedSimulator(_MeshHandle, Simulator):
     """Simulator(cfg, mesh=) on a peer mesh (module doc)."""
 
     def __init__(self, cfg, topology=None, device=None, mesh=None):
-        self._configure(cfg, topology)
-        if self.mix_params is not None:
-            raise peer_mesh_later("the mix relay under a peer mesh")
+        cfg.topo.validate()
+        topology = topology or Topology.build(cfg.topo)
+        # the ranks build their rows while the handle builds its host side
+        # (each builds the same connection graph: at 1M peers a numpy build
+        # of 12-19 s, paid once in parallel rather than twice in a row)
+        with concurrent.futures.ThreadPoolExecutor(1) as ex:
+            ranks = ex.submit(self._start, mesh, "single",
+                              cfg.topo.network_size, cfg, topology)
+            self._configure(cfg, topology)
+            ranks.result()
         self._valid_edge = None
         self._t_ms = 0.0
         self._arrays_np = {"conns": self.graph.conns, "rev": self.graph.rev,
                            "out_mask": self.graph.out_mask}
-        self._start(mesh, "single", self.params.n)
 
     @property
     def arrays(self) -> dict:
@@ -353,6 +384,20 @@ class ShardedSimulator(_MeshHandle, Simulator):
 
     def _apply_subscribed(self, mask: np.ndarray) -> None:
         self._all("set_subscribed", mask)
+
+    def _mix_relay(self, origin: int, size: int, t0_ms: float):
+        """The mix relay on every rank (ops/mix.py on the ranks' rows):
+        (path delay, exit node), as one device gives them."""
+        from .simulator import MixDegradedError
+
+        outs = self._all("mix_relay", origin, size, t0_ms)
+        if outs[0]["degraded"] is not None:
+            raise MixDegradedError(outs[0]["degraded"])
+        relays = [o["relay"] for o in outs]
+        if any(r != relays[0] for r in relays[1:]):
+            raise RuntimeError(
+                f"the ranks disagree on the mix relay: {relays}")
+        return relays[0]
 
     def rebind_graph(self, conns, rev, out_mask) -> None:
         self._arrays_np = {

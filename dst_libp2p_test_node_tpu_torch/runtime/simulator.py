@@ -465,9 +465,10 @@ class Simulator:
     def _mix_relay(self, origin: int, size: int, t0_ms: float):
         """Relay one message through the mix network (occupancy-coupled);
         the exit node publishes on the origin's behalf. Returns (path
-        delay in ms as a Python float, exit node)."""
+        delay in ms as a Python float, exit node). On a rank of the peer
+        mesh every rank runs it on its rows (ops/mix.py)."""
         mp = self.mix_params
-        eligible = eligible_mix_count(_host(self.state.alive), origin,
+        eligible = eligible_mix_count(self.state.alive, origin,
                                       self.params.n, mp.num_mix)
         if eligible < mp.mix_d:
             raise MixDegradedError(
@@ -481,15 +482,16 @@ class Simulator:
             rx_free_ms=self.state.rx_free_ms, t0_ms=t0_ms)
         wire = float(mix_wire_bytes(mp, size))
         # per-hop bytes at both ends: senders are the origin and the first
-        # mix_d - 1 relays, receivers the mix_d relays (distinct ids)
+        # mix_d - 1 relays, receivers the mix_d relays (distinct ids, so
+        # each row gets one add: peer.add_rows)
         path = path.long()
         senders = torch.cat([torch.tensor([origin], device=self.device),
                              path[:-1]])
 
         def _add(x, idx):
-            return x.index_add(0, idx, torch.full(idx.shape, wire,
-                                                  dtype=x.dtype,
-                                                  device=x.device))
+            return peer.add_rows(x, idx, torch.full(idx.shape, wire,
+                                                    dtype=x.dtype,
+                                                    device=x.device))
 
         self.state = self.state.replace(
             key=key, bytes_tx=_add(self.state.bytes_tx, senders),

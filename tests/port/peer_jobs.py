@@ -70,3 +70,19 @@ def fused_chain(params, payload_bytes, hb_per_round, publishers, st, sh):
     rows = {k: peer.all_rows(getattr(res, k).transpose(0, 1).contiguous())
             .transpose(0, 1) for k in td.RESULT_ROWS}
     return head, (dataclasses.replace(res, **rows), obs)
+
+
+def rows_helpers(payload, device):
+    """peer.prefix_rows and peer.add_rows on this rank's rows of whole
+    arrays: (the prefixes gathered, this rank's rows after the add)."""
+    import torch.distributed as dist
+
+    x, idx, val, prefixes = payload
+    grp = peer.PeerGroup(dist.get_rank(), dist.get_world_size(),
+                         x.shape[0], device)
+    with peer.using(grp):
+        mine = torch.from_numpy(grp.local(x).copy())
+        got = [peer.prefix_rows(mine, m).numpy() for m in prefixes]
+        added = peer.add_rows(mine, torch.from_numpy(idx),
+                              torch.from_numpy(val))
+    return got, added.numpy(), dict(grp.stats)

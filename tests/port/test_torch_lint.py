@@ -4,7 +4,9 @@ contract engine) on the CPU: the golden GA-A005 fixtures
 rule and their clean twins pass; the reference's GA-A001-A004 fixtures
 trip nothing here (the port has no jitted scope); the report is the
 reference's byte for byte; the `lint` process exits nonzero on a bad
-fixture, 0 on the repo, and names the multi-GPU slice for its mesh flags.
+fixture, 0 on the repo (26 entry points), and its mesh flags give their
+blocks (--sharding: the sharding facts and the waived findings;
+--predict-rung and its --rung-* options: the rung certificate).
 And the registry drift gate, the twin of tests/test_registry_drift.py:
 every port module that calls a native kernel is reached from a registered
 contract or sits on an allowlist that must stay exact."""
@@ -103,19 +105,48 @@ def test_lint_process_is_clean_on_the_repo(tmp_path):
     assert proc.stdout == ""              # no finding, no annotation
     report = json.loads(out.read_text())
     assert report["clean"] is True
-    assert report["checked_entrypoints"] == 20
+    assert report["checked_entrypoints"] == 26
     assert report["checked_files"] > 50
 
 
-@pytest.mark.parametrize("flag", [["--sharding"], ["--predict-rung"],
-                                  ["--predict-rung", "4096"],
-                                  ["--rung-dcn", "2"],
-                                  ["--rung-scenario", "arena"],
-                                  ["--rung-out", "r.json"]])
-def test_mesh_flags_name_the_multi_gpu_slice(flag):
-    proc = _lint("--device", "cpu", "--no-ast", "--no-jaxpr", *flag)
-    assert proc.returncode == 2
-    assert "A13" in proc.stderr and flag[0] in proc.stderr
+@pytest.mark.parametrize("flag", [
+    ["--sharding", "--only", "campaign/attack_window_sharded"],
+    ["--predict-rung"], ["--predict-rung", "4096"],
+    ["--predict-rung", "--rung-dcn", "2"],
+    ["--predict-rung", "--rung-scenario", "arena"],
+    ["--predict-rung", "--rung-out", "RUNG_OUT"]])
+def test_mesh_flags_give_their_blocks(flag, tmp_path, monkeypatch):
+    from dst_libp2p_test_node_tpu_torch import cli
+    from dst_libp2p_test_node_tpu_torch.analysis import sharding_audit
+
+    # the rung fits at small points (each runs the window on 4 CPU ranks)
+    monkeypatch.setattr(sharding_audit, "RUNG_FIT_POINTS", (64, 128, 256))
+    flag = [str(tmp_path / "r.json") if x == "RUNG_OUT" else x
+            for x in flag]
+    out = tmp_path / "report.json"
+    assert cli.main(["lint", "--device", "cpu", "--no-ast", "--no-jaxpr",
+                     *flag, "--out", str(out)]) == 0
+    report = json.loads(out.read_text())
+    assert report["clean"] is True
+    if flag[0] == "--sharding":
+        assert report["checked_entrypoints"] == 1
+        assert list(report["sharding"]) == ["campaign/attack_window_sharded"]
+        assert [w["rule"] for w in report["waived"]] == ["GA-S001"] * 2
+        assert "rung_certificate" not in report
+        return
+    cert = report["rung_certificate"]
+    assert "sharding" not in report and "waived" not in report
+    assert cert["validation"]["within_10pct"]
+    assert [p["peers"] for p in cert["fit_points"]] == [64, 128, 256]
+    assert cert["rung"]["peers"] == (4096 if "4096" in flag else 1048576)
+    dcn = int(flag[flag.index("--rung-dcn") + 1]) if "--rung-dcn" in flag \
+        else 1
+    assert cert["rung"]["dcn"] == dcn and cert["rung"]["trials"] == 4 * dcn
+    assert cert["modeled_device"]["chips"] == 8 * dcn
+    assert cert["rung"]["scenario"] == (
+        "protocol_arena/episub" if "arena" in flag else "sybil_graft_flood")
+    if "--rung-out" in flag:
+        assert json.loads((tmp_path / "r.json").read_text()) == cert
 
 
 def test_lint_without_a_card_refuses_the_default_device():

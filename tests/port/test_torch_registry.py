@@ -4,8 +4,9 @@ built from the same seeds, run, and their outputs compared leaf by leaf,
 bitwise (integer, bool, gather and min leaves and every float leaf) apart
 from native/score_update's score, which the reference pins to rtol 1e-5 /
 atol 1e-6 (tests/test_score_kernel.py: an FMA the kernel may contract).
-The port's names are the reference's single-device names; the six mesh
-contracts are the multi-GPU slice's."""
+The port's names are the reference's: its 20 single-device contracts
+without rank pools, all 26 with them (the six mesh contracts,
+tests/port/test_torch_sharding_audit.py)."""
 
 import numpy as np
 import pytest
@@ -20,7 +21,7 @@ from dst_libp2p_test_node_tpu_torch.analysis.jaxpr_audit import (
 
 torch.set_num_threads(1)
 
-# the reference's contracts that need a device mesh (ROADMAP A13)
+# the reference's contracts that run on rank pools
 MESH_CONTRACTS = {
     "campaign/faulted_window_nested", "campaign/attack_window_sharded",
     "campaign/attack_window_nested", "campaign/attack_window_dcn",
@@ -38,13 +39,19 @@ def reference():
     return {c.name: c for c in jreg.default_contracts()}
 
 
-def test_port_names_are_the_references_single_device_names(reference):
+def test_port_names_are_the_references_single_device_names(reference,
+                                                           cpu_mesh,
+                                                           cpu_grid):
     assert MESH_CONTRACTS <= set(reference)
     assert set(PORT) == set(reference) - MESH_CONTRACTS
     assert len(PORT) == 20
     assert [c.name for c in treg.default_contracts("cpu")] == [
         c.name for c in jreg.default_contracts()
         if c.name not in MESH_CONTRACTS]
+    every = [c.name for c in treg.default_contracts(
+        "cpu", pool=cpu_mesh, grid=cpu_grid)]
+    assert len(every) == 26
+    assert every == [c.name for c in jreg.default_contracts()]
 
 
 @pytest.mark.parametrize("name", NAMES)
