@@ -156,7 +156,8 @@ not printed):
                save/load walls, launches (zeroed at the start of each run)
                and peak memory; fails unless bit_identical, batched sha =
                sequential sha, the queue bound held, 0 < shed rate < 1 and
-               both kernels launched. (c) `python -m
+               both kernels launched. (c), run before (b), its first
+               process spawned beside (a): `python -m
                dst_libp2p_test_node_tpu_torch serve` as a process at config
                4's width (PEERS=100000, FRAGMENTS=4, --warmup-s 60,
                --checkpoint, ports 0): /health and /ready, `inject` of 3 x
@@ -284,23 +285,24 @@ not printed):
                delays and state bytes, both walls. (d) `microbench
                --no-sweep --only disseminate/cold` as a process: its
                strict-JSON artifact (the cold publish's roofline and the
-               packed A/B at 100,000 peers), its wall (`lint` as a process
-               is 17(c)'s since phase 17 joined).
+               packed A/B at 100,000 peers), its wall (run beside 10(a);
+               `lint` as a process is 17(c)'s since phase 17 joined).
  14. the trial grid and the DCN campaign: (a) kad.evict_failed at
                max_fails 20 (the backoff through xlamath.exp2_f32) on a
                10,000-peer DHT table with its fail counters preset, on the
                card and on the CPU: every leaf bitwise. (b) 9(c)'s
                campaign again (a fresh checkpoint directory) on a trial
-               grid of two rank processes sharing the card: every trial
+               grid of two rank processes sharing the card (started
+               beside 12(a)): every trial
                field equal to 9(c)'s result (kept from phase 9, not
                rerun); the caller's launches (the benign cell) plus the
                ranks' equal to 9(c)'s, both kernels launched in each rank;
                prints trials/s both ways, each rank's start-up seconds and
                the card's idle share over the grid run (1 - nvidia-smi's
                utilization.gpu, sampled every 200 ms). (c)
-               scripts/dcn_campaign_torch.py at config 6's 2,048 peers:
-               two torch.distributed processes on the card, merged,
-               bit-identical to the single-process run.
+               scripts/dcn_campaign_torch.py at config 6's 2,048 peers
+               (run beside 7(a)): two torch.distributed processes on the
+               card, merged, bit-identical to the single-process run.
                (d) 9(b)'s `attack` process again with --trial-groups 0
                (one group on one card): its JSON equal to 9(b)'s outside
                the walls.
@@ -377,6 +379,25 @@ not printed):
                held-out point, its verdict and every leaf's argument fit
                equal to RUNG_1M_torch.json, and the modeled HBM equal to
                the card's total memory.
+ 18. the validity and service twins (scripts/*_torch.py) as processes
+               at their scripts' full shapes, in two groups: the Ethereum
+               anchors and the muxer table beside 3 and 3b(a), the
+               loss-mode A/B and the service-load twin beside 6(c) and
+               3c, each group waited for before the next timed part; the
+               checks come here. (a) eth_anchor (10,000 peers, 128 KB, 5
+               slots), attestation_anchor (10,000 peers, 600 B),
+               loss_modes_ab (seven runs at 1,000 peers) and
+               muxer_sensitivity (four runs at 100 peers), each with
+               --write: every key of the reference's committed artifact
+               (docs/VALIDITY_ANCHOR.json, VALIDITY_ANCHOR2.json,
+               LOSS_MODES.json; event_loop_calibration.json's
+               muxer_sensitivity) equal field for field, its "device" the
+               card; each run's launches counted from zero in its own
+               process, score_update launched in each anchor run. (b)
+               service_load_torch.py at its chaos shape (48 peers, one
+               injected failure, killed at tick 6, --no-http) on CUDA and
+               with --device cpu: exit 0 both times, bit_identical, the
+               simulation keys equal.
 
 Then one JSON line with every kernel's numbers: at 1M x 40 with
 `launches` from phase 4's config-5 run, under `exact` at 100k x 40 with
@@ -394,36 +415,30 @@ the ranks' sum, each rank's and the caller's), 15(b)'s mesh
 plain and library times and bound at a rank's shape), 16(b)'s
 campaign on the mesh (`campaign_mesh`: the ranks' sum and each rank's)
 and 17(b)'s config 5 on the mesh (`mix_mesh`: the ranks' sum, each
-rank's, and each kernel's times and bound at a rank's 500k x 40), and
+rank's, and each kernel's times and bound at a rank's 500k x 40),
+18(a)'s four twins (`validity`: their sum and each script's), and
 under
 `service` the 670k x 40 numbers with `launches` from 8(b)'s batched run
 (and its sequential run's). Then the total run time, and last the line
 {"ok": true, "device": {...}}. Without CUDA it exits 1 and prints no
 result; run alone, without the package beside it, it exits 2.
 
-Machine time: 898.8 and 899.5 s of run time in two runs on one H100 with
-phases 1-14, builds included (PERF.md), after 8(b) and 11(b)'s arena
-probe were cut to make room for phase 14; phase 8 took 108.3-110.4 s
-of it, phase 9 101.4-104.4 s, phase 10 145.3-151.3 s, phase 11
-60.0-61.9 s, phase 12 90.5-100.2 s, phase 13 56.9-61.4 s and phase 14
-59.7-60.7 s. With phase 15 (46.3 s alone, 59.3-69.0 s in the whole
-smoke) the whole smoke took 881.3-1,018.7 s in six runs on machines of
-different speed; with phase 16, 992.0-1,009.3 s. Phase 17 took
-65.9-78.5 s with its `lint` process in line. It is paid for by folding
-13(d)'s `lint` into 17(c) (one run of each contract serves both
-engines), cutting 13(d)'s `microbench` to the cold publish, building the
-mesh's host side beside its ranks, running 12(b) at seed 0 (seeds 0 and
-1 before), and starting the processes whose checks time nothing beside
-the CUDA = CPU checks, which time nothing either (side_start): beside
-9(a) 12(d)'s `trace`, 9(b)'s `attack` and 15(d)'s DCN smoke; beside
-10(a) 10(c)'s `attack` and `pareto`; beside 11(a) 11(c)'s `arena` and
-14(d)'s `attack --trial-groups 0`; beside 12(a) 17(c, d)'s `lint` and
-12(d)'s `conform`. Each is waited for before the next timed part, and
-its checks stay where the phase list above puts them. With only
-`trace`, `lint` (then beside 10(a)) and `conform` beside, the whole
-smoke took 981.4 and 1,206.1 s on two machines (PERF.md §5). Runs of the
-same work swing up to 23% between machines. Held to 1,100 s (ROADMAP,
-Budgets), inside the 20-minute limit.
+Machine time (PERF.md section 5 has every run): phases 1-17 took
+881.3-1,206.1 s over PRs 14-17 on machines whose speed differs by up to
+40%, and phase 18 made it 885.1-1,255.2 s. The smoke keeps inside its
+line by starting the processes whose checks time nothing beside the
+CUDA = CPU checks, which time nothing either (side_start), waiting for
+them before the next timed part and checking them where the phase list
+puts them: beside 3-3b(a) and 6(c)-3c phase 18's six; beside 7(a)
+14(c)'s DCN campaign; beside 8(a) 8(c)'s first `serve`; beside 9(a)
+12(d)'s `trace`, 9(b)'s `attack` and 15(d)'s DCN smoke; beside 10(a)
+10(c)'s `attack` and `pareto` and 13(d)'s `microbench`; beside 11(a)
+11(c)'s `arena` and 14(d)'s `attack --trial-groups 0`; beside 12(a)
+17(c, d)'s `lint`, 12(d)'s `conform` and 14(b)'s two ranks. Earlier cuts
+of depth: 8(b) at 5 ticks, 10(b), 11(b)'s arena and 12(b) at seed 0,
+13(d)'s `lint` folded into 17(c) and its `microbench` cut to the cold
+publish (PERF.md section 4). Held to 1,100 s (ROADMAP, Budgets), inside
+the 20-minute limit.
 """
 
 from __future__ import annotations
@@ -560,6 +575,31 @@ def side_wait(name):
     return done["proc"], done["wall"]
 
 
+@contextlib.contextmanager
+def shared_cores():
+    """Half this process's intra-op threads for a CUDA = CPU check that
+    side processes run beside: with all of them the check's CPU half ran
+    2-3x slower on the cores the side processes kept busy (PERF.md section
+    6). The CPU results are the same bytes at any thread count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(max(1, n // 2))
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+def side_join(tag, names, beside):
+    """Wait for the side processes `names` started beside the check
+    `beside`; prints how long the wait took beyond that check. Their
+    checks stay in their own phases."""
+    t0 = time.time()
+    for name in names:
+        side_wait(name)
+    print(f"[{tag}] waited {time.time() - t0:.1f} s for {', '.join(names)}"
+          f" after {beside}")
+
+
 def _kill_tree(pid):
     """SIGKILL `pid` and every process below it (a side process's rank
     processes too), read from /proc."""
@@ -583,11 +623,17 @@ def _kill_tree(pid):
 
 
 def side_stop():
-    """Kill every side process still running (after a failed phase)."""
+    """Kill every side process still running (after a failed phase), and
+    close 14(b)'s trial grid if it was started and not used."""
     for proc, thread, _ in _SIDE.values():
         if proc.poll() is None:
             _kill_tree(proc.pid)
         thread.join()
+    pool = _GRID14.pop("pool", None)
+    if pool is not None:
+        with contextlib.suppress(Exception):
+            _GRID14.pop("started").result()
+        pool.close()
 
 
 def cuda_ms(fn, iters=20):
@@ -1982,8 +2028,9 @@ def phase_idle(dev):
     sim.state = s0
     packed_publish(sim, cfg.publisher_id, rec, wall)
     packed_parity(dev)
-    print(f"[idle] at {FULL_N} peers: Simulator set-up (graph build, state, "
-          f"edge tables) {t1 - t0:.3f} s; warm-up of 5 heartbeats "
+    print(f"[idle] at {FULL_N} peers: Simulator set-up (state, edge tables "
+          f"and a copy of phase 4's connection graph from ops/graph.py's "
+          f"cache) {t1 - t0:.3f} s; warm-up of 5 heartbeats "
           f"{t2 - t1:.3f} s; one publish {first:.3f} s the first time, "
           f"{wall:.3f} s repeated from the same state, {wall_prof:.3f} s "
           f"under the profiler")
@@ -2385,18 +2432,28 @@ def _http(port, path, data=None, timeout=30):
         return resp.status, resp.read().decode()
 
 
-def _start_serve(args, log, env):
+def _spawn_serve(args, log, env):
     """`python -m dst_libp2p_test_node_tpu_torch serve` with its output in
-    `log`; waits for the line with its ports, then for /ready. Returns
-    (process, control port, metrics port, startup s)."""
-    import re
-
+    `log`; returns (process, log, spawn time) for _serve_up."""
     t0 = time.time()
     with open(log, "w") as out:
         proc = subprocess.Popen(
             [sys.executable, "-m", "dst_libp2p_test_node_tpu_torch", "serve",
              "--control-port", "0", "--metrics-port", "0", *args],
             cwd=ROOT, env=env, stdout=out, stderr=subprocess.STDOUT)
+    return proc, log, t0
+
+
+def _start_serve(args, log, env):
+    """_spawn_serve, then _serve_up."""
+    return _serve_up(*_spawn_serve(args, log, env))
+
+
+def _serve_up(proc, log, t0):
+    """Waits for a spawned serve's line with its ports, then for /ready.
+    Returns (process, control port, metrics port, s from spawn)."""
+    import re
+
     ports = None
     while time.time() - t0 < 300:
         if proc.poll() is not None:
@@ -2457,21 +2514,30 @@ def _stop_serve(proc, what):
     check(rc == 0, f"{what}: serve exited {rc} after SIGTERM")
 
 
-def phase_serve(dev):
-    """8(c): the `serve` process at config 4's width (100,000 peers, 4
-    fragments, a 60 s warm-up) with a checkpoint: /health and /ready,
-    `inject` of 3 x 15,000 B in one burst, the three families on /metrics,
-    SIGTERM (drain, final checkpoint, exit 0), then `serve --resume` from
-    that checkpoint answers /health and one more inject."""
+SERVE_CK = os.path.join(SCRATCH, "serve_ck.npz")
+
+
+def serve8c_start():
+    """8(c)'s first `serve` process, spawned early (beside 8(a)); returns
+    _spawn_serve's handle for phase_serve."""
     os.makedirs(SCRATCH, exist_ok=True)
-    ck = os.path.join(SCRATCH, "serve_ck.npz")
+    return _spawn_serve([*SERVE_FLAGS, "--checkpoint", SERVE_CK],
+                        os.path.join(SCRATCH, "serve1.log"),
+                        dict(os.environ, **SERVE_ENV))
+
+
+def phase_serve(dev, first):
+    """8(c): the `serve` process at config 4's width (100,000 peers, 4
+    fragments, a 60 s warm-up) with a checkpoint, spawned beside 8(a)
+    (`first`, serve8c_start's handle): /health and /ready, `inject` of 3
+    x 15,000 B in one burst, the three families on /metrics, SIGTERM
+    (drain, final checkpoint, exit 0), then `serve --resume` from that
+    checkpoint answers /health and one more inject."""
+    ck = SERVE_CK
     env = dict(os.environ, **SERVE_ENV)
-    procs = []
+    procs = [first[0]]
     try:
-        proc, cport, mport, up_s = _start_serve(
-            [*SERVE_FLAGS, "--checkpoint", ck],
-            os.path.join(SCRATCH, "serve1.log"), env)
-        procs.append(proc)
+        proc, cport, mport, up_s = _serve_up(*first)
         check(_http(cport, "/health") == (200, "ok"), "/health != ok")
         text, rc, inj_s = _inject(cport, 3, 3)
         check(rc == 0 and "published ok=3 failed=0" in text,
@@ -2483,7 +2549,8 @@ def phase_serve(dev):
         _stop_serve(proc, "serve")
         check(os.path.exists(ck), "serve left no final checkpoint")
         print(f"[serve] 8(c) PEERS={EXACT_N} FRAGMENTS=4 serve --warmup-s 60 "
-              f"--checkpoint: process start to /ready {up_s:.3f} s; inject "
+              f"--checkpoint: process start to /ready {up_s:.3f} s (started "
+              f"beside 8(a)); inject "
               f"3 x 15,000 B --burst 3: 3 replies of 200 in {inj_s:.3f} s, "
               f"all dispatched {disp_s:.3f} s later "
               f"({status['counters']['device_dispatches']} device "
@@ -2516,9 +2583,15 @@ def phase_serve(dev):
 
 def phase_8(dev):
     t0 = time.time()
-    phase_service_parity(dev)
+    first = serve8c_start()         # 8(c)'s first serve, beside 8(a)
+    try:
+        phase_service_parity(dev)
+    except BaseException:
+        first[0].kill()
+        first[0].wait()
+        raise
+    phase_serve(dev, first)         # before 8(b): the serve is up by now
     out = phase_service(dev)
-    phase_serve(dev)
     print(f"[service] phase 8 took {time.time() - t0:.1f} s")
     return out
 
@@ -2939,7 +3012,8 @@ def phase_9(dev):
     trace12d_start(dev)
     attack9b_start()
     dcn15d_start()
-    phase_campaign_parity(dev)
+    with shared_cores():
+        phase_campaign_parity(dev)
     for name in ("trace12d", "attack9b", "dcn15d"):
         side_wait(name)
     phase_config6(dev)
@@ -3276,10 +3350,12 @@ def phase_campaign10_cli(dev):
 def phase_10(dev):
     t0 = time.time()
     os.makedirs(SCRATCH, exist_ok=True)
-    campaign10_cli_start()          # 10(c)'s processes, beside 10(a)
-    phase_campaign10_parity(dev)
-    for name in ("attack10c", "pareto10c"):
-        side_wait(name)
+    campaign10_cli_start()          # 10(c)'s processes and 13(d)'s
+    microbench13d_start()           # microbench, beside 10(a)
+    with shared_cores():
+        phase_campaign10_parity(dev)
+    side_join("campaign10", ("attack10c", "pareto10c", "microbench13d"),
+              "10(a)")
     launches = phase_campaign10_full(dev)
     phase_campaign10_cli(dev)
     print(f"[campaign10] phase 10 took {time.time() - t0:.1f} s")
@@ -3634,7 +3710,8 @@ def phase_11(dev):
     os.makedirs(SCRATCH, exist_ok=True)
     arena11c_start()                # beside 11(a): 11(c)'s arena and
     grid14d_start()                 # 14(d)'s attack --trial-groups 0
-    phase_fused_arena_parity(dev)
+    with shared_cores():
+        phase_fused_arena_parity(dev)
     for name in ("arena11c", "grid14d"):
         side_wait(name)
     launches = phase_fused_arena_full(dev)
@@ -4096,13 +4173,15 @@ def phase_conformance_cli(dev, cert0):
 def phase_12(dev):
     t0 = time.time()
     os.makedirs(SCRATCH, exist_ok=True)
-    # beside 12(a): 17(c, d)'s lint and 12(d)'s conform
+    # beside 12(a): 17(c, d)'s lint, 12(d)'s conform and 14(b)'s ranks
     lint17_start()
     side_start("conform12d", port_cmd("conform", "--device", dev.type,
                                       "--out", CONFORM12D_OUT))
-    cert0 = phase_conformance_parity(dev)
-    for name in ("lint17", "conform12d"):
-        side_wait(name)
+    grid14_start(dev)
+    with shared_cores():
+        cert0 = phase_conformance_parity(dev)
+    side_join("conform", ("lint17", "conform12d"), "12(a)")
+    grid14_ready()
     launches = {"conformance_campaign": phase_conformance_campaign(dev,
                                                                    cert0)}
     launches["plan"] = phase_plan_full(dev)
@@ -4296,28 +4375,34 @@ def phase_tuned_publish(dev, table):
           f"gathers; delays and state the same bytes")
 
 
+MICROBENCH13D_JSON = os.path.join(SCRATCH, "microbench13d.json")
+
+
+def microbench13d_start():
+    """13(d)'s `microbench` process, started early (side_start, beside
+    10(a)) without a tuning table and with one intra-op thread."""
+    env = {k: v for k, v in os.environ.items() if k != "DST_TUNED_JSON"}
+    env["OMP_NUM_THREADS"] = "1"
+    side_start("microbench13d", port_cmd(
+        "microbench", "--no-sweep", "--only", "disseminate/cold", "--out",
+        MICROBENCH13D_JSON), env=env)
+
+
 def phase_tooling_cli(dev):
     """13(d): `microbench --no-sweep --only disseminate/cold` as a process
-    on the card: its strict-JSON artifact (the cold publish's roofline and
-    the packed A/B at 100,000 peers). 13(d)'s `lint` process is 17(c)'s
-    since phase 17 joined."""
-    env = {k: v for k, v in os.environ.items() if k != "DST_TUNED_JSON"}
-    art = os.path.join(SCRATCH, "microbench13d.json")
-    t0 = time.time()
-    proc = subprocess.run(
-        [sys.executable, "-m", "dst_libp2p_test_node_tpu_torch",
-         "microbench", "--no-sweep", "--only", "disseminate/cold", "--out",
-         art], cwd=ROOT, capture_output=True, text=True, timeout=600,
-        env=env)
-    wall = time.time() - t0
+    on the card (run beside 10(a)): its strict-JSON artifact (the cold
+    publish's roofline and the packed A/B at 100,000 peers). 13(d)'s
+    `lint` process is 17(c)'s since phase 17 joined."""
+    proc, wall = side_wait("microbench13d")
     check(proc.returncode == 0, f"13(d) microbench exited "
           f"{proc.returncode}: {proc.stdout[-1500:]} {proc.stderr[-1500:]}")
-    mb = _strict_json(art)
+    mb = _strict_json(MICROBENCH13D_JSON)
     check(sorted(mb["rooflines"]) == ["disseminate/cold"],
           f"13(d) microbench rooflines {sorted(mb['rooflines'])}")
     ab = mb["packed_state_ab"]
     print(f"[tooling] 13(d) microbench --no-sweep --only disseminate/cold: "
-          f"exit 0 in {wall:.1f} s on {mb['device_name']}; packed A/B "
+          f"exit 0 in {wall:.1f} s beside 10(a) on {mb['device_name']}; "
+          f"packed A/B "
           f"at {ab['n_peers']} peers: off {ab['publish_off_s']:.4f} s, on "
           f"{ab['publish_on_s']:.4f} s, receiver side {ab['receiver_side']},"
           f" op logs identical {ab['op_log_identical']}, launch logs "
@@ -4429,20 +4514,43 @@ class _UtilSampler:
         return 1.0 - sum(self.samples) / len(self.samples) / 100.0
 
 
+# 14(b)'s trial grid, its ranks started beside 12(a) (grid14_start)
+_GRID14: dict = {}
+
+
+def grid14_start(dev):
+    """Open 14(b)'s trial grid of two ranks on the card and start its
+    ranks in a thread, beside 12(a); grid14_ready joins the start before
+    the next timed part. The ranks then wait idle for 14(b)."""
+    from dst_libp2p_test_node_tpu_torch.parallel.ranks import RankPool
+    from dst_libp2p_test_node_tpu_torch.parallel.sharding import (
+        make_trial_mesh)
+
+    pool = RankPool(make_trial_mesh(devices=[dev, dev]).group_devices)
+    ex = concurrent.futures.ThreadPoolExecutor(1)
+    _GRID14.update(pool=pool, started=ex.submit(pool.start))
+    ex.shutdown(wait=False)
+
+
+def grid14_ready():
+    """Wait for 14(b)'s ranks to report ready (grid14_start)."""
+    t0 = time.time()
+    _GRID14["started"].result()
+    print(f"[grid] waited {time.time() - t0:.1f} s for 14(b)'s ranks after "
+          f"12(a)")
+
+
 def phase_grid(dev, res9c, launches9c):
     """14(b): 9(c)'s static-flood campaign (100k peers x 4 fragments,
     fractions 0 / 0.1, seeds 0 and 1, 20 + 10 heartbeats, recorder and
     checkpoints on, a fresh directory) with a trial grid of two ranks
-    sharing the card: every trial field equal to 9(c)'s result outside
-    the walls; the ranks' launches plus the caller's (the benign cell)
-    equal to 9(c)'s, both kernels launched in each rank. Prints trials/s
-    both ways, each rank's start-up seconds and the card's idle share over
-    the grid run. Returns the launches."""
+    sharing the card (started beside 12(a)): every trial field equal to
+    9(c)'s result outside the walls; the ranks' launches plus the
+    caller's (the benign cell) equal to 9(c)'s, both kernels launched in
+    each rank. Prints trials/s both ways, each rank's start-up seconds
+    and the card's idle share over the grid run. Returns the launches."""
     from dst_libp2p_test_node_tpu_torch.native import score_update as su
     from dst_libp2p_test_node_tpu_torch.native import vmem_gather as vg
-    from dst_libp2p_test_node_tpu_torch.parallel.ranks import RankPool
-    from dst_libp2p_test_node_tpu_torch.parallel.sharding import (
-        make_trial_mesh)
     from dst_libp2p_test_node_tpu_torch.runtime.campaign import run_campaign
 
     ck = os.path.join(SCRATCH, "grid14")
@@ -4450,8 +4558,8 @@ def phase_grid(dev, res9c, launches9c):
     cfg = _campaign_cfg(CAMP_FULL_N, "sybil_graft_flood", (0.0, 0.1),
                         (0, 1), 20, EXACT_WARMUP_S, msg_size=15000, frags=4,
                         recovery=10, ckpt=ck)
-    grid = make_trial_mesh(devices=[dev, dev])
-    with RankPool(grid.group_devices) as pool:
+    _GRID14.pop("started").result()
+    with _GRID14.pop("pool") as pool:
         torch.cuda.synchronize()
         vg.launches = 0
         su.launches = 0
@@ -4479,7 +4587,8 @@ def phase_grid(dev, res9c, launches9c):
           f"every trial field = 9(c)'s; trials_per_s {res.trials_per_s:.4f} "
           f"(wall_s {res.wall_s:.3f}) against 9(c)'s "
           f"{res9c.trials_per_s:.4f} (wall_s {res9c.wall_s:.3f}); rank "
-          f"start-up {', '.join(f'{x:.1f}' for x in startup)} s, rank job "
+          f"start-up {', '.join(f'{x:.1f}' for x in startup)} s (beside "
+          f"12(a)), rank job "
           f"{', '.join(f'{x:.1f}' for x in rank_s)} s; launches caller "
           f"{caller} + ranks {per_rank} = 9(c)'s {launches9c}; card idle "
           f"share {util.idle_share:.4f} over {len(util.samples)} samples "
@@ -4491,22 +4600,31 @@ def phase_grid(dev, res9c, launches9c):
     return {"caller": caller, "ranks": ranks, "per_rank": per_rank}
 
 
+DCN14_JSON = os.path.join(SCRATCH, "dcn14.json")
+
+
+def dcn14_start():
+    """14(c)'s scripts/dcn_campaign_torch.py, started early (side_start,
+    beside 7(a)) with one intra-op thread a process: the merged and the
+    single-process runs it compares both run under that setting."""
+    os.makedirs(SCRATCH, exist_ok=True)
+    side_start("dcn14", [
+        sys.executable, os.path.join(ROOT, "scripts",
+                                     "dcn_campaign_torch.py"),
+        "--n", str(CAMP6_N), "--seeds", "2", "--workdir",
+        os.path.join(SCRATCH, "dcn14"), "--out", DCN14_JSON, "--timeout",
+        "600"], env=dict(os.environ, OMP_NUM_THREADS="1"), timeout=900)
+
+
 def phase_dcn(dev):
-    """14(c): scripts/dcn_campaign_torch.py at config 6's 2,048 peers: two
-    torch.distributed processes on the card, each on its own one-group
-    grid, merged, against the single-process campaign (the same seeds):
-    bit_identical, and both walls."""
-    out = os.path.join(SCRATCH, "dcn14.json")
-    t0 = time.time()
-    proc = subprocess.run(
-        [sys.executable, os.path.join(ROOT, "scripts",
-                                      "dcn_campaign_torch.py"),
-         "--n", str(CAMP6_N), "--seeds", "2", "--workdir",
-         os.path.join(SCRATCH, "dcn14"), "--out", out, "--timeout", "600"],
-        cwd=ROOT, capture_output=True, text=True, timeout=900)
+    """14(c): scripts/dcn_campaign_torch.py at config 6's 2,048 peers (run
+    beside 7(a)): two torch.distributed processes on the card, each on
+    its own one-group grid, merged, against the single-process campaign
+    (the same seeds): bit_identical, and both walls."""
+    proc, wall = side_wait("dcn14")
     check(proc.returncode == 0, f"14(c) dcn_campaign_torch exited "
           f"{proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
-    with open(out) as f:
+    with open(DCN14_JSON) as f:
         r = json.load(f)
     check(r["bit_identical"] is True and r["trials"] == 4,
           f"14(c) DCN campaign: {r}")
@@ -4515,7 +4633,7 @@ def phase_dcn(dev):
           f"merged = single-process outside the walls ({r['trials']} "
           f"trials); dcn {r['dcn_trials_per_s']:.4f} trials/s (wall "
           f"{r['dcn_wall_s']:.3f} s), single {r['single_trials_per_s']:.4f} "
-          f"(wall {r['single_wall_s']:.3f} s) ({time.time() - t0:.1f} s)")
+          f"(wall {r['single_wall_s']:.3f} s) ({wall:.1f} s beside 7(a))")
 
 
 GRID14D_JSON = os.path.join(SCRATCH, "camp6_grid.json")
@@ -5335,6 +5453,157 @@ def phase_17(dev, mesh, main5):
             "per_rank": launches, "timed": timed}
 
 
+# ---------------------------------------------------------------- phase 18
+
+# 18(a): the validity twins at their scripts' full shapes, each against
+# the reference's committed artifact: (twin script, artifact under docs/,
+# the keys compared; None = every key of the artifact)
+VALIDITY18 = (
+    ("eth_anchor_torch.py", "VALIDITY_ANCHOR.json", None),
+    ("attestation_anchor_torch.py", "VALIDITY_ANCHOR2.json", None),
+    ("loss_modes_ab_torch.py", "LOSS_MODES.json", None),
+    ("muxer_sensitivity_torch.py", "event_loop_calibration.json",
+     ("muxer_sensitivity",)),
+)
+# the twins whose every run is benign gossip with heartbeats: each advance
+# reaches score_update
+ANCHORS18 = ("eth_anchor_torch.py", "attestation_anchor_torch.py")
+# 18(b): scripts/service_load_torch.py at its docstring's chaos shape
+SVC18_ARGS = ("--peers", "48", "--subnets", "2", "--ticks", "12",
+              "--per-tick", "4", "--max-batch", "2", "--queue-depth", "4",
+              "--inject-failures", "1", "--retry-backoff-s", "0",
+              "--kill-at-tick", "6", "--checkpoint-every", "2", "--no-http")
+# the report's keys that come from the simulation and the admission
+# sequence (tests/port/test_torch_traffic.py's _SIM_KEYS)
+SVC18_SIM_KEYS = ("config", "offered", "admitted", "rejected",
+                  "shed_deadline", "dispatched", "quarantined", "retries",
+                  "batch_splits", "device_dispatches", "degraded",
+                  "shed_rate", "max_depth_seen", "queue_bound_held",
+                  "records_sha", "scrape", "kill")
+
+
+def _out18(name):
+    return os.path.join(SCRATCH, f"validity18_{name}")
+
+
+def _cmds18():
+    """Phase 18's six processes by name: the four validity twins with
+    --write into the scratch directory, and the service-load twin on CUDA
+    and with --device cpu."""
+    cmds = {script: [sys.executable, os.path.join(ROOT, "scripts", script),
+                     "--write", _out18(script + ".json")]
+            for script, _artifact, _keys in VALIDITY18}
+    for dev in ("cuda", "cpu"):
+        cmds[f"service_load_torch.py/{dev}"] = [
+            sys.executable, os.path.join(ROOT, "scripts",
+                                         "service_load_torch.py"),
+            *SVC18_ARGS, "--device", dev,
+            "--checkpoint", _out18(f"svc_{dev}.npz"),
+            "--json", _out18(f"svc_{dev}.json")]
+    return cmds
+
+
+# phase 18's processes in two groups, each started beside a CUDA = CPU
+# check that times nothing and waited for before the next timed part:
+# beside 3 and 3b(a), and beside 6(c) and 3c
+VALIDITY18_A = ("eth_anchor_torch.py", "attestation_anchor_torch.py",
+                "muxer_sensitivity_torch.py")
+VALIDITY18_B = ("loss_modes_ab_torch.py", "service_load_torch.py/cuda",
+                "service_load_torch.py/cpu")
+
+
+def validity18_start(names):
+    """Start phase 18's processes `names` (side_start), each with one
+    intra-op thread: with torch's default of one a core, six processes
+    oversubscribed the cores of the check they run beside."""
+    os.makedirs(SCRATCH, exist_ok=True)
+    cmds = _cmds18()
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    for name in names:
+        side_start(name, cmds[name], env=env)
+
+
+def validity18_wait(names):
+    """Wait for phase 18's processes `names`; prints how long the wait
+    took beyond the check they ran beside. Their checks are phase 18's."""
+    side_join("validity", names, "the check they ran beside")
+
+
+def _validity18(card):
+    """18(a): every compared key of each twin's artifact equal to the
+    reference's committed artifact, its device the card; launches by
+    script, score_update launched in each anchor run."""
+    launches, walls = {}, {}
+    for script, artifact, keys in VALIDITY18:
+        proc, walls[script] = side_wait(script)
+        check(proc.returncode == 0, f"18(a) {script} exited "
+              f"{proc.returncode}: {proc.stdout[-1500:]} "
+              f"{proc.stderr[-3000:]}")
+        got = _strict_json(_out18(script + ".json"))
+        with open(os.path.join(ROOT, "docs", artifact)) as f:
+            want = json.load(f)
+        keys = tuple(want) if keys is None else keys
+        check(set(got) == {*keys, "device"}, f"18(a) {script}: keys "
+              f"{sorted(got)} against {sorted(keys)} and device")
+        for k in keys:
+            check(got[k] == want[k], f"18(a) {script}: {k} {got[k]} != "
+                  f"docs/{artifact}'s {want[k]}")
+        check(got["device"] == card, f"18(a) {script}: device "
+              f"{got['device']!r}, not {card!r}")
+        launches[script] = json.loads(
+            proc.stderr.strip().splitlines()[-1])["launches"]
+        if script in ANCHORS18:
+            check(launches[script]["score_update"] > 0,
+                  f"18(a) {script}: score_update never launched")
+        summary = (got["ours"] if "ours" in got else
+                   [(r.get("loss_mode", r.get("muxer")), r["coverage"],
+                     r["p50_ms"], r["p99_ms"])
+                    for r in (got["runs"] if "runs" in got else
+                              got["muxer_sensitivity"]["runs"])])
+        print(f"[validity] 18(a) {script}: exit 0 in {walls[script]:.1f} s; "
+              f"{', '.join(keys)} equal to docs/{artifact}; launches "
+              f"{launches[script]}; {summary}")
+    return launches, walls
+
+
+def _service18():
+    """18(b): the service-load twin on CUDA and on the CPU: exit 0 both
+    times, bit_identical true, the simulation keys equal."""
+    outs, walls = {}, {}
+    for dev in ("cuda", "cpu"):
+        proc, walls[dev] = side_wait(f"service_load_torch.py/{dev}")
+        check(proc.returncode == 0, f"18(b) service_load_torch.py --device "
+              f"{dev} exited {proc.returncode}: {proc.stdout[-1500:]} "
+              f"{proc.stderr[-3000:]}")
+        outs[dev] = _strict_json(_out18(f"svc_{dev}.json"))
+        check(outs[dev]["kill"]["bit_identical"] is True,
+              f"18(b) --device {dev}: kill.bit_identical "
+              f"{outs[dev]['kill']['bit_identical']}")
+    differ = [k for k in SVC18_SIM_KEYS
+              if outs["cuda"][k] != outs["cpu"][k]]
+    check(not differ, f"18(b) service_load_torch.py: {differ} differ "
+          f"between CUDA and the CPU")
+    c = outs["cuda"]
+    print(f"[validity] 18(b) service_load_torch.py at 48 peers, killed at "
+          f"tick 6: exit 0 on CUDA ({walls['cuda']:.1f} s) and the CPU "
+          f"({walls['cpu']:.1f} s), bit_identical on both, the simulation "
+          f"keys equal; records sha {c['records_sha']}, {c['dispatched']} "
+          f"dispatched, shed rate {c['shed_rate']:.4f}")
+    return walls
+
+
+def phase_18(card):
+    """Phase 18's checks, on its processes (started and waited for by
+    validity18_start / validity18_wait beside 3-3b(a) and 6(c)-3c)."""
+    launches, walls = _validity18(card)
+    walls.update({f"service_load_torch.py/{k}": v
+                  for k, v in _service18().items()})
+    print(f"[validity] phase 18: process walls "
+          f"{ {k: round(v, 1) for k, v in walls.items()} }")
+    return {k: {s: n[k] for s, n in launches.items()}
+            for k in ("vmem_gather", "score_update")}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -5349,14 +5618,20 @@ def main() -> int:
     try:
         card = phase_build()
         kernels = phase_kernels(dev)
-        phase_parity(dev)
-        phase_exact_parity(dev)
+        validity18_start(VALIDITY18_A)
+        with shared_cores():
+            phase_parity(dev)
+            phase_exact_parity(dev)
+        validity18_wait(VALIDITY18_A)
         launches_exact, lossless = phase_config4(dev, "exact", EXACT_ARGS)
         phase_exact_idle(dev)
         launches_batch = phase_batch(dev)
         launches_resume = phase_resume(dev)
-        phase_resume_parity(dev)
-        phase_lossy_parity(dev)
+        validity18_start(VALIDITY18_B)
+        with shared_cores():
+            phase_resume_parity(dev)
+            phase_lossy_parity(dev)
+        validity18_wait(VALIDITY18_B)
         launches_lossy, lossy = phase_config4(
             dev, "lossy", LOSSY_ARGS, LOSSY_ENV, lossless, TcpDraws())
         phase_c2(dev, lossless, lossy)
@@ -5365,7 +5640,10 @@ def main() -> int:
         launches, main5 = phase_main(dev)
         launches_warm = phase_warm_twin(dev, main5)
         phase_idle(dev)
-        phase_roles_parity(dev)
+        dcn14_start()               # 14(c)'s process, beside 7(a)
+        with shared_cores():
+            phase_roles_parity(dev)
+        side_join("roles", ("dcn14",), "7(a)")
         launches_roles = phase_roles(dev)
         service = phase_8(dev)
         launches_campaign, res9c, peak9c = phase_9(dev)
@@ -5379,6 +5657,7 @@ def main() -> int:
             launches15 = phase_15(dev, mesh, lossless, launches_exact)
             launches16 = phase_16(dev, mesh, res9c, peak9c)
             launches17 = phase_17(dev, mesh, main5)
+        launches18 = phase_18(card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -5420,6 +5699,8 @@ def main() -> int:
                      launches17["timed"][k],
                      launches=launches17["ranks"][k],
                      rank_launches=[r[k] for r in launches17["per_rank"]]),
+                 validity=dict(launches=sum(launches18[k].values()),
+                               script_launches=launches18[k]),
                  service=dict(
                      v["service"],
                      launches=service["batched"]["launches"][k],

@@ -64,6 +64,8 @@ import traceback
 import numpy as np
 import torch
 
+from ..native import launch_counts
+
 # seconds a rank may take to start, or to answer one job
 RANK_DEADLINE_S = 3600.0
 
@@ -128,13 +130,6 @@ def _array_bytes(tree) -> int:
     return 0
 
 
-def _launch_counts() -> dict:
-    from ..native import score_update, vmem_gather
-
-    return {"vmem_gather": vmem_gather.launches,
-            "score_update": score_update.launches}
-
-
 def _rank_main(rank: int, world: int, device: str, store_path: str,
                threads, conn, t_spawn: float, deadline_s: float,
                backend: str = "gloo", peer_width: int = 1) -> None:
@@ -172,7 +167,7 @@ def _rank_main(rank: int, world: int, device: str, store_path: str,
             if payload is None:
                 conn.send((True, None))
                 continue
-            before = _launch_counts()
+            before = launch_counts()
             held = ledger()
             measure = measure and dev.type == "cuda"
             if measure:
@@ -194,7 +189,7 @@ def _rank_main(rank: int, world: int, device: str, store_path: str,
             finally:
                 if measure:
                     gc.enable()
-            after = _launch_counts()
+            after = launch_counts()
             conn.send((True, {
                 "result": out, "seconds": time.perf_counter() - t0,
                 "launches": {k: after[k] - before[k] for k in after},

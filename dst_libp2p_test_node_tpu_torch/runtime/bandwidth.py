@@ -73,38 +73,35 @@ def _data_pkts(data_bytes: np.ndarray) -> np.ndarray:
 def shadowlog_lines(traffic: PeerTraffic, sim_time: str = "00:15:00") -> list[str]:
     """One cumulative '[node]' heartbeat line per peer, field-compatible with
     summary_shadowlog.awk ($5 peer, $9 '[node]', $10 counters)."""
-    out = []
+    return [ln for chunk in shadowlog_chunks(traffic, sim_time) for ln in chunk]
+
+
+def shadowlog_chunks(traffic: PeerTraffic, sim_time: str = "00:15:00",
+                     rows: int = 1 << 16):
+    """shadowlog_lines in lists of at most `rows` lines. Each counter is
+    computed over the whole chunk in the input's dtype and truncated as
+    int() truncates it; one %-template renders a line."""
+    # the two localhost blocks are all zeros; a remote block is pkt, bytes,
+    # ctrl_pkt, ctrl_hdr_bytes, 0, 0, data_pkt, data_hdr_bytes, data_bytes,
+    # 0, 0, 0. $10 split on ",|;": arr[1]=tag, arr[2]=rx, arr[3]=tx,
+    # arr[4..6] pad, arr[7..54] the four flag blocks
+    block = "%d,%d,%d,%d,0,0,%d,%d,%d,0,0,0"
+    head = f"{sim_time} [shadow] {sim_time} [INFO] pod-".replace("%", "%%")
+    tmpl = (head + "%d n/a shadow heartbeat [node] heartbeat;%d,%d,0,0,0;"
+            + ",".join(["0"] * (2 * _FLAG_BLOCK)) + "," + block + ","
+            + block)
     n = traffic.rx_bytes.shape[0]
-    for i in range(n):
-        rx = traffic.rx_bytes[i]
-        tx = traffic.tx_bytes[i]
-        crx, ctx = traffic.ctrl_rx[i], traffic.ctrl_tx[i]
-        d_in_pkt = _data_pkts(rx)
-        d_out_pkt = _data_pkts(tx)
-        blocks = []
-        blocks.append([0] * _FLAG_BLOCK)  # inbound-localhost
-        blocks.append([0] * _FLAG_BLOCK)  # outbound-localhost
-        for pkt, byt, ctrl in ((d_in_pkt, rx, crx), (d_out_pkt, tx, ctx)):
-            b = [0] * _FLAG_BLOCK
-            b[0] = int(pkt + ctrl)                      # pkt
-            b[1] = int(byt + ctrl * CTRL_PKT_BYTES)     # bytes
-            b[2] = int(ctrl)                            # ctrl_pkt
-            b[3] = int(ctrl * HDR_BYTES)                # ctrl_hdr_bytes
-            b[6] = int(pkt)                             # data_pkt
-            b[7] = int(pkt * HDR_BYTES)                 # data_hdr_bytes
-            b[8] = int(byt)                             # data_bytes
-            blocks.append(b)
-        flags = ",".join(str(v) for b in blocks for v in b)
-        rx_tot = int(rx + crx * CTRL_PKT_BYTES)
-        tx_tot = int(tx + ctx * CTRL_PKT_BYTES)
-        # $10 split on ",|;": arr[1]=tag, arr[2]=rx, arr[3]=tx,
-        # arr[4..6] pad, arr[7..54] the four flag blocks
-        stats = f"heartbeat;{rx_tot},{tx_tot},0,0,0;{flags}"
-        out.append(
-            f"{sim_time} [shadow] {sim_time} [INFO] pod-{i} n/a shadow "
-            f"heartbeat [node] {stats}"
-        )
-    return out
+    for lo in range(0, n, rows):
+        sl = slice(lo, min(lo + rows, n))
+        rx, tx = traffic.rx_bytes[sl], traffic.tx_bytes[sl]
+        crx, ctx = traffic.ctrl_rx[sl], traffic.ctrl_tx[sl]
+        cols = [rx + crx * CTRL_PKT_BYTES, tx + ctx * CTRL_PKT_BYTES]
+        for byt, ctrl in ((rx, crx), (tx, ctx)):
+            pkt = _data_pkts(byt)
+            cols += [pkt + ctrl, byt + ctrl * CTRL_PKT_BYTES, ctrl,
+                     ctrl * HDR_BYTES, pkt, pkt * HDR_BYTES, byt]
+        vals = np.stack([c.astype(np.int64) for c in cols], axis=1).tolist()
+        yield [tmpl % (lo + i, *v) for i, v in enumerate(vals)]
 
 
 @dataclass

@@ -84,6 +84,10 @@ class LatenciesWriter:
         np.add.at(self._lines, peer_ids, 1)
         self._chunks.append((int(msg_id), peer_ids, np.stack([linenos, delays])))
 
+    def blocks(self):
+        """(msg_id, peer ids, delays ms) of each message, in file order."""
+        return [(msg_id, peers, ld[1]) for msg_id, peers, ld in self._chunks]
+
     def write(self, path: str) -> int:
         """Returns the number of lines written."""
         total = 0

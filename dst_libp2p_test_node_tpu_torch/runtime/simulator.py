@@ -30,7 +30,6 @@ records, latencies and summaries come out in the one-device layout.
 
 from __future__ import annotations
 
-import io
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -49,7 +48,7 @@ from ..ops.pull import neighbor_pull_bool
 from ..ops.state import SimParams, graph_arrays, init_state
 from ..parallel import peer
 from .logemit import LatenciesWriter
-from .summarize import LatencySummary, report, summarize
+from .summarize import LatencySummary, report, summarize_blocks
 
 # per-hop processing cost by muxer: event-loop crossings x 0.2 ms each (the
 # reference derives both numbers, runtime/simulator.py:37-67)
@@ -542,9 +541,8 @@ class Simulator:
     def summary(self, large: bool | None = None) -> LatencySummary:
         if large is None:
             large = self.cfg.topo.msg_size_bytes >= 1000
-        buf = io.StringIO()
-        self.latencies_writer().write_to(buf)
-        return summarize(buf.getvalue().splitlines(), large=large)
+        return summarize_blocks(self.latencies_writer().blocks(),
+                                large=large)
 
     def summary_report(self) -> str:
         large = self.cfg.topo.msg_size_bytes >= 1000
@@ -557,13 +555,14 @@ class Simulator:
 
     def write_shadowlog(self, path: str) -> int:
         """Shadow-heartbeat-shaped '[node]' lines (summary_shadowlog.awk)."""
-        from .bandwidth import shadowlog_lines
+        from .bandwidth import shadowlog_chunks
 
-        lines = shadowlog_lines(self.traffic())
+        n = 0
         with open(path, "w") as f:
-            for ln in lines:
-                f.write(ln + "\n")
-        return len(lines)
+            for chunk in shadowlog_chunks(self.traffic()):
+                f.write("".join(ln + "\n" for ln in chunk))
+                n += len(chunk)
+        return n
 
     def bandwidth_report(self) -> str:
         from .bandwidth import report as bw_report

@@ -24,6 +24,8 @@ import math
 import re
 from dataclasses import dataclass, field
 
+import numpy as np
+
 HOP_LAT_MS = 100  # "should be consistent with shadow.yaml" (summary_latency.awk:8)
 
 
@@ -144,6 +146,55 @@ def summarize(lines, large: bool = False) -> LatencySummary:
         total_messages=len(messages),
         max_latency_ms=max(delays),
         avg_latency_ms=sum(delays) / total_lines,  # awk divides by NR
+        messages=messages,
+        avg_max_latency_ms=avg_max,
+    )
+
+
+def summarize_blocks(blocks, large: bool = False) -> LatencySummary:
+    """summarize() of the latencies lines that (msg_id, peer_ids,
+    delays_ms) blocks render to, in file order (LatenciesWriter.blocks),
+    computed on the arrays: every such line parses, so the rows are the
+    blocks' own, and each number is reached by the same integer sums,
+    roundings and first-seen dict orders as summarize's."""
+    blocks = [(int(m) & 0xFFFFFFFFFFFFFFFF, np.asarray(p, dtype=np.int64),
+               np.asarray(d, dtype=np.int64)) for m, p, d in blocks]
+    blocks = [b for b in blocks if len(b[1])]
+    if not blocks:
+        return LatencySummary(0, 0, 0, 0.0, [], 0.0)
+    delays = np.concatenate([d for _, _, d in blocks])
+    by_msg: dict[int, list[np.ndarray]] = {}
+    for mid, _, d in blocks:
+        by_msg.setdefault(mid, []).append(d)
+
+    messages = []
+    for mid, parts in by_msg.items():
+        ds = np.concatenate(parts)
+        if large:
+            # int(d / HOP_LAT_MS + 0.5): float64 division, then truncation
+            src = ((ds / HOP_LAT_MS + 0.5).astype(np.int64)) * HOP_LAT_MS
+        else:
+            src = ds
+        buckets, first, counts = np.unique(src // HOP_LAT_MS,
+                                           return_index=True,
+                                           return_counts=True)
+        order = np.argsort(first, kind="stable")
+        messages.append(
+            MessageSummary(
+                msg_id=mid,
+                avg_latency_ms=int(src.sum()) / len(src),
+                received=len(ds),
+                max_latency_ms=int(ds.max()),
+                spread={int(buckets[i]): int(counts[i]) for i in order},
+            )
+        )
+
+    avg_max = sum(m.max_latency_ms for m in messages) / len(messages)
+    return LatencySummary(
+        network_size=max(int(p.max()) for _, p, _ in blocks),
+        total_messages=len(messages),
+        max_latency_ms=int(delays.max()),
+        avg_latency_ms=int(delays.sum()) / len(delays),
         messages=messages,
         avg_max_latency_ms=avg_max,
     )

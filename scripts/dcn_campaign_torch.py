@@ -75,6 +75,8 @@ def _devices(args, count: int) -> list[str]:
 
 
 def worker(args) -> None:
+    import torch.distributed as dist
+
     from dst_libp2p_test_node_tpu_torch.parallel.sharding import (
         initialize_multihost, make_dcn_mesh)
     from dst_libp2p_test_node_tpu_torch.runtime.campaign import run_campaign
@@ -89,6 +91,10 @@ def worker(args) -> None:
     mesh = make_dcn_mesh(trial_groups=args.groups, devices=devs)
     cfg = _campaign_cfg(args, os.path.join(args.workdir, "dcn"))
     res = run_campaign(cfg, dcn=mesh, device=devs[0])
+    # both workers leave the group together: a gloo group torn down at
+    # interpreter exit while the other worker still runs can abort it
+    dist.barrier()
+    dist.destroy_process_group()
     print(f"worker {args.worker}: trials={len(res.trials)} "
           f"wall={res.wall_s:.2f}s merged OK", flush=True)
 

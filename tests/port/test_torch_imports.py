@@ -13,10 +13,12 @@ analysis.contracts, analysis.registry, analysis.report,
 analysis.ast_lint, analysis.jaxpr_audit and runtime.microbench, and
 the trial grid's parallel.sharding and parallel.ranks, and the peer
 mesh's parallel.peer and runtime.sharded named), chip_smoke.py
-and the port's scripts (scripts/dcn_smoke_torch.py and
-scripts/dcn_campaign_torch.py; the shell twins run the port's package
-only) import in a fresh interpreter where `import jax` and `import flax`
-fail."""
+and the port's scripts (scripts/dcn_smoke_torch.py,
+scripts/dcn_campaign_torch.py and the validity, calibration and service
+twins scripts/{attestation_anchor,eth_anchor,loss_modes_ab,
+muxer_sensitivity,service_load}_torch.py; the shell twins run the port's
+package only) import in a fresh interpreter where `import jax` and
+`import flax` fail."""
 
 import os
 import subprocess
@@ -24,6 +26,10 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
+SCRIPTS = ("dcn_smoke_torch.py", "dcn_campaign_torch.py",
+           "attestation_anchor_torch.py", "eth_anchor_torch.py",
+           "loss_modes_ab_torch.py", "muxer_sensitivity_torch.py",
+           "service_load_torch.py")
 
 _PROBE = r"""
 import importlib, os, pkgutil, sys
@@ -37,7 +43,7 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 import runpy
-for script in ("dcn_smoke_torch.py", "dcn_campaign_torch.py"):
+for script in sys.argv[1:]:
     runpy.run_path(os.path.join("scripts", script), run_name="probe")
 bad = sorted(m for m in sys.modules
              if m == "dst_libp2p_test_node_tpu"
@@ -67,8 +73,9 @@ sys.exit(1 if bad else 0)
 def test_port_imports_without_jax():
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
-    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
-                          capture_output=True, text=True, timeout=120)
+    proc = subprocess.run([sys.executable, "-c", _PROBE, *SCRIPTS],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "leaked: []" in proc.stdout
 
@@ -76,8 +83,7 @@ def test_port_imports_without_jax():
 def test_port_sources_name_no_jax_import():
     pkg = os.path.join(ROOT, "dst_libp2p_test_node_tpu_torch")
     files = [os.path.join(ROOT, "chip_smoke.py")] + [
-        os.path.join(ROOT, "scripts", n)
-        for n in ("dcn_smoke_torch.py", "dcn_campaign_torch.py")]
+        os.path.join(ROOT, "scripts", n) for n in SCRIPTS]
     for dirpath, _, names in os.walk(pkg):
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith(".py")]

@@ -137,3 +137,63 @@ def test_experiment_config_fields_match_the_reference():
     want = [f.name for f in dataclasses.fields(jsim.ExperimentConfig)]
     assert [f.name for f in dataclasses.fields(tsim.ExperimentConfig)] \
         == want
+
+
+@pytest.mark.parametrize("rows", [1, 7, 1 << 16])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32, np.int64])
+def test_shadowlog_chunks_match_the_reference_loop(rows, dtype):
+    """The column-wise shadowlog, cut into chunks of `rows` lines, against
+    the reference's line-by-line loop: fractional byte counts, every
+    dtype the counters may come in."""
+    rng = np.random.default_rng(rows)
+    n = 50
+    cols = [(rng.integers(0, 10**7, n) * rng.choice([1, 0.5, 1 / 3], n)
+             ).astype(dtype) for _ in range(4)]
+    want = jbw.shadowlog_lines(jbw.PeerTraffic(*cols))
+    got = [ln for chunk in tbw.shadowlog_chunks(tbw.PeerTraffic(*cols),
+                                                rows=rows) for ln in chunk]
+    assert got == want
+
+
+@pytest.mark.parametrize("large", [False, True])
+def test_summary_from_blocks_matches_the_parsed_text(large):
+    """Simulator.summary's array path against the reference's parse of
+    the rendered latencies: a message id near 2^63, one id twice (an
+    empty block between), peers listed twice, negative and fractional
+    delays; every field, the spread dicts' order too."""
+    from dst_libp2p_test_node_tpu.runtime.summarize import (
+        summarize as jsummarize)
+    from dst_libp2p_test_node_tpu_torch.runtime.logemit import (
+        LatenciesWriter)
+    from dst_libp2p_test_node_tpu_torch.runtime.summarize import (
+        summarize_blocks)
+
+    rng = np.random.default_rng(int(large))
+    w = LatenciesWriter()
+    for mid, n in ((2**63 - 1, 300), (7, 0), (7, 120), (0, 250)):
+        w.add_message(mid, rng.integers(0, 400, n),
+                      rng.integers(-150, 5000, n) + rng.random(n))
+    buf = io.StringIO()
+    w.write_to(buf)
+    want = jsummarize(buf.getvalue().splitlines(), large=large)
+    got = summarize_blocks(w.blocks(), large=large)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert ([list(m.spread.items()) for m in got.messages]
+            == [list(m.spread.items()) for m in want.messages])
+
+
+def test_graph_builds_are_reused_as_copies():
+    """A repeated build returns the reference's graph, in arrays of its
+    own: writing into one copy leaves the next build as it was."""
+    from dst_libp2p_test_node_tpu.ops.graph import (
+        build_connection_graph as jbuild)
+    from dst_libp2p_test_node_tpu_torch.ops.graph import (
+        build_connection_graph)
+
+    first = build_connection_graph(300, 8, seed=4, max_degree=32)
+    first.conns[:] = -7
+    again = build_connection_graph(300, 8, seed=4, max_degree=32)
+    want = jbuild(300, 8, seed=4, max_degree=32)
+    for f in ("conns", "rev", "out_mask", "degree"):
+        assert np.array_equal(getattr(again, f), np.asarray(getattr(want, f)))
+    assert again.conns is not first.conns
