@@ -17,13 +17,20 @@ not printed):
                and 3x31x7 with a per-row and a shared t (batch rows that
                start mid-vector, straddle tiles, or are shorter than one),
                1x1, 0 rows, 100k x 40, 670k x 40 and 1M x 40 plain,
-               batched and shared-t; score_update's decayed counters
-               bitwise and its score within rtol 1e-5 / atol 1e-6 at
-               1000x37, 100k x 40, 670k x 40 and 1M x 40. Times each (CUDA
-               events) at the three main-path shapes beside its plain
-               version, a library yardstick and
-               its bound; for vmem_gather at 1M x 40 also the same call on
-               src sorted ascending (sequential reads of t) and one whole
+               batched and shared-t; score_update in both forms (three
+               outputs, and decay-only with_score=False) against its
+               plain version, the decayed counters bitwise and the score
+               within rtol 1e-5 / atol 1e-6, at 1000x37, 999x37 (numel
+               not a multiple of 4), 0 rows, x[1:] views of (1001, 37)
+               tensors (4 bytes off a 16-byte boundary: the scalar
+               loop; and fmd against slow at another offset), 100k x 40,
+               670k x 40 and 1M x 40.
+               Times each L2-cold (the cache flushed before every call,
+               CUDA events around each call) at the three main-path
+               shapes beside its plain version, a library yardstick and
+               its bound, score_update in both forms (its time before
+               the Hopper redesign printed beside them); for vmem_gather at 1M x 40
+               also the same call on src sorted ascending (sequential reads of t) and one whole
                relaxation sweep (exchange._inc_from plus the row min) on
                synthetic RecvConstants.
   3. parity  - the Simulator at 2048 peers on CUDA and on the CPU, with the
@@ -275,10 +282,12 @@ not printed):
                peak memory, host syncs, retraces within budget) and the
                sweep of both kernels' launch parameter (vmem_gather's
                blocks per SM up to its occupancy, score_update's threads
-               per block) at 100k, 670k and 1M x 40, every candidate held
+               per block in both forms; the table takes the decay-only
+               form's winner) at 100k, 670k and 1M x 40, every candidate held
                against the plain version, each candidate's time, the
                winner and its share of the bound, the default launch
-               within phase 2's spread; --install into a temporary
+               within 10% of this run's phase 2 time (both L2-cold);
+               --install into a temporary
                DST_TUNED_JSON. Counts zeroed just before and read just
                after. (c) 3b(c)'s config-4 exact publish from one warm
                state without and with the installed table: the same
@@ -465,6 +474,9 @@ SCRATCH = os.path.join(ROOT, ".smoke_tmp")     # big outputs, removed at end
 
 # vmem_gather's time at 1M x 40 before its Hopper redesign (PERF.md)
 GATHER_BEFORE_MS = 0.2996
+# score_update's phase-2 time before its Hopper redesign, by rows of 40
+# (PERF.md section 6; back-to-back launches, L2 state undefined)
+SCORE_BEFORE_MS = {1_000_000: 0.2854, 670_000: 0.1926, 100_000: 0.0425}
 
 # H100 SXM: 3.35 TB/s HBM, 67 TFLOP/s float32 outside the tensor cores
 # (NVIDIA's H100 data sheet)
@@ -637,17 +649,16 @@ def side_stop():
 
 
 def cuda_ms(fn, iters=20):
-    """Mean ms per call over `iters` calls, timed with CUDA events."""
+    """Mean ms per call over `iters` L2-cold calls after a warm-up: the
+    card's L2 flushed before each call, each call between its own pair of
+    CUDA events (runtime/microbench.mean_launch_s)."""
+    from dst_libp2p_test_node_tpu_torch.runtime.microbench import (
+        mean_launch_s)
+
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return mean_launch_s(fn, iters, dev) * 1e3
 
 
 def paired_ms(plain, kernel):
@@ -846,25 +857,50 @@ def phase_kernels(dev):
           f"{sweep_ms:.4f} ms, the gather {at_full['ms'] / sweep_ms:.1%} of "
           f"it")
 
-    # -- score_update: counters bitwise, score rtol 1e-5 / atol 1e-6 --------
+    # -- score_update, both forms: counters bitwise, score rtol 1e-5 / atol
+    # 1e-6 --------------------------------------------------------------
+    scales = torch.tensor([0.9 ** 7, 0.2 ** 3], dtype=torch.float32,
+                          device=dev)
     err = 0.0
-    shapes = ((1000, 37), (EXACT_N, 40), (SVC_ROWS, 40), (FULL_N, 40))
-    timed = {}
-    for n, c in shapes:
-        params = SimParams(n=n, capacity=c, slow_weight=-10.0)
-        fmd = torch.rand((n, c), generator=gen, device=dev) * 3.0
-        slow = torch.rand((n, c), generator=gen, device=dev) * 0.5
-        scales = torch.tensor([0.9 ** 7, 0.2 ** 3], dtype=torch.float32,
-                              device=dev)
-        got = su.score_update(fmd, slow, scales, params)
+
+    def counters(n, c):
+        return (torch.rand((n, c), generator=gen, device=dev) * 3.0,
+                torch.rand((n, c), generator=gen, device=dev) * 0.5)
+
+    labels = []
+
+    def held(label, fmd, slow):
+        nonlocal err
+        labels.append(label)
+        params = SimParams(n=max(fmd.shape[0], 1), capacity=fmd.shape[1],
+                           slow_weight=-10.0)
         want = su.score_update_ref(fmd, slow, scales, params)
-        check(torch.equal(got[0], want[0]), f"score_update fmd at {n}x{c}")
-        check(torch.equal(got[1], want[1]), f"score_update slow at {n}x{c}")
+        got = su.score_update(fmd, slow, scales, params)
+        dec = su.score_update(fmd, slow, scales, params, with_score=False)
+        check(dec[2] is None, f"score_update decay-only gave a score at "
+              f"{label}")
+        for form, out in (("three-output", got), ("decay-only", dec)):
+            check(torch.equal(out[0], want[0]),
+                  f"score_update {form} fmd at {label}")
+            check(torch.equal(out[1], want[1]),
+                  f"score_update {form} slow at {label}")
         check(torch.allclose(got[2], want[2], rtol=1e-5, atol=1e-6),
-              f"score_update score at {n}x{c}")
-        err = max(err, float((got[2] - want[2]).abs().max()))
-        if n < EXACT_N:
-            continue
+              f"score_update score at {label}")
+        if want[2].numel():
+            err = max(err, float((got[2] - want[2]).abs().max()))
+        return params
+
+    for n, c in ((1000, 37), (999, 37), (0, 40)):
+        held(f"{n}x{c}", *counters(n, c))
+    base_f, base_s = counters(1001, 37)
+    held("x[1:] views of 1001x37 (not 16-byte aligned: the scalar loop)",
+         base_f[1:], base_s[1:])
+    held("fmd x[1:] of 1001x37 against slow x[2:] of 1002x37", base_f[1:],
+         counters(1002, 37)[1][2:])
+    timed, decay = {}, {}
+    for n in (EXACT_N, SVC_ROWS, FULL_N):
+        fmd, slow = counters(n, 40)
+        params = held(f"{n}x40", fmd, slow)
         torch.cuda.synchronize()
         ms, plain = paired_ms(
             lambda: su.score_update_ref(fmd, slow, scales, params),
@@ -872,19 +908,35 @@ def phase_kernels(dev):
         b, by = bound_ms(fmd.numel() * 4 * 5 + 8, flops=fmd.numel() * 7.0)
         timed[n] = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
                         library_ms=None)
+        ms, plain = paired_ms(
+            lambda: su.decay_ref(fmd, slow, scales, params),
+            lambda: su.score_update(fmd, slow, scales, params,
+                                    with_score=False))
+        b, by = bound_ms(fmd.numel() * 4 * 4 + 8, flops=fmd.numel() * 4.0)
+        decay[n] = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                        library_ms=None)
+        del fmd, slow
     out["score_update"] = dict(
         name="score_update", route="cuda",
         source="dst_libp2p_test_node_tpu_torch/native/csrc/score_update.cu",
         replaces="dst_libp2p_test_node_tpu/native/score_update.py:90",
         max_abs_err=err, **timed[FULL_N], shape=[FULL_N, 40],
         exact=dict(timed[EXACT_N], shape=[EXACT_N, 40]),
-        service=dict(timed[SVC_ROWS], shape=[SVC_ROWS, 40]))
-    print(f"[kernels] score_update counters bitwise, score max |err| {err:g} "
-          f"at " + ", ".join(f"{n}x{c}" for n, c in shapes))
-    for n, at in timed.items():
-        print(f"[kernels] score_update at {n}x40: {at['ms']:.4f} ms vs plain "
-              f"{at['plain_ms']:.4f} ms, bound {at['bound_ms']:.4f} ms "
-              f"({at['bound_by']})")
+        service=dict(timed[SVC_ROWS], shape=[SVC_ROWS, 40]),
+        decay_only={str(n): at for n, at in decay.items()})
+    print(f"[kernels] score_update, three-output and decay-only forms: "
+          f"counters bitwise, score max |err| {err:g} at "
+          + ", ".join(labels))
+    for n in timed:
+        for form, at in (("three-output", timed[n]),
+                         ("decay-only", decay[n])):
+            before = (f"; before the redesign {SCORE_BEFORE_MS[n]} ms "
+                      f"(PERF.md, back-to-back launches, not L2-cold)"
+                      if form == "three-output" else "")
+            print(f"[kernels] score_update {form} at {n}x40 (L2-cold): "
+                  f"{at['ms']:.4f} ms vs plain {at['plain_ms']:.4f} ms, "
+                  f"bound {at['bound_ms']:.4f} ms ({at['bound_by']}), "
+                  f"share {at['bound_ms'] / at['ms']:.1%}{before}")
     return out
 
 
@@ -4192,23 +4244,16 @@ def phase_12(dev):
 
 # ---------------------------------------------------------------- phase 13
 
-# phase 2's time of each kernel with today's launch at each main-path
-# shape, the spread over PRs 2-12 (PERF.md section 6), in ms
-PHASE2_SPREAD_MS = {
-    ("vmem_gather", EXACT_N): (0.0355, 0.0498),
-    ("vmem_gather", SVC_ROWS): (0.2048, 0.2075),
-    ("vmem_gather", FULL_N): (0.2996, 0.3136),
-    ("score_update", EXACT_N): (0.0327, 0.0529),
-    ("score_update", SVC_ROWS): (0.1927, 0.1948),
-    ("score_update", FULL_N): (0.2847, 0.2900),
-}
-# slack around that spread (and this run's phase 2 time) that the sweep's
-# default launch must land inside: the sweep takes the least of 3 means
-# of 20 launches, phase 2 the lesser of 2
+# slack around this run's phase 2 time that the sweep's default launch
+# must land inside: both are L2-cold means of 20 launches (the sweep the
+# least of 3, phase 2 the lesser of 2)
 PHASE2_SLACK = 0.10
 
 
 def _phase2_ms(kernels, name, rows):
+    """Phase 2's time of sweep row `name` at `rows` x 40."""
+    if name == "score_update_decay_only":
+        return kernels["score_update"]["decay_only"][str(rows)]["ms"]
     k = kernels[name]
     return {EXACT_N: k["exact"], SVC_ROWS: k["service"], FULL_N: k}[rows][
         "ms"]
@@ -4255,7 +4300,8 @@ def phase_microbench(dev, kernels, table):
     `table`), counts zeroed just before and read just after. Every
     candidate was held against the plain version by the sweep; prints each
     candidate's time, the winner and its share of the bound, the default
-    launch beside phase 2, and the rooflines."""
+    launch beside this run's phase 2 (within PHASE2_SLACK; both L2-cold),
+    and the rooflines."""
     from dst_libp2p_test_node_tpu_torch.native import score_update as su
     from dst_libp2p_test_node_tpu_torch.native import tuned
     from dst_libp2p_test_node_tpu_torch.native import vmem_gather as vg
@@ -4276,6 +4322,11 @@ def phase_microbench(dev, kernels, table):
     _strict_json(art_path)
     check([s["n_rows"] for s in art["kernel_sweep"]] == list(mb.SWEEP_ROWS),
           "13(b): the sweep did not cover the three main-path shapes")
+    check(all(set(s["kernels"]) == {"vmem_gather", "score_update",
+                                    "score_update_decay_only"}
+              for s in art["kernel_sweep"]),
+          "13(b): the sweep did not time both kernels and both forms of "
+          "score_update")
     print(f"[tooling] 13(b) microbench: {wall:.1f} s, launches {launches}; "
           f"gather candidates 1-{max(mb.gather_candidates(dev))} blocks "
           f"per SM (the kernel's occupancy), every candidate equal to the "
@@ -4288,22 +4339,20 @@ def phase_microbench(dev, kernels, table):
             cands = ", ".join(f"{v} {w * 1e3:.4f}"
                               for v, w in e["candidates"].items())
             best, default = e[f"best_{param}"], e["default_wall_s"] * 1e3
-            lo, hi = PHASE2_SPREAD_MS[(name, rows)]
             p2 = _phase2_ms(kernels, name, rows)
             best_ms = e["best_wall_s"] * 1e3
             print(f"[tooling] 13(b) {name} at {rows}x{sw['cap']}, ms by "
                   f"{param}: {cands}; winner {best} {best_ms:.4f} ms "
                   f"({e['best_share']:.1%} of the "
                   f"{e['bound_s'] * 1e3:.4f} ms bound); default "
-                  f"{e['default']} {default:.4f} ms, phase 2 {p2:.4f} ms, "
-                  f"PRs 2-12 {lo}-{hi} ms "
-                  f"({'inside' if lo <= default <= hi else 'outside'})")
-            lo, hi = min(lo, p2), max(hi, p2)
-            if not (lo * (1 - PHASE2_SLACK) <= default
-                    <= hi * (1 + PHASE2_SLACK)):
+                  f"{e['default']} {default:.4f} ms, phase 2 {p2:.4f} ms "
+                  f"({default / p2 - 1:+.1%})")
+            if not (p2 * (1 - PHASE2_SLACK) <= default
+                    <= p2 * (1 + PHASE2_SLACK)):
                 off.append(f"{name} at {rows}: {default:.4f} ms, phase 2 "
-                           f"{lo}-{hi} ms")
-    check(not off, f"13(b) default launches off phase 2's spread: {off}")
+                           f"{p2:.4f} ms")
+    check(not off, f"13(b) default launches more than {PHASE2_SLACK:.0%} "
+          f"off this run's phase 2: {off}")
     print(f"[tooling] 13(b) tuned table {art['tuned']} installed at "
           f"{os.path.relpath(art['tuned_installed'], ROOT)}")
     roof = art["rooflines"]

@@ -9,9 +9,10 @@ each made by a textual edit of that source (VARIANTS below), plus, with
 (blocks_per_sm included) and an edit of it that drops its per-element
 64-bit division. Every library is held bitwise
 against `vmem_gather_ref` at ragged and full shapes, then all are timed at
-the main path's shape, 1M peers x 40 slots, with CUDA events (the mean
-of ITERS calls), in turns (forward then backward order; the lower mean of
-the two counts).
+the main path's shape, 1M peers x 40 slots, L2-cold (runtime/microbench.
+mean_launch_s: the mean of ITERS calls, the cache flushed before each and
+each between its own CUDA events), in turns (forward then backward order;
+the lower mean of the two counts).
 Yardsticks on the kept kernel: the same src sorted ascending (the t reads
 become sequential: the gap to random is the cost of the random reads), and
 random indices into a 2048-entry t (8 KB, resident in L1: the gap to the 1M
@@ -36,6 +37,7 @@ import sys
 
 import torch
 
+from ..runtime.microbench import mean_launch_s
 from . import build
 from .vmem_gather import DEFAULT_BLOCKS_PER_SM, vmem_gather_ref
 
@@ -136,8 +138,18 @@ def edited(source: str, edits) -> str:
     return source
 
 
-def build_all(sources: dict[str, str]) -> dict[str, ctypes.CDLL]:
-    """nvcc every source at once (the package's flags); load each."""
+def _bind_gather(lib: ctypes.CDLL) -> None:
+    lib.vmem_gather_launch.restype = ctypes.c_int
+    lib.vmem_gather_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_void_p]
+
+
+def build_all(sources: dict[str, str],
+              bind=_bind_gather) -> dict[str, ctypes.CDLL]:
+    """nvcc every source at once (the package's flags); load each and set
+    its launcher's ctypes signature with `bind`."""
     out_dir = os.path.join(build.BUILD_DIR, "bench")
     os.makedirs(out_dir, exist_ok=True)
     nvcc = build.nvcc_path()
@@ -163,11 +175,7 @@ def build_all(sources: dict[str, str]) -> dict[str, ctypes.CDLL]:
                 raise RuntimeError(f"{name}: nvcc exit {proc.returncode}\n"
                                    f"{log}")
         lib = ctypes.CDLL(so)
-        lib.vmem_gather_launch.restype = ctypes.c_int
-        lib.vmem_gather_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int, ctypes.c_void_p]
+        bind(lib)
         libs[name] = lib
     return libs
 
@@ -199,16 +207,11 @@ def inputs(n, c, gen, batch=None, n_src=None):
 
 
 def cuda_ms(fn, iters):
+    """Mean ms of one L2-cold call after a warm-up (mean_launch_s)."""
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return mean_launch_s(fn, iters, dev) * 1e3
 
 
 def check_all(libs, gen):

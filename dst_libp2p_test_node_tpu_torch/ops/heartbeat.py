@@ -329,8 +329,9 @@ def run_heartbeats(
             f_sc = f_sc * params.fmd_decay
             s_sc = s_sc * params.slow_decay
     # materialize the deferred decay once (exact: geometric decay with a
-    # monotone zero-cutoff commutes with deferral); the fused kernel also
-    # emits the score, which this site does not read
+    # monotone zero-cutoff commutes with deferral); this site reads no
+    # score, so the kernel's decay-only form writes none
     fmd, slow, _ = score_update(state.fmd, state.slow_penalty,
-                                torch.stack([f_sc, s_sc]), params)
+                                torch.stack([f_sc, s_sc]), params,
+                                with_score=False)
     return state.replace(fmd=fmd, slow_penalty=slow)

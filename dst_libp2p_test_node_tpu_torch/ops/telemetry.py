@@ -240,5 +240,6 @@ def run_recorded_heartbeats(state: SimState, conns, rev, out_mask,
             decay_scales=(f_sc, s_sc), deg=deg,
             contract_score="slow" if valid_pre is not None else None))
     fmd, slow, _ = score_update(state.fmd, state.slow_penalty,
-                                torch.stack([f_sc, s_sc]), params)
+                                torch.stack([f_sc, s_sc]), params,
+                                with_score=False)
     return state.replace(fmd=fmd, slow_penalty=slow), stack_obs(rounds)

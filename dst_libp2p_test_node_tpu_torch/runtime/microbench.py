@@ -19,12 +19,17 @@ strict JSON:
   kernel_sweep   every candidate launch parameter of both CUDA kernels
                  (native/tuned.py: vmem_gather's persistent blocks per SM,
                  1 to the kernel's occupancy limit; score_update's threads
-                 per block, 32 to 1024) timed through the wrappers'
+                 per block, 32 to 1024, in its three-output form and, as
+                 the row `score_update_decay_only`, in the decay-only form
+                 the main path launches) timed L2-cold (mean_launch_s:
+                 the cache flushed before every launch, each launch
+                 between its own CUDA events) through the wrappers'
                  override keyword at each swept shape, each candidate's
                  output held against the plain version in the same call
                  (the gather and the decayed counters bitwise, the score
                  within rtol 1e-5 / atol 1e-6): a candidate that differs
-                 raises. The winners become the `tuned` table; `--install`
+                 raises. The winners become the `tuned` table (score_update's
+                 entry is the decay-only form's winner); `--install`
                  writes it through native/tuned.tuned_path() and drops the
                  wrappers' cached table. On the CPU the plain version runs
                  (`interpret: true`): a functional sweep of the path and
@@ -67,6 +72,11 @@ SWEEP_CAP = 40
 # score_update's candidates: powers of two from one warp to the block limit
 THREAD_CANDIDATES = (32, 64, 128, 256, 512, 1024)
 SCORE_RTOL, SCORE_ATOL = 1e-5, 1e-6
+# sweep rows whose winner is another row's table entry: score_update's
+# threads are picked on the decay-only form, the one the main path launches
+# (ops/heartbeat.run_heartbeats, ops/telemetry); both forms are one kernel
+# template and one table entry
+TUNES = {"score_update_decay_only": "score_update"}
 
 
 def _wall_s(thunk, device) -> float:
@@ -90,16 +100,49 @@ def _min_wall(thunk, reps: int, device) -> float:
     return min(_wall_s(thunk, device) for _ in range(max(reps, 1)))
 
 
-def _mean_launch_s(thunk, iters: int, device) -> float:
-    """Mean seconds per call over `iters` back-to-back calls (CUDA events
-    around the run on the card), as chip_smoke.py phase 2 times a kernel:
-    each call's output is dropped before the next, so the caching
-    allocator hands the next call the same blocks."""
-    def run():
+def flush_l2(device) -> None:
+    """Evict the CUDA `device`'s L2 cache before a timed launch: write a
+    buffer of twice its size (`L2_cache_size` of the device's properties).
+    The buffer comes from the caching allocator and goes back to it at
+    once, so no memory stays held between launches. Raises ValueError on
+    a device that is not CUDA: a CPU sweep times with the host clock and
+    never calls it."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"flush_l2 needs a CUDA device, not {device}")
+    size = 2 * torch.cuda.get_device_properties(device).L2_cache_size
+    torch.empty(size, dtype=torch.uint8, device=device).fill_(0)
+
+
+# cycles the card idles before a timed run while the host queues every
+# launch of it (about 0.25 ms of host work a launch at ~2 GHz), so that no
+# host gap falls between a launch's two events
+QUEUE_CYCLES_PER_LAUNCH = 500_000
+
+
+def mean_launch_s(thunk, iters: int, device) -> float:
+    """Mean seconds of one call over `iters` calls of an already-warm
+    thunk. On the card every call is L2-cold: `flush_l2` runs just before
+    it, outside the call's own pair of CUDA events, so a time never
+    depends on what ran before. Each call's output is dropped before the
+    next. On the CPU: the host clock around the calls, no flush."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        t0 = time.perf_counter()
         for _ in range(iters):
             thunk()
-
-    return _wall_s(run, device) / iters
+        return (time.perf_counter() - t0) / iters
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    with torch.cuda.device(device):
+        torch.cuda._sleep(QUEUE_CYCLES_PER_LAUNCH * iters)
+        for start, end in pairs:
+            flush_l2(device)
+            start.record()
+            thunk()
+            end.record()
+        torch.cuda.synchronize(device)
+    return sum(s.elapsed_time(e) for s, e in pairs) / iters / 1e3
 
 
 def registry_rooflines(name_prefix: str | None = None,
@@ -170,7 +213,8 @@ def sweep_kernels(n_rows: int = SWEEP_ROWS[0], cap: int = SWEEP_CAP,
     (n_rows, cap) shape through the wrappers' override keyword, each
     candidate held against the plain version first (a difference raises).
     A candidate's time is the least over `reps` of the mean of `iters`
-    back-to-back launches; the per-kernel winner is the least time."""
+    L2-cold launches (mean_launch_s); the per-kernel winner is the least
+    time."""
     from ..device import resolve_device
     from ..native import score_update as su
     from ..native import vmem_gather as vg
@@ -192,6 +236,8 @@ def sweep_kernels(n_rows: int = SWEEP_ROWS[0], cap: int = SWEEP_CAP,
             if not torch.equal(got[i], want_s[i]):
                 raise RuntimeError(f"score_update threads={th}: {what} "
                                    f"differs at {n_rows}x{cap}")
+        if got[2] is None:                  # the decay-only form
+            return
         if not torch.allclose(got[2], want_s[2], rtol=SCORE_RTOL,
                               atol=SCORE_ATOL):
             raise RuntimeError(f"score_update threads={th}: score outside "
@@ -200,6 +246,7 @@ def sweep_kernels(n_rows: int = SWEEP_ROWS[0], cap: int = SWEEP_CAP,
 
     gather_bytes = (2 * src.numel() + t.numel()) * 4
     score_bytes = fmd.numel() * 4 * 5 + scales.numel() * 4
+    decay_bytes = fmd.numel() * 4 * 4 + scales.numel() * 4
     sweeps = {
         "vmem_gather": ("blocks_per_sm", vg.DEFAULT_BLOCKS_PER_SM,
                         gather_candidates(dev), gather_bytes,
@@ -210,6 +257,11 @@ def sweep_kernels(n_rows: int = SWEEP_ROWS[0], cap: int = SWEEP_CAP,
                          lambda th: su.score_update(fmd, slow, scales,
                                                     params, threads=th),
                          check_score),
+        "score_update_decay_only": (
+            "threads", su.DEFAULT_THREADS, THREAD_CANDIDATES, decay_bytes,
+            lambda th: su.score_update(fmd, slow, scales, params,
+                                       threads=th, with_score=False),
+            check_score),
     }
     out: dict = {"n_rows": n_rows, "cap": cap,
                  "interpret": dev.type != "cuda", "device": str(dev),
@@ -219,7 +271,7 @@ def sweep_kernels(n_rows: int = SWEEP_ROWS[0], cap: int = SWEEP_CAP,
         for v in cands:
             check(call(v), v)
             walls[v] = min(
-                _mean_launch_s(lambda: call(v), iters, dev)  # noqa: B023
+                mean_launch_s(lambda: call(v), iters, dev)  # noqa: B023
                 for _ in range(max(reps, 1)))
         best = min(walls, key=walls.get)
         entry = {"param": param, "default": default,
@@ -236,10 +288,14 @@ def sweep_kernels(n_rows: int = SWEEP_ROWS[0], cap: int = SWEEP_CAP,
 def tuned_table(sweeps: list[dict]) -> dict:
     """One launch parameter per kernel over several swept shapes: the
     candidate with the least sum over shapes of its time over that shape's
-    best time (each shape weighs the same, whatever its size)."""
+    best time (each shape weighs the same, whatever its size). A row named
+    in TUNES picks its target's entry in place of the target's own row."""
+    kernels = sweeps[0]["kernels"]
+    rows = {name: name for name in kernels if name not in TUNES}
+    rows.update({TUNES[name]: name for name in kernels if name in TUNES})
     table = {}
-    for name in sweeps[0]["kernels"]:
-        entries = [s["kernels"][name] for s in sweeps]
+    for name, row in rows.items():
+        entries = [s["kernels"][row] for s in sweeps]
         param = entries[0]["param"]
 
         def cost(v):

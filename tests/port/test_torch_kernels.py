@@ -15,7 +15,8 @@ import torch
 from dst_libp2p_test_node_tpu.native import score_update as jsu
 from dst_libp2p_test_node_tpu.native import vmem_gather as jvg
 from dst_libp2p_test_node_tpu.ops.state import SimParams as JParams
-from dst_libp2p_test_node_tpu_torch.native import build, gather_bench
+from dst_libp2p_test_node_tpu_torch.native import (build, gather_bench,
+                                                   score_bench)
 from dst_libp2p_test_node_tpu_torch.native import score_update as tsu
 from dst_libp2p_test_node_tpu_torch.native import vmem_gather as tvg
 from dst_libp2p_test_node_tpu_torch.ops.state import SimParams as TParams
@@ -145,6 +146,51 @@ def test_score_update_ref_matches_pallas_and_xla(shape, scales):
                                    rtol=1e-5, atol=1e-6)
 
 
+# (shape, scales, leading rows dropped): 999 x 37 has a numel that is not
+# a multiple of 4; x[1:] of a 1001 x 37 tensor is a contiguous view whose
+# data starts 148 bytes in (4 mod 16)
+_DECAY_CASES = [((64, 5), (0.9, 0.8), 0),
+                ((30, 7), (0.9 ** 13, 0.2 ** 4), 0),
+                ((256, 40), (1.0, 1.0), 0),
+                ((999, 37), (0.9 ** 7, 0.2 ** 3), 0),
+                ((1001, 37), (0.9 ** 7, 0.2 ** 3), 1)]
+
+
+@pytest.mark.parametrize("shape,scales,skip", _DECAY_CASES)
+def test_score_update_decay_only_matches_pallas_and_xla(shape, scales, skip):
+    n, c = shape
+    rng = np.random.default_rng(n)
+    fmd = rng.uniform(0.0, 40.0, size=(n, c)).astype(np.float32)
+    slow = rng.uniform(0.0, 0.5, size=(n, c)).astype(np.float32)
+    pj = JParams(n=n - skip, capacity=c, slow_weight=-10.0)
+    pt = TParams(n=n - skip, capacity=c, slow_weight=-10.0)
+    f_sc, s_sc = (np.float32(s) for s in scales)
+    tf, ts = torch.from_numpy(fmd)[skip:], torch.from_numpy(slow)[skip:]
+    assert tf.is_contiguous() and ts.is_contiguous()
+    got = tsu.score_update(tf, ts, torch.tensor([f_sc, s_sc]), pt,
+                           with_score=False)
+    assert got[2] is None
+    jf, js = jnp.asarray(fmd[skip:]), jnp.asarray(slow[skip:])
+    for want in (jsu.score_update(jf, js, f_sc, s_sc, pj, interpret=True),
+                 jsu.score_update_xla(jf, js, f_sc, s_sc, pj)):
+        assert got[0].numpy().tobytes() == np.asarray(want[0]).tobytes()
+        assert got[1].numpy().tobytes() == np.asarray(want[1]).tobytes()
+
+
+@pytest.mark.parametrize("with_score", [True, False])
+def test_score_update_rejects_what_the_kernel_does_not_take(with_score):
+    p = TParams(n=8, capacity=4)
+    f = torch.ones((8, 4))
+    sc = torch.tensor([0.5, 0.5])
+    for bad in (48, 0, 2048, True):
+        with pytest.raises(ValueError, match="threads"):
+            tsu.score_update(f, f, sc, p, threads=bad, with_score=with_score)
+    for a, b in ((f.t(), f.t()), (f.double(), f.double()), (f, f[:, ::2]),
+                 (f, f.half())):
+        with pytest.raises((TypeError, ValueError)):
+            tsu.score_update(a, b, sc, p, with_score=with_score)
+
+
 def test_kernel_build_is_keyed_by_source_hash(tmp_path, monkeypatch):
     assert set(build.KERNELS) == {"vmem_gather", "score_update"}
     for name, src in build.KERNELS.items():
@@ -180,3 +226,11 @@ def test_gather_bench_variants_are_edits_of_the_kept_source():
         assert (text == kept) == (name == "kept"), name
     with pytest.raises(ValueError, match="anchor"):
         gather_bench.edited(kept, [("no such line", "")])
+
+
+def test_score_bench_variants_are_edits_of_the_kept_source():
+    with open(os.path.join(build.CSRC_DIR, "score_update.cu")) as f:
+        kept = f.read()
+    for name, edits in score_bench.VARIANTS.items():
+        text = gather_bench.edited(kept, edits)
+        assert (text == kept) == (name == "kept"), name

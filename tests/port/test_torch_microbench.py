@@ -28,8 +28,11 @@ def test_sweep_smoke(sweep):
     assert {"n_rows", "cap", "interpret", "kernels"} <= set(sweep)
     assert sweep["interpret"] is True          # the plain versions ran
     assert (sweep["n_rows"], sweep["cap"]) == (64, 8)
+    assert list(sweep["kernels"]) == ["vmem_gather", "score_update",
+                                      "score_update_decay_only"]
     for kernel, param in (("vmem_gather", "blocks_per_sm"),
-                          ("score_update", "threads")):
+                          ("score_update", "threads"),
+                          ("score_update_decay_only", "threads")):
         entry = sweep["kernels"][kernel]
         assert {"candidates", "best_wall_s", f"best_{param}"} <= set(entry)
         assert entry["param"] == param
@@ -41,6 +44,22 @@ def test_sweep_smoke(sweep):
         str(b) for b in range(1, vg.MAX_BLOCKS_PER_SM + 1)]
     assert list(sweep["kernels"]["score_update"]["candidates"]) == [
         "32", "64", "128", "256", "512", "1024"]
+
+
+def test_flush_l2_refuses_the_cpu_and_a_cpu_sweep_never_calls_it(
+        monkeypatch):
+    with pytest.raises(ValueError, match="CUDA device"):
+        mb.flush_l2("cpu")
+    calls = []
+    monkeypatch.setattr(mb, "flush_l2", calls.append)
+    out = mb.sweep_kernels(n_rows=16, cap=4, reps=1, iters=2, device="cpu")
+    assert calls == []
+    assert all(w > 0.0 for k in out["kernels"].values()
+               for w in k["candidates"].values())
+    ran = []
+    assert mb.mean_launch_s(lambda: ran.append(1), 3,
+                            torch.device("cpu")) >= 0.0
+    assert ran == [1, 1, 1] and calls == []
 
 
 def test_a_candidate_that_differs_raises(monkeypatch):
@@ -77,6 +96,21 @@ def test_tuned_table_weighs_every_shape():
     sweeps = [sweep_of({"64": 1.0, "256": 1.1}),
               sweep_of({"64": 3.0, "256": 1.0})]
     assert mb.tuned_table(sweeps) == {"score_update": {"threads": 256}}
+
+
+def test_tuned_table_takes_score_update_from_the_decay_only_form():
+    def sweep_of(three, decay):
+        return {"kernels": {
+            "score_update": {"param": "threads", "candidates": three,
+                             "best_wall_s": min(three.values())},
+            "score_update_decay_only": {
+                "param": "threads", "candidates": decay,
+                "best_wall_s": min(decay.values())}}}
+
+    # the three-output form prefers 1024, the form the main path runs 128
+    sweeps = [sweep_of({"128": 1.1, "1024": 1.0}, {"128": 0.8, "1024": 0.9})
+              for _ in range(2)]
+    assert mb.tuned_table(sweeps) == {"score_update": {"threads": 128}}
 
 
 def test_run_writes_a_strict_json_artifact_and_installs(tmp_path,
